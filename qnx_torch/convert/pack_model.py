@@ -1,0 +1,263 @@
+"""Conversion pass: trained fake-quant VGG variables -> packed
+:class:`qnx_torch.nn.inference.PackedVGG` (torch port of the binary branch
+of :func:`qnx.convert.pack_model.pack_vgg`).
+
+Input is the JAX package's variables as numpy arrays — the
+``{"params", "quant", "batch_stats"}`` dict of ``jax.device_get(init_model(
+...)[1])``, of a training run, or of :func:`qnx_torch.models.factory.
+init_variables`.  Everything here is numpy, so the buffers equal the JAX
+converter's leaves byte for byte.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qnx_torch.kernels.xnor_conv import pack_conv_weights_np, padding_correction
+from qnx_torch.nn import inference as I
+from qnx_torch.ops.packing import pack_bits_np
+from qnx_torch.transforms.bn_fold import fold_bn_sign
+from qnx_torch.utils.config import Config
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def _t(x) -> torch.Tensor:
+    """numpy -> torch buffer with the JAX package's 32-bit dtypes (floats to
+    float32, as ``jnp.asarray`` does without x64)."""
+    x = np.asarray(x)
+    if np.issubdtype(x.dtype, np.floating):
+        x = x.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _binary_pattern(latent: np.ndarray, h: float) -> np.ndarray:
+    """±1 sign pattern of binarize(latent, H) in numpy float32, with the op
+    order of qnx.ops.quant.binary_tanh."""
+    latent = np.asarray(latent, np.float32)
+    hs = np.clip((latent / np.float32(h) + np.float32(1.0)) / np.float32(2.0),
+                 np.float32(0.0), np.float32(1.0)).astype(np.float32)
+    return (2.0 * np.round(hs) - 1.0).astype(np.float32)
+
+
+def _bn(params: dict, stats: dict, name: str, eps: float):
+    return dict(
+        gamma=_np(params[name]["scale"]),
+        beta=_np(params[name]["bias"]),
+        mean=_np(stats[name]["mean"]),
+        var=_np(stats[name]["var"]),
+        eps=eps,
+    )
+
+
+def _engine_activation(cf: Config) -> str:
+    """Canonical activation op for the real-bit engine lowering (see
+    :func:`qnx.convert.pack_model._engine_activation`): the binary family
+    lowers ``binary_tanh`` and ``binary_sigmoid``; a cross-family override
+    trains fake-quant but has no engine lowering."""
+    derived = cf.replace(activation=None).activation_name()
+    canonical = {"relu": "relu", "binary": "binary_tanh",
+                 "quant": "quantized_relu"}[derived]
+    if cf.activation is None:
+        return canonical
+    family = {"relu": ("relu",),
+              "binary": ("binary_tanh", "binary_sigmoid"),
+              "quant": ("quantized_relu", "quantized_tanh")}[derived]
+    if cf.activation not in family:
+        raise ValueError(
+            f"activation override {cf.activation!r} trains fake-quant but "
+            f"its engine lowering is not implemented for this config's "
+            f"{derived!r} activation family (implemented here: {family} or "
+            "activation=None); evaluate it with the fake-quant forward "
+            "instead — see docs/PARITY.md")
+    return cf.activation
+
+
+def _zo_fold_params(alpha: float, bias, pattern: np.ndarray, axes):
+    """binary_sigmoid input coding: activations a = (t+1)/2 in {0,1}, so
+    sum a*w = (s + sum_w)/2 exactly.  Returns (alpha/2, bias +
+    (alpha/2) * per-channel sum_w)."""
+    sumw = np.asarray(pattern, np.float64).sum(axis=axes)
+    b = np.zeros_like(sumw) if bias is None else np.asarray(bias, np.float64)
+    return alpha / 2.0, b + (alpha / 2.0) * sumw
+
+
+def validate_vgg_variables(variables: dict, cf: Config) -> None:
+    """Up-front structural validation of a VGG variables tree against the
+    6-conv/2-dense/head template: missing layers, broken channel chaining
+    or a flatten width inconsistent with the pool schedule fail here."""
+    params = variables.get("params", {})
+    expected = ([f"conv_{i}" for i in range(6)]
+                + [f"bn_conv_{i}" for i in range(6)]
+                + ["dense_0", "dense_1", "bn_dense_0", "bn_dense_1",
+                   "dense_out", "bn_out"])
+    missing = [n for n in expected if n not in params]
+    if missing:
+        raise ValueError(
+            f"VGG variables missing layers {missing}; present: "
+            f"{sorted(params)} — expected the 6-conv/2-dense template "
+            "(conv_0..5 + bn_conv_0..5, dense_0..1 + bn_dense_0..1, "
+            "dense_out + bn_out)")
+
+    def shape(name):
+        return tuple(np.shape(params[name]["kernel"]))
+
+    cin = cf.input_shape[-1]
+    for i in range(6):
+        s = shape(f"conv_{i}")
+        if len(s) != 4:
+            raise ValueError(f"conv_{i}: kernel must be (kh, kw, cin, cout), "
+                             f"got {s}")
+        if s[2] != cin:
+            raise ValueError(
+                f"conv_{i}: input channels {s[2]} do not chain from the "
+                f"previous layer's {cin} output channels")
+        cin = s[3]
+        bns = np.shape(params[f"bn_conv_{i}"]["scale"])
+        if bns != (cin,):
+            raise ValueError(f"bn_conv_{i}: scale shape {bns} != ({cin},)")
+
+    hin, win, _ = cf.input_shape
+    fh, fw = hin // 8, win // 8  # three 2x2 pools (after conv_1/3/5)
+    flat = fh * fw * cin
+    s = shape("dense_0")
+    if len(s) != 2:
+        raise ValueError(f"dense_0: kernel must be 2-D (in, units), got {s}")
+    if s[0] != flat:
+        raise ValueError(
+            f"dense_0: kernel {s} does not consume the flattened conv "
+            f"output ({fh}x{fw}x{cin} = {flat} after three 2x2 pools of the "
+            f"{hin}x{win} input)")
+    k = s[1]
+    for name in ("dense_1", "dense_out"):
+        s = shape(name)
+        if len(s) != 2:
+            raise ValueError(f"{name}: kernel must be 2-D (in, units), "
+                             f"got {s}")
+        if s[0] != k:
+            raise ValueError(
+                f"{name}: input width {s[0]} does not chain from the "
+                f"previous layer's {k} units")
+        k = s[1]
+    if k != cf.classes:
+        raise ValueError(
+            f"dense_out: {k} output units != cf.classes = {cf.classes}")
+
+
+def _pack_dense_per_position(pattern: np.ndarray, h: int, w: int, c: int):
+    """Pack a (h*w*c, N) dense pattern whose input is the flatten of packed
+    (h, w, Cw) conv bits: pack along C per spatial position so the word
+    layout matches the runtime flatten. Returns (wp (h*w*Cw, N), k_true)."""
+    n = pattern.shape[1]
+    p = pattern.reshape(h * w, c, n)
+    wp = pack_bits_np(p, axis=1)  # (h*w, Cw, N)
+    return wp.reshape(-1, n), h * w * c
+
+
+def pack_vgg(variables: dict, cf: Config) -> I.PackedVGG:
+    """Lower a trained binary QuantVGG (``full-bnn``, abits=1) into a
+    :class:`qnx_torch.nn.inference.PackedVGG` on the CPU; move it with
+    ``.to(device)``."""
+    if cf.architecture != "vgg":
+        raise ValueError("pack_vgg expects a vgg config")
+    if cf.abits != 1 or cf.network_type not in ("full-bnn", "full-tnn"):
+        raise ValueError(
+            "packed VGG path requires binary activations (abits=1); "
+            f"got {cf.network_type}/abits={cf.abits}")
+    if cf.network_type == "full-tnn":
+        raise NotImplementedError(
+            "ternary packed VGG is not ported yet (ROADMAP.md §1 item 8, "
+            "kernel A' of §2)")
+    sig = _engine_activation(cf) == "binary_sigmoid"
+    validate_vgg_variables(variables, cf)
+    params = variables["params"]
+    quant = variables.get("quant", {})
+    stats = variables["batch_stats"]
+    eps = cf.batch_norm_epsilon
+    hin, win, _ = cf.input_shape
+
+    def conv_weights(name):
+        latent = _np(params[name]["kernel"])  # (kh,kw,C,N)
+        bias = _np(params[name]["bias"]) if "bias" in params[name] else None
+        h = float(quant[name]["H"]) if name in quant else None
+        return latent, h, bias
+
+    def in_fold(alpha, bias, pattern, axes=0):
+        """INPUT-coding fold; binary_sigmoid also zeroes the conv border
+        correction (its pad bit decodes to a = 0, the fake-quant zero pad)."""
+        if sig:
+            return _zo_fold_params(alpha, bias, pattern, axes=axes)
+        return alpha, bias
+
+    # ---- first conv: float path -> bits
+    latent, h, bias = conv_weights("conv_0")
+    if h is None:  # float first layer (cf.first_layer_float)
+        w0 = latent.astype(np.float32)
+    else:
+        w0 = (_binary_pattern(latent, h) * h).astype(np.float32)
+    bn = _bn(params, stats, "bn_conv_0", eps)
+    first = I.FloatConvBits(
+        w=_t(w0), bias=None if bias is None else _t(bias),
+        bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
+        bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]), bn_eps=eps, pool=False)
+
+    # ---- packed conv blocks 1..5 (pool after odd layers, spatial halves)
+    convs = []
+    sh, sw = hin, win  # spatial dims at the INPUT of each conv
+    for i in range(1, 6):
+        if i == 2 or i == 4:
+            sh, sw = sh // 2, sw // 2
+        latent, h, bias = conv_weights(f"conv_{i}")
+        bn = _bn(params, stats, f"bn_conv_{i}", eps)
+        pattern = _binary_pattern(latent, h)
+        wp, k = pack_conv_weights_np(pattern)
+        corr = (np.zeros((sh, sw, pattern.shape[-1]), np.int32) if sig
+                else padding_correction(pattern, sh, sw))
+        a_eff, b_eff = in_fold(h, bias, pattern, axes=(0, 1, 2))
+        thr = fold_bn_sign(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                           eps, alpha=a_eff, bias=b_eff)
+        convs.append(I.PackedConvBits(
+            wp=_t(wp), corr=_t(corr), sgn=_t(thr.sgn), tau=_t(thr.tau),
+            k=k, pool=i % 2 == 1))
+
+    # ---- dense stack: dense_0 consumes the per-position packed flatten
+    fh, fw = sh // 2, sw // 2  # after conv_5's pool
+    c_last = _np(params["conv_5"]["kernel"]).shape[-1]
+    denses = []
+    for j in range(2):
+        name = f"dense_{j}"
+        latent = _np(params[name]["kernel"])
+        h = float(quant[name]["H"])
+        bias = _np(params[name]["bias"]) if "bias" in params[name] else None
+        bn = _bn(params, stats, f"bn_dense_{j}", eps)
+        pattern = _binary_pattern(latent, h)
+        if j == 0:
+            wp, k = _pack_dense_per_position(pattern, fh, fw, c_last)
+        else:
+            wp, k = pack_bits_np(pattern, axis=0), pattern.shape[0]
+        a_eff, b_eff = in_fold(h, bias, pattern)
+        thr = fold_bn_sign(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                           eps, alpha=a_eff, bias=b_eff)
+        denses.append(I.PackedDenseBits(wp=_t(wp), sgn=_t(thr.sgn),
+                                        tau=_t(thr.tau), k=k))
+
+    # ---- head
+    name = "dense_out"
+    if name in quant:
+        raise NotImplementedError(
+            "a binary (packed) head needs the unfused popcount GEMM kernel, "
+            "not ported yet (ROADMAP.md §2 kernel B, the MLP slice); use a "
+            "config with last_layer_float=True")
+    latent = _np(params[name]["kernel"])
+    bias = _np(params[name]["bias"]) if "bias" in params[name] else None
+    bn = _bn(params, stats, "bn_out", eps)
+    head = I.FloatDenseLogitsFromBits(
+        w=_t(latent.astype(np.float32)),
+        bias=None if bias is None else _t(bias),
+        bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
+        bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]),
+        bn_eps=eps, k=latent.shape[0], coding="zo" if sig else "pm1")
+
+    return I.PackedVGG(first=first, convs=convs, denses=denses, head=head)

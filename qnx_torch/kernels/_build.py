@@ -1,0 +1,101 @@
+"""Build the CUDA kernels in ``csrc/`` at first use and bind them with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface (a few seconds; sources that include PyTorch's headers would take
+minutes).  The library lands in ``_build/`` beside this file, named by a
+hash of the sources and flags, so an edited source rebuilds and an unchanged
+one is reused.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).with_name("_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argument types of each C entry point in csrc/xnor_fused.cu
+_SIGNATURES = {
+    "qnx_xnor_dense_fused": [_P] * 5 + [_I] * 4 + [_P],
+    "qnx_xnor_conv3x3_fused": [_P] * 6 + [_I] * 7 + [_P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor under CUDA_HOME): the qnx_torch "
+        "CUDA kernels are built from source at first use and need the CUDA "
+        "toolkit")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libqnx_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """The compiler's output (ptxas register and spill report) of the build
+    of the current sources, or "" if it has not been built."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def _build(lib: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building the qnx_torch CUDA kernels failed (exit "
+            f"{proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with typed entry points."""
+    lib_path = library_path()
+    if not lib_path.exists():
+        _build(lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.qnx_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.qnx_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        msg = lib.qnx_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}: {msg}")

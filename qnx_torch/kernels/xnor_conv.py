@@ -1,0 +1,75 @@
+"""Packed binary convolution helpers (torch port of
+:mod:`qnx.kernels.xnor_conv`): packed-word patch gathering, host-side weight
+packing and the zero-padding correction, plus the unfused conv as a plain
+reference.
+
+Zero-padding correction: a zero pad is a third symbol in the ±1 domain.
+The packed input is padded with 0-bits, which decode to -1, so
+
+    s_packed[b,h,w,n] = s_zero_pad[b,h,w,n] - sum_{taps outside image} w[tap,n]
+
+and the exact zero-pad conv is recovered with the input-independent
+``corr[h,w,n] = sum_{pad taps at (h,w)} w[tap,n]`` (:func:`padding_correction`).
+
+Layout contract: activations NHWC packed along C (C bits -> Cw words per
+position); weights HWIO packed along I per tap, concatenated tap-major
+[(dy0,dx0) words..., (dy0,dx1) words...] to match patch order.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qnx_torch.ops.packing import pack_bits_np
+from qnx_torch.ops.reference import xnor_gemm_ref
+
+
+def extract_packed_patches(xp: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """(B, H, W, Cw) packed words -> (B, H, W, kh*kw*Cw) 'SAME' patches.
+
+    Pads with all-zero words (= -1 bits, corrected downstream) and stacks
+    the kh*kw shifted views along the last axis, tap-major."""
+    b, h, w, cw = xp.shape
+    ph, pw = kh // 2, kw // 2
+    xpad = xp.new_zeros(b, h + 2 * ph, w + 2 * pw, cw)
+    xpad[:, ph:ph + h, pw:pw + w, :] = xp
+    taps = [xpad[:, dy:dy + h, dx:dx + w, :]
+            for dy in range(kh) for dx in range(kw)]
+    return torch.cat(taps, dim=-1)
+
+
+def pack_conv_weights_np(pattern: np.ndarray):
+    """Host-side: (kh, kw, C, N) ±1 pattern -> (kh*kw*Cw, N) packed planes
+    matching :func:`extract_packed_patches` order. Returns (wp, k_true)."""
+    kh, kw, c, n = pattern.shape
+    blocks = [pack_bits_np(pattern[dy, dx], axis=0)  # (Cw, N)
+              for dy in range(kh) for dx in range(kw)]
+    return np.concatenate(blocks, axis=0), kh * kw * c
+
+
+def padding_correction(pattern: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Host-side: corr[h, w, n] = sum over taps falling outside the image of
+    sum_c pattern[dy, dx, c, n].  Adding ``corr`` to the packed conv output
+    yields the exact zero-padding conv result."""
+    kh, kw, _, n = pattern.shape
+    ph, pw = kh // 2, kw // 2
+    wsum = pattern.sum(axis=2, dtype=np.int64)  # (kh, kw, n)
+    corr = np.zeros((h, w, n), np.int64)
+    for dy in range(kh):
+        for dx in range(kw):
+            # tap (dy,dx) at output (y,x) reads input (y+dy-ph, x+dx-pw)
+            ys = np.arange(h)[:, None] + dy - ph
+            xs = np.arange(w)[None, :] + dx - pw
+            outside = (ys < 0) | (ys >= h) | (xs < 0) | (xs >= w)
+            corr += outside[:, :, None] * wsum[dy, dx][None, None, :]
+    return corr.astype(np.int32)
+
+
+def xnor_conv(xp: torch.Tensor, wp: torch.Tensor, k: int, corr: torch.Tensor,
+              kh: int = 3, kw: int = 3) -> torch.Tensor:
+    """Packed binary 'SAME' conv, stride 1: (B,H,W,Cw) x (kh*kw*Cw, N) ->
+    exact zero-pad conv output (B,H,W,N) int32 (plain reference)."""
+    b, h, w, _ = xp.shape
+    patches = extract_packed_patches(xp, kh, kw)
+    s = xnor_gemm_ref(patches.reshape(b * h * w, -1), wp, k)
+    return s.reshape(b, h, w, -1) + corr[None]

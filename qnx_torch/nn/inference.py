@@ -1,0 +1,182 @@
+"""Packed-integer inference engine for the binary VGG (torch port of the
+binary layers of :mod:`qnx.nn.inference`).
+
+A packed model is a chain of
+
+    bits --XNOR popcount conv/GEMM--> int32 s --(sgn*s >= tau)--> bits
+
+with float math only at the first conv (real-valued images in) and the
+logit head.  Layers are ``nn.Module``s whose packed words, corrections,
+thresholds and float weights are buffers, so ``model.to(device)`` moves all
+of it.  Tensors keep the JAX package's layout: NHWC activations packed along
+C, (9*Cw, N) tap-major conv weights, (Kw, N) dense weights.
+"""
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from qnx_torch.kernels.xnor_conv_fused import xnor_conv_fused, xnor_gemm_fused
+from qnx_torch.ops.packing import pack_bits, unpack_bits
+
+_TF32_LOCK = threading.Lock()
+
+
+@contextmanager
+def _ieee_f32():
+    """Launch the float boundary ops in IEEE float32, the counterpart of the
+    JAX package's ``REFERENCE_PRECISION``: TF32 off for cuBLAS and cuDNN
+    (cuDNN allows TF32 by default) for the ops inside only, and the caller's
+    settings restored after.  The flags are process-wide and read when an op
+    is launched, so the lock keeps two forwards in different threads from
+    restoring each other's settings mid-launch."""
+    with _TF32_LOCK:
+        matmul = torch.backends.cuda.matmul.allow_tf32
+        cudnn = torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+            torch.backends.cudnn.allow_tf32 = cudnn
+
+
+class _BatchNorm(nn.Module):
+    """Inference BN with flax.linen's op order:
+    (y - mean) * (rsqrt(var + eps) * scale) + bias."""
+
+    def __init__(self, bn_scale, bn_bias, bn_mean, bn_var, bn_eps: float):
+        super().__init__()
+        self.register_buffer("bn_scale", bn_scale)
+        self.register_buffer("bn_bias", bn_bias)
+        self.register_buffer("bn_mean", bn_mean)
+        self.register_buffer("bn_var", bn_var)
+        self.bn_eps = bn_eps
+
+    def _bn(self, y: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.bn_var + self.bn_eps) * self.bn_scale
+        return (y - self.bn_mean) * mul + self.bn_bias
+
+
+def _maxpool2(y: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max pool (NHWC, 'VALID'), exact on int32 or f32."""
+    b, h, w, c = y.shape
+    y = y[:, :h // 2 * 2, :w // 2 * 2]
+    return y.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+class FloatConvBits(_BatchNorm):
+    """Float first conv layer: f32 'SAME' conv (+bias) -> BN -> sign bits
+    packed along channels.  Optional 2x2 max pool BEFORE BN (BinaryNet)."""
+
+    def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                 bn_eps: float = 1e-4, pool: bool = False):
+        super().__init__(bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
+        self.register_buffer("w", w)        # (kh, kw, C, N) f32, HWIO
+        self.register_buffer("bias", bias)  # (N,) f32 or None
+        self.pool = pool
+
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The f32 'SAME' conv (+bias), NHWC in and out."""
+        kh, kw = self.w.shape[:2]
+        with _ieee_f32():
+            y = F.conv2d(x.permute(0, 3, 1, 2), self.w.permute(3, 2, 0, 1),
+                         padding=(kh // 2, kw // 2))
+        y = y.permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        if self.pool:
+            y = _maxpool2(y)
+        return pack_bits(self._bn(y), axis=-1)
+
+
+class PackedConvBits(nn.Module):
+    """Binary hidden conv: packed 3x3 conv + pad corr (+ max pool of s) +
+    integer threshold -> packed bits, in one kernel."""
+
+    def __init__(self, wp, corr, sgn, tau, k: int, pool: bool = False):
+        super().__init__()
+        self.register_buffer("wp", wp)      # (9*Cw, N) int32
+        self.register_buffer("corr", corr)  # (H, W, N) int32
+        self.register_buffer("sgn", sgn)    # (N,) int32 in {+1, -1}
+        self.register_buffer("tau", tau)    # (N,) int32
+        self.k = k
+        self.pool = pool
+
+    def forward(self, bits: torch.Tensor) -> torch.Tensor:
+        return xnor_conv_fused(bits, self.wp, self.k, self.corr, self.sgn,
+                               self.tau, pool=self.pool)
+
+
+class PackedDenseBits(nn.Module):
+    """Binary hidden dense layer: popcount GEMM + integer threshold ->
+    packed bits, in one kernel."""
+
+    def __init__(self, wp, sgn, tau, k: int):
+        super().__init__()
+        self.register_buffer("wp", wp)      # (Kw, N) int32
+        self.register_buffer("sgn", sgn)
+        self.register_buffer("tau", tau)
+        self.k = k
+
+    def forward(self, bits: torch.Tensor) -> torch.Tensor:
+        return xnor_gemm_fused(bits, self.wp, self.k, self.sgn, self.tau)
+
+
+class FloatDenseLogitsFromBits(_BatchNorm):
+    """Float head over binary activations: unpack bits to ±1 ('pm1') or
+    {0,1} ('zo', binary_sigmoid), f32 GEMM (+bias), BN -> logits."""
+
+    def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                 bn_eps: float = 1e-4, k: int = 0, coding: str = "pm1"):
+        super().__init__(bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
+        if coding not in ("pm1", "zo"):
+            raise ValueError(f"coding must be 'pm1' or 'zo', got {coding!r}")
+        self.register_buffer("w", w)        # (K, N) f32
+        self.register_buffer("bias", bias)
+        self.k = k
+        self.coding = coding
+
+    def forward(self, bits: torch.Tensor) -> torch.Tensor:
+        x = unpack_bits(bits, self.k, axis=-1, dtype=torch.float32)
+        if self.coding == "zo":
+            x = (x + 1.0) * 0.5  # the stored bit IS the {0,1} value
+        with _ieee_f32():
+            y = x @ self.w
+        if self.bias is not None:
+            y = y + self.bias
+        return self._bn(y)
+
+
+class PackedVGG(nn.Module):
+    """End-to-end packed VGG: float first conv -> packed conv blocks ->
+    flatten (C-word-aligned) -> packed dense -> head."""
+
+    def __init__(self, first: FloatConvBits, convs, denses, head):
+        super().__init__()
+        self.first = first
+        self.convs = nn.ModuleList(convs)
+        self.denses = nn.ModuleList(denses)
+        self.head = head
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        bits = self.first(images)
+        for layer in self.convs:
+            bits = layer(bits)
+        bits = bits.reshape(bits.shape[0], -1)  # (H*W*Cw) word-aligned flatten
+        for layer in self.denses:
+            bits = layer(bits)
+        return self.head(bits)
+
+
+def vgg_forward(model: PackedVGG, images: torch.Tensor) -> torch.Tensor:
+    """Packed forward: NHWC images in [-1, 1] -> logits."""
+    with torch.inference_mode():
+        return model(images)

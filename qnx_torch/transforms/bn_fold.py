@@ -1,0 +1,80 @@
+"""BatchNorm -> per-channel integer threshold folding (torch port of
+:func:`qnx.transforms.bn_fold.fold_bn_sign`, in numpy as the original).
+
+At inference every hidden block of the binary network is
+
+    s = popcount-GEMM(x_bits, w_bits)        (exact int32, ±1 dot)
+    y = gamma * (alpha*s + bias - mu) / sqrt(var + eps) + beta
+    out_bit = +1  iff  y > 0                 (strict)
+
+Since s is an integer and everything else is constant per channel, the float
+epilogue collapses to one integer comparison:
+
+    out_bit = (sgn[c] * s >= tau[c])
+
+with ``sgn in {+1,-1}`` absorbing the sign of gamma and ``tau = floor(theta)
++ 1`` encoding the strict inequality ``s > theta`` exactly for integer s.
+Thresholds are computed in float64 at conversion time.  Degenerate
+gamma == 0 channels become constant bits via saturated thresholds.
+``tests/test_torch_config.py`` holds the fold equal to the JAX package's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+INT32_MIN = np.int32(-(2**31))
+INT32_MAX = np.int32(2**31 - 1)
+
+
+@dataclass(frozen=True)
+class SignThreshold:
+    """Per-channel integer sign test: bit[c] = (sgn[c]*s[c] >= tau[c])."""
+
+    sgn: np.ndarray  # (C,) int32 in {+1, -1}
+    tau: np.ndarray  # (C,) int32
+
+    def __iter__(self):  # convenient (sgn, tau) unpacking
+        return iter((self.sgn, self.tau))
+
+
+def _strict_gt_threshold(theta: np.ndarray) -> np.ndarray:
+    """Smallest int32 tau with (s >= tau) == (s > theta) for all int s."""
+    tau = np.floor(theta) + 1.0
+    return np.clip(tau, INT32_MIN, INT32_MAX).astype(np.int64).astype(np.int32)
+
+
+def fold_bn_sign(gamma, beta, mean, var, eps: float, alpha=1.0,
+                 bias=None) -> SignThreshold:
+    """Fold BN + strict sign into an integer threshold test.
+
+    Solves  gamma*(alpha*s + bias - mean)/sqrt(var+eps) + beta > 0  for the
+    integer GEMM output s, per channel, in float64.
+    """
+    gamma = np.asarray(gamma, np.float64)
+    beta = np.asarray(beta, np.float64)
+    mean = np.asarray(mean, np.float64)
+    var = np.asarray(var, np.float64)
+    alpha = np.broadcast_to(np.asarray(alpha, np.float64), gamma.shape)
+    bias = (np.zeros_like(gamma) if bias is None
+            else np.broadcast_to(np.asarray(bias, np.float64), gamma.shape))
+    if np.any(alpha <= 0):
+        raise ValueError(
+            "alpha (weight scale) must be positive: the scale is folded into "
+            "the threshold by dividing through it, so a non-positive alpha "
+            "would flip (or collapse) the comparison direction, which this "
+            "fold expresses only via the gamma sign")
+    std = np.sqrt(var + eps)
+    # y > 0  <=>  gamma * (alpha*s + bias - mean) > -beta * std
+    theta = (mean - bias - beta * std / np.where(gamma == 0, 1.0, gamma)) / alpha
+
+    sgn = np.where(gamma >= 0, 1, -1).astype(np.int32)
+    tau = np.where(sgn == 1, _strict_gt_threshold(theta),
+                   _strict_gt_threshold(-theta)).astype(np.int32)
+    # gamma == 0: y = beta, constant bit
+    zero = gamma == 0
+    sgn = np.where(zero, 1, sgn).astype(np.int32)
+    tau = np.where(zero, np.where(beta > 0, INT32_MIN, INT32_MAX),
+                   tau).astype(np.int32)
+    return SignThreshold(sgn=sgn, tau=tau)

@@ -1,0 +1,74 @@
+"""The port's own config and BN fold (qnx_torch.utils.config,
+qnx_torch.transforms.bn_fold) against the JAX package's originals, which
+the port does not import."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from qnx.transforms import bn_fold as jax_bn_fold
+from qnx.utils import config as jax_config
+from qnx_torch.transforms import bn_fold
+from qnx_torch.utils import config
+
+torch.set_num_threads(2)
+
+
+def test_config_fields_and_defaults_match():
+    ours = [(f.name, f.default) for f in dataclasses.fields(config.Config)]
+    want = [(f.name, f.default) for f in dataclasses.fields(jax_config.Config)]
+    assert ours == want
+    assert config.NETWORK_TYPES == jax_config.NETWORK_TYPES
+
+
+@pytest.mark.parametrize("name", sorted(jax_config.CONFIGS))
+def test_config_preset_matches(name):
+    ours, want = config.CONFIGS[name], jax_config.CONFIGS[name]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(want)
+    assert ours.input_shape == want.input_shape
+    assert ours.weight_quantizer_name() == want.weight_quantizer_name()
+    assert ours.activation_name() == want.activation_name()
+    for act in ("binary_sigmoid", "quantized_relu"):
+        assert (ours.replace(activation=act).activation_name()
+                == want.replace(activation=act).activation_name())
+
+
+def _bn(rng, c):
+    gamma = rng.normal(0.0, 1.0, c)
+    gamma[:4] = 0.0  # constant-bit channels
+    beta = rng.normal(0.0, 1.0, c)
+    beta[:2] = [0.5, -0.5]
+    mean = rng.normal(0.0, 20.0, c)
+    var = rng.uniform(0.1, 400.0, c)
+    return gamma, beta, mean, var
+
+
+@pytest.mark.parametrize("alpha,with_bias", [
+    (1.0, False), (0.0625, True), ("per-channel", True), (1e-9, False)],
+    ids=["unit", "H-and-bias", "per-channel", "tiny-alpha-saturates"])
+def test_fold_bn_sign_matches(alpha, with_bias):
+    rng = np.random.default_rng(0)
+    c = 64
+    gamma, beta, mean, var = _bn(rng, c)
+    if alpha == "per-channel":
+        alpha = rng.uniform(0.01, 2.0, c)
+    bias = rng.normal(0.0, 1.0, c) if with_bias else None
+    got = bn_fold.fold_bn_sign(gamma, beta, mean, var, 1e-4, alpha=alpha,
+                               bias=bias)
+    want = jax_bn_fold.fold_bn_sign(gamma, beta, mean, var, 1e-4, alpha=alpha,
+                                    bias=bias)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+    assert (got.sgn == -1).any()
+    assert got.tau[0] == bn_fold.INT32_MIN and got.tau[1] == bn_fold.INT32_MAX
+
+
+def test_fold_bn_sign_rejects_non_positive_alpha():
+    one = np.ones(3)
+    for alpha in (0.0, -1.0):
+        with pytest.raises(ValueError, match="alpha"):
+            bn_fold.fold_bn_sign(one, one, one, one, 1e-4, alpha=alpha)
+        with pytest.raises(ValueError, match="alpha"):
+            jax_bn_fold.fold_bn_sign(one, one, one, one, 1e-4, alpha=alpha)

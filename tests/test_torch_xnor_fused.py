@@ -1,0 +1,138 @@
+"""qnx_torch's fused XNOR dense and conv wrappers against the JAX package:
+on CPU tensors they run their plain versions, whose packed output words must
+equal ``pack_bits_mxu`` of the JAX kernels' int8 codes (Pallas in interpret
+mode), word for word.  The CUDA kernels themselves are checked against the
+same plain versions on the card by ``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qnx.kernels import xnor_conv as jax_xc
+from qnx.kernels import xnor_conv_fused as jax_fused
+from qnx.ops.packing import pack_bits_mxu
+from qnx_torch.kernels import xnor_conv_fused as F
+from qnx_torch.kernels.xnor_conv import (pack_conv_weights_np,
+                                         padding_correction, xnor_conv)
+from qnx_torch.ops.packing import pack_bits, pack_bits_np
+
+torch.set_num_threads(2)
+
+I32 = np.iinfo(np.int32)
+
+
+def _pm1(rng, shape):
+    return np.where(rng.random(shape) < 0.5, 1.0, -1.0).astype(np.float32)
+
+
+def _epilogue(rng, n, k):
+    """Mixed-direction thresholds around the spread of s, with one channel
+    at each int32 extreme (the folded gamma == 0 constant bits)."""
+    sgn = rng.choice(np.array([1, -1], np.int32), n)
+    lim = 2 * int(np.sqrt(k)) + 1
+    tau = rng.integers(-lim, lim, n).astype(np.int32)
+    tau[0], tau[1] = I32.min, I32.max
+    sgn[1] = -1
+    return sgn, tau
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _conv_case(b, h, w, c, n, pool):
+    rng = np.random.default_rng(b * 1000 + h * 100 + w * 10 + c + n + pool)
+    x = _pm1(rng, (b, h, w, c))
+    wgt = _pm1(rng, (3, 3, c, n))
+    wp, k = pack_conv_weights_np(wgt)
+    sgn, tau = _epilogue(rng, n, k)
+    return pack_bits_np(x, -1), wp, k, padding_correction(wgt, h, w), sgn, tau
+
+
+def _dense_case(m, k, n):
+    rng = np.random.default_rng(m * 1000 + k + n)
+    x, w = _pm1(rng, (m, k)), _pm1(rng, (k, n))
+    sgn, tau = _epilogue(rng, n, k)
+    return pack_bits_np(x, -1), pack_bits_np(w, 0), k, sgn, tau
+
+
+CASES = [
+    # conv (b, h, w, c, n, pool)
+    ("conv", (2, 8, 8, 32, 64, False)),
+    ("conv", (2, 8, 8, 32, 64, True)),
+    ("conv", (1, 6, 6, 64, 32, True)),
+    ("conv", (3, 5, 7, 32, 32, False)),   # odd spatial
+    ("conv", (2, 4, 4, 96, 64, False)),   # Cw = 3 words
+    ("conv", (2, 4, 4, 40, 32, True)),    # C not a multiple of 32
+    # dense (m, k, n)
+    ("dense", (8, 32, 32)),
+    ("dense", (16, 100, 64)),             # K not a multiple of 32
+    ("dense", (130, 96, 128)),            # ragged M
+]
+
+
+@pytest.mark.parametrize("kind,shape", CASES, ids=[f"{k}{s}" for k, s in CASES])
+def test_fused_words_match_jax(kind, shape):
+    if kind == "conv":
+        xp, wp, k, corr, sgn, tau = _conv_case(*shape)
+        pool = shape[-1]
+        code = jax_fused.xnor_conv_fused(
+            jnp.asarray(xp), jnp.asarray(wp), k, jnp.asarray(corr),
+            jnp.asarray(sgn), jnp.asarray(tau), pool=pool)
+        got = F.xnor_conv_fused(*_t(xp, wp), k, *_t(corr, sgn, tau), pool=pool)
+    else:
+        xp, wp, k, sgn, tau = _dense_case(*shape)
+        code = jax_fused.xnor_gemm_fused(jnp.asarray(xp), jnp.asarray(wp), k,
+                                         jnp.asarray(sgn), jnp.asarray(tau))
+        got = F.xnor_gemm_fused(*_t(xp, wp), k, *_t(sgn, tau))
+    want = np.asarray(pack_bits_mxu(code, axis=-1))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the int32-extreme channels are constant bits: tau=MIN on, tau=MAX off
+    bits = (want[..., 0:1] >> np.arange(2)) & 1
+    assert (bits[..., 0] == 1).all() and (bits[..., 1] == 0).all()
+
+
+@pytest.mark.parametrize("pool", [False, True])
+def test_fused_conv_ref_matches_unfused_popcount_conv(pool):
+    """The plain fused conv (±1 float matmul) equals thresholding the plain
+    unfused popcount conv, an independent formulation."""
+    xp, wp, k, corr, sgn, tau = _conv_case(2, 6, 4, 64, 32, pool)
+    s = xnor_conv(*_t(xp, wp), k, *_t(corr))
+    np.testing.assert_array_equal(
+        s.numpy(), np.asarray(jax_xc.xnor_conv(jnp.asarray(xp), jnp.asarray(wp),
+                                               k, jnp.asarray(corr))))
+    if pool:
+        b, h, w, n = s.shape
+        s = s.reshape(b, h // 2, 2, w // 2, 2, n).amax(dim=(2, 4))
+    sgn_t, tau_t = _t(sgn, tau)
+    want = pack_bits((sgn_t * s >= tau_t).to(torch.int8))
+    got = F.xnor_conv_fused_ref(*_t(xp, wp), k, *_t(corr, sgn, tau), pool=pool)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_cpu_tensors_never_count_launches():
+    F.xnor_gemm_fused.launches = 0
+    F.xnor_conv_fused.launches = 0
+    xp, wp, k, sgn, tau = _dense_case(4, 64, 32)
+    F.xnor_gemm_fused(*_t(xp, wp), k, *_t(sgn, tau))
+    xp, wp, k, corr, sgn, tau = _conv_case(1, 4, 4, 32, 32, True)
+    F.xnor_conv_fused(*_t(xp, wp), k, *_t(corr, sgn, tau), pool=True)
+    assert F.xnor_gemm_fused.launches == 0
+    assert F.xnor_conv_fused.launches == 0
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    xp, wp, k, sgn, tau = _dense_case(4, 64, 32)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        F.xnor_gemm_fused(*_t(xp, wp[:, :16]), k, *_t(sgn[:16], tau[:16]))
+    with pytest.raises(TypeError, match="int32"):
+        F.xnor_gemm_fused(*_t(xp, wp.astype(np.int64)), k, *_t(sgn, tau))
+    with pytest.raises(ValueError, match="contiguous"):
+        x2 = torch.from_numpy(np.repeat(xp, 2, axis=1))[:, ::2]
+        F.xnor_gemm_fused(x2, *_t(wp), k, *_t(sgn, tau))
+    xp, wp, k, corr, sgn, tau = _conv_case(1, 5, 4, 32, 32, False)
+    with pytest.raises(ValueError, match="even"):
+        F.xnor_conv_fused(*_t(xp, wp), k, *_t(corr, sgn, tau), pool=True)
+    with pytest.raises(ValueError, match="corr"):
+        F.xnor_conv_fused(*_t(xp, wp), k, *_t(corr[:4], sgn, tau))
