@@ -3,24 +3,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the full-width ``cifar10-bnn`` packed VGG
-(width 128, dense 1024, random weights from seed 0) served by
-``qnx_torch.serve.ServeEngine`` — through the hand-written CUDA kernels in
-``qnx_torch/kernels/csrc/``, which it builds from source first.  Phases:
+Drives the port's served paths through the hand-written CUDA kernels in
+``qnx_torch/kernels/csrc/``, which it builds from source first:
+
+* the full-width ``cifar10-bnn`` packed VGG (width 128, dense 1024);
+* the full-width ``mnist-bnn`` and ``mnist-tnn`` packed MLPs (3 layers of
+  4096, 10 classes),
+
+each with random weights from seed 0 and served by
+``qnx_torch.serve.ServeEngine``.  Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
 2. build: compile the kernels, with the ptxas register report;
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   slice's seven layer shapes (batch 32) and ragged cases — packed output
-   words must be equal;
-4. slice: 600 uint8 requests through the engine; every request answered,
-   each layer's words equal to the plain path's, logits equal to the plain
-   path's and to the JAX package's committed golden logits, and each
-   kernel's launch count equal to layers x batches;
-5. times: each kernel against its plain version at batch 256 and the
-   end-to-end forward, with CUDA events;
-6. stages: each stage of the batch-256 forward alone, its peak memory, and
-   the engine's throughput over 40 queued batches.
+3. kernels: each of the five kernels against its plain PyTorch version on
+   the card at its paths' layer shapes (batch 32, and 256 for the MLPs), the
+   packed GEMMs at 1024x4096x4096, ragged cases and any N (8, 48, 1, 10,
+   33): packed words and int32 s must be equal;
+4. slice: for each path, 600 uint8 requests through the engine; every
+   request answered, each layer's words and each head's int32 s equal to the
+   plain path's, logits equal to the plain path's and to the JAX package's
+   committed golden logits, and each kernel's launch count equal to layers x
+   batches (counts set to 0 just before each path and read just after);
+5. times: each kernel against its plain version at batch 256 (and the
+   packed GEMMs at 1024x4096x4096) and each path's forward, with CUDA events;
+6. stages: each stage of the batch-256 VGG and ``mnist-bnn`` forwards
+   alone, their peak memory, and the engine's throughput over 40 queued
+   batches.
 
 Any failure raises (non-zero exit).  The last lines are a JSON summary of
 the kernels, the card's ``name, power.limit``, and the result object.
@@ -37,7 +45,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-GOLDEN = ROOT / "tests" / "data" / "torch_port_golden_cifar10_bnn.npz"
+DATA = ROOT / "tests" / "data"
 
 CHECK_BATCH = 32
 TIME_BATCH = 256
@@ -45,8 +53,9 @@ SERVE_BATCH = 256
 ENGINE_BATCHES = 40  # full batches queued for the engine's throughput
 CHUNKS = (8, 100, 300, 92, 100)  # 600 requests: one chunk splits, tail pads
 # logits: the engine and the plain path run the same float head on equal
-# bits; against JAX only the f32 summation order of the first conv and the
-# head differ (measured on CPU: 1.9e-6 of a max |logit| of 3.9)
+# bits; against JAX only the f32 summation order of the first conv or matmul
+# and of the VGG's float head differ (measured on CPU: 1.9e-6 of a max
+# |logit| of 3.9)
 LOGIT_RTOL = 1e-5
 LOGIT_ATOL_REL = 1e-4  # times max |logit|
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
@@ -56,6 +65,23 @@ CONV_SHAPES = [(32, 32, 128, 128, True), (16, 16, 128, 256, False),
                (16, 16, 256, 256, True), (8, 8, 256, 512, False),
                (8, 8, 512, 512, True)]
 DENSE_SHAPES = [(8192, 1024), (1024, 1024)]
+# (K, N) of the MLPs' two hidden layers and of their heads
+MLP_HIDDEN = (4096, 4096)
+MLP_HEAD = (4096, 10)
+SCAN = (1024, (4096, 4096))  # the JAX package's packed GEMM scan shape
+
+KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
+    "xnor_conv3x3_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
+                           "qnx/kernels/xnor_conv_fused.py:54"),
+    "xnor_dense_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
+                         "qnx/kernels/xnor_conv_fused.py:54"),
+    "ternary_dense_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
+                            "qnx/kernels/xnor_conv_fused.py:54"),
+    "xnor_gemm_popcount": ("qnx_torch/kernels/csrc/popcount_gemm.cu",
+                           "qnx/kernels/xnor_gemm.py:73"),
+    "ternary_gemm": ("qnx_torch/kernels/csrc/popcount_gemm.cu",
+                     "qnx/kernels/ternary_gemm.py:29"),
+}
 
 
 def log(phase: str, msg: str) -> None:
@@ -67,17 +93,42 @@ def run(cmd: list[str]) -> str:
                           timeout=120).stdout.strip()
 
 
+def golden(name: str):
+    return np.load(DATA / f"torch_port_golden_{name}.npz")
+
+
+def wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches."""
+    from qnx_torch.kernels import xnor_conv_fused as F
+    from qnx_torch.kernels.ternary_gemm import ternary_gemm
+    from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
+
+    return {"xnor_conv3x3_fused": F.xnor_conv_fused,
+            "xnor_dense_fused": F.xnor_gemm_fused,
+            "ternary_dense_fused": F.ternary_gemm_fused,
+            "xnor_gemm_popcount": xnor_gemm_popcount,
+            "ternary_gemm": ternary_gemm}
+
+
 # ---------------------------------------------------------------- operands
 
 def epilogue(rng, n: int, k: int):
     """Mixed-direction thresholds around the spread of s, with int32-extreme
-    channels (the folded gamma == 0 constant bits)."""
+    channels (the folded gamma == 0 constant bits) where N allows."""
     sgn = rng.choice(np.array([1, -1], np.int32), n)
     lim = 2 * int(np.sqrt(k)) + 1
     tau = rng.integers(-lim, lim, n).astype(np.int32)
-    tau[0], tau[1], tau[2] = I32_MIN, I32_MAX, I32_MAX
-    sgn[1] = -1
+    tau[:3] = [I32_MIN, I32_MAX, I32_MAX][:n]
+    sgn[1:2] = -1
     return sgn, tau
+
+
+def cuda(torch, a):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+def pm1(rng, shape):
+    return np.where(rng.random(shape) < 0.5, 1.0, -1.0).astype(np.float32)
 
 
 def conv_operands(torch, rng, b, h, w, c, n):
@@ -85,24 +136,70 @@ def conv_operands(torch, rng, b, h, w, c, n):
                                              padding_correction)
     from qnx_torch.ops.packing import pack_bits_np
 
-    x = np.where(rng.random((b, h, w, c)) < 0.5, 1.0, -1.0).astype(np.float32)
-    pattern = np.where(rng.random((3, 3, c, n)) < 0.5, 1.0, -1.0)
-    wp, k = pack_conv_weights_np(pattern.astype(np.float32))
+    x = pm1(rng, (b, h, w, c))
+    pattern = pm1(rng, (3, 3, c, n))
+    wp, k = pack_conv_weights_np(pattern)
     sgn, tau = epilogue(rng, n, k)
-    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
-    return (cuda(pack_bits_np(x, -1)), cuda(wp), k,
-            cuda(padding_correction(pattern, h, w)), cuda(sgn), cuda(tau))
+    return (cuda(torch, pack_bits_np(x, -1)), cuda(torch, wp), k,
+            cuda(torch, padding_correction(pattern, h, w)), cuda(torch, sgn),
+            cuda(torch, tau))
 
 
 def dense_operands(torch, rng, m, k, n):
     from qnx_torch.ops.packing import pack_bits_np
 
-    x = np.where(rng.random((m, k)) < 0.5, 1.0, -1.0)
-    w = np.where(rng.random((k, n)) < 0.5, 1.0, -1.0)
     sgn, tau = epilogue(rng, n, k)
-    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
-    return (cuda(pack_bits_np(x, -1)), cuda(pack_bits_np(w, 0)), k,
-            cuda(sgn), cuda(tau))
+    return (cuda(torch, pack_bits_np(pm1(rng, (m, k)), -1)),
+            cuda(torch, pack_bits_np(pm1(rng, (k, n)), 0)), k,
+            cuda(torch, sgn), cuda(torch, tau))
+
+
+def ternary_operands(torch, rng, m, k, n):
+    """±1 activations and {-1, 0, +1} weights, half zero as the MLP's dingke
+    weights are, with one all-zero column where N > 2."""
+    from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
+
+    w = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), (k, n),
+                   p=[0.25, 0.5, 0.25])
+    if n > 2:
+        w[:, 1] = 0.0
+    sgn, tau = epilogue(rng, n, k)
+    return (cuda(torch, pack_bits_np(pm1(rng, (m, k)), -1)),
+            *(cuda(torch, a) for a in pack_ternary_np(w, axis=0)),
+            cuda(torch, sgn), cuda(torch, tau))
+
+
+def make_case(torch, rng, kind: str, b: int, shape):
+    """(kernel name, kernel call, plain call, output is packed words) on
+    fresh operands of one shape."""
+    from qnx_torch.kernels import ternary_gemm as T
+    from qnx_torch.kernels import xnor_conv_fused as F
+    from qnx_torch.kernels import xnor_gemm as X
+
+    if kind == "conv":
+        h, w, c, n, pool = shape
+        xp, wp, k, corr, sgn, tau = conv_operands(torch, rng, b, h, w, c, n)
+        return ("xnor_conv3x3_fused",
+                lambda: F.xnor_conv_fused(xp, wp, k, corr, sgn, tau, pool=pool),
+                lambda: F.xnor_conv_fused_ref(xp, wp, k, corr, sgn, tau, pool=pool),
+                True)
+    k_in, n = shape
+    if kind in ("dense", "popcount"):
+        xp, wp, k, sgn, tau = dense_operands(torch, rng, b, k_in, n)
+        if kind == "dense":
+            return ("xnor_dense_fused",
+                    lambda: F.xnor_gemm_fused(xp, wp, k, sgn, tau),
+                    lambda: F.xnor_gemm_fused_ref(xp, wp, k, sgn, tau), True)
+        return ("xnor_gemm_popcount", lambda: X.xnor_gemm_popcount(xp, wp, k),
+                lambda: X.xnor_gemm_popcount_ref(xp, wp, k), False)
+    xp, mask, sign, nnz, sgn, tau = ternary_operands(torch, rng, b, k_in, n)
+    if kind == "ternary_dense":
+        return ("ternary_dense_fused",
+                lambda: F.ternary_gemm_fused(xp, mask, sign, nnz, sgn, tau),
+                lambda: F.ternary_gemm_fused_ref(xp, mask, sign, nnz, sgn, tau),
+                True)
+    return ("ternary_gemm", lambda: T.ternary_gemm(xp, mask, sign, nnz),
+            lambda: T.ternary_gemm_ref(xp, mask, sign, nnz), False)
 
 
 def word_err(torch, got, want) -> float:
@@ -113,6 +210,17 @@ def word_err(torch, got, want) -> float:
     a = unpack_bits(got, kbits, dtype=torch.float32)
     b = unpack_bits(want, kbits, dtype=torch.float32)
     return float((a - b).abs().max())
+
+
+def compare(torch, err: dict, name: str, got, want, words: bool, what: str) -> None:
+    """Record the max abs error of ``got`` against ``want`` under ``name``
+    and raise unless they are equal."""
+    e = (word_err(torch, got, want) if words
+         else float((got.long() - want.long()).abs().max()))
+    err[name] = max(err[name], e)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name} {what}: kernel output differs from the "
+                             f"plain version's (max abs err {e})")
 
 
 # ---------------------------------------------------------------- phases
@@ -147,40 +255,103 @@ def phase_build() -> None:
 
 
 def phase_kernels(torch, err: dict) -> None:
-    from qnx_torch.kernels import xnor_conv_fused as F
-
     rng = np.random.default_rng(10)
+    # the VGG's layers at batch 32, ragged batch and odd spatial, any N
     cases = [("conv", CHECK_BATCH, s) for s in CONV_SHAPES]
     cases += [("dense", CHECK_BATCH, s) for s in DENSE_SHAPES]
     cases += [("conv", 3, CONV_SHAPES[0]), ("conv", 3, (5, 7, 32, 64, False)),
-              ("dense", 3, DENSE_SHAPES[0])]  # ragged batch, odd spatial
+              ("dense", 3, DENSE_SHAPES[0])]
+    cases += [("conv", 2, (32, 32, 8, 8, True)), ("conv", 3, (5, 7, 16, 48, False)),
+              ("dense", CHECK_BATCH, (64, 8)), ("dense", 3, (100, 48))]
+    # the MLPs' hidden layers and heads at batch 32 and 256, the packed GEMM
+    # scan shape, and a partial word with N = 10, 1 and 33
+    for b in (CHECK_BATCH, TIME_BATCH):
+        cases += [("dense", b, MLP_HIDDEN), ("ternary_dense", b, MLP_HIDDEN),
+                  ("popcount", b, MLP_HEAD), ("ternary", b, MLP_HEAD)]
+    kinds = ("ternary_dense", "popcount", "ternary")
+    cases += [(kind, SCAN[0], SCAN[1]) for kind in kinds]
+    cases += [(kind, 3, (100, n)) for kind in kinds for n in (10, 1, 33)]
     for kind, b, shape in cases:
-        if kind == "conv":
-            h, w, c, n, pool = shape
-            xp, wp, k, corr, sgn, tau = conv_operands(torch, rng, b, h, w, c, n)
-            got = F.xnor_conv_fused(xp, wp, k, corr, sgn, tau, pool=pool)
-            want = F.xnor_conv_fused_ref(xp, wp, k, corr, sgn, tau, pool=pool)
-            name = "xnor_conv3x3_fused"
-        else:
-            k_in, n = shape
-            xp, wp, k, sgn, tau = dense_operands(torch, rng, b, k_in, n)
-            got = F.xnor_gemm_fused(xp, wp, k, sgn, tau)
-            want = F.xnor_gemm_fused_ref(xp, wp, k, sgn, tau)
-            name = "xnor_dense_fused"
+        name, kern, plain, words = make_case(torch, rng, kind, b, shape)
+        got, want = kern(), plain()
         torch.cuda.synchronize()
-        e = word_err(torch, got, want)
-        err[name] = max(err[name], e)
-        ones = float(torch.stack([(want >> j) & 1 for j in range(32)]).float().mean())
+        compare(torch, err, name, got, want, words, f"batch {b} {shape}")
         log("kernels", f"{name} batch {b} {shape}: out {tuple(got.shape)}, "
-            f"words equal {torch.equal(got, want)}, max_abs_err {e}, "
-            f"share of 1 bits {ones:.3f}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} {b} {shape}: kernel words differ "
-                                 "from the plain version's")
+            f"equal, max_abs_err {err[name]}")
 
 
-def plain_forward(torch, model, x, err: dict):
-    """The model's forward with each packed layer run both ways on the same
+def serve(torch, label: str, model, images, per_batch: dict, plain_forward,
+          err: dict, gold) -> dict:
+    """Serve ``images`` in CHUNKS through the engine with every launch count
+    set to 0 just before and read just after; check the answers, the counts
+    (``per_batch`` x batches), and the logits against the plain path and
+    the golden.  Returns the launch counts."""
+    from qnx_torch.serve.engine import ServeEngine, normalize_u8
+
+    engine = ServeEngine(model, batch_size=SERVE_BATCH, max_wait_ms=50.0)
+    futs, off = [], 0
+    for size in CHUNKS:  # queued before start: the batching is deterministic
+        futs += engine.submit_many(images[off:off + size])
+        off += size
+    counted = wrappers()
+    for w in counted.values():
+        w.launches = 0
+    engine.start()
+    try:
+        logits = np.stack([f.result(timeout=600) for f in futs])
+    finally:
+        engine.stop()
+    launches = {name: w.launches for name, w in counted.items()}
+    batches = engine.stats()["batches"]
+    log(label, f"engine answered {len(logits)}/{len(images)} requests in "
+        f"{batches} batches of {SERVE_BATCH} (pad fraction "
+        f"{engine.stats()['pad_fraction']:.3f}); launches {launches}")
+    if len(logits) != len(images) or not all(f.done() for f in futs):
+        raise AssertionError(f"{label}: not every request was answered")
+    classes = gold["logits"].shape[1]
+    if logits.shape != (len(images), classes) or not np.isfinite(logits).all():
+        raise AssertionError(f"{label}: bad logits, shape {logits.shape}")
+    want = {name: per_batch.get(name, 0) * batches for name in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+
+    plain = []
+    with torch.inference_mode():
+        for s in range(0, len(images), SERVE_BATCH):
+            x = normalize_u8(cuda(torch, images[s:s + SERVE_BATCH]))
+            plain.append(plain_forward(torch, model, x, err).cpu().numpy())
+    plain = np.concatenate(plain)
+    d_plain = float(np.abs(logits - plain).max())
+    np.testing.assert_allclose(
+        logits, plain, rtol=LOGIT_RTOL,
+        atol=LOGIT_ATOL_REL * float(np.abs(plain).max()))
+    if not (logits.argmax(-1) == plain.argmax(-1)).all():
+        raise AssertionError(f"{label}: argmax differs from the plain path")
+    gold = gold["logits"]
+    ours = logits[:len(gold)]
+    d_gold = float(np.abs(ours - gold).max())
+    np.testing.assert_allclose(ours, gold, rtol=LOGIT_RTOL,
+                               atol=LOGIT_ATOL_REL * float(np.abs(gold).max()))
+    if not (ours.argmax(-1) == gold.argmax(-1)).all():
+        raise AssertionError(f"{label}: argmax differs from the JAX golden")
+    log(label, f"every layer's words equal to the plain path for all "
+        f"{len(images)} images; logits max |engine - plain| {d_plain:.3g}, "
+        f"max |engine - JAX golden| {d_gold:.3g} (max |logit| "
+        f"{float(np.abs(gold).max()):.3g}, {classes} classes); argmax "
+        f"identical")
+    return launches
+
+
+def requests(cf, gold):
+    """600 seeded uint8 images, the golden's 8 first."""
+    images = np.random.default_rng(2).integers(
+        0, 256, (sum(CHUNKS), *cf.input_shape), dtype=np.uint8)
+    images[:len(gold["images"])] = gold["images"]
+    return images
+
+
+def plain_vgg_forward(torch, model, x, err: dict):
+    """The VGG forward with each packed layer run both ways on the same
     input bits: kernel words must equal the plain version's."""
     from qnx_torch.kernels import xnor_conv_fused as F
 
@@ -189,86 +360,70 @@ def plain_forward(torch, model, x, err: dict):
         got = conv(bits)
         bits = F.xnor_conv_fused_ref(bits, conv.wp, conv.k, conv.corr,
                                      conv.sgn, conv.tau, pool=conv.pool)
-        err["xnor_conv3x3_fused"] = max(err["xnor_conv3x3_fused"],
-                                        word_err(torch, got, bits))
-        if not torch.equal(got, bits):
-            raise AssertionError(f"conv_{i}: kernel words differ from plain")
+        compare(torch, err, "xnor_conv3x3_fused", got, bits, True, f"conv_{i}")
     bits = bits.reshape(bits.shape[0], -1)
     for j, dense in enumerate(model.denses):
         got = dense(bits)
         bits = F.xnor_gemm_fused_ref(bits, dense.wp, dense.k, dense.sgn,
                                      dense.tau)
-        err["xnor_dense_fused"] = max(err["xnor_dense_fused"],
-                                      word_err(torch, got, bits))
-        if not torch.equal(got, bits):
-            raise AssertionError(f"dense_{j}: kernel words differ from plain")
+        compare(torch, err, "xnor_dense_fused", got, bits, True, f"dense_{j}")
     return model.head(bits)
 
 
-def phase_slice(torch, err: dict):
-    from qnx_torch.convert.pack_model import pack_vgg
+def plain_mlp_forward(torch, model, x, err: dict):
+    """The MLP forward with each hidden layer and the head's integer GEMM
+    run both ways on the same input bits: words and int32 s must equal."""
     from qnx_torch.kernels import xnor_conv_fused as F
+    from qnx_torch.kernels.ternary_gemm import ternary_gemm_ref
+    from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount_ref
+    from qnx_torch.nn.inference import TernaryDenseBits, TernaryDenseLogits
+
+    bits = model.first(x.reshape(x.shape[0], -1))
+    for i, layer in enumerate(model.hidden, 1):
+        got = layer(bits)
+        if isinstance(layer, TernaryDenseBits):
+            name = "ternary_dense_fused"
+            bits = F.ternary_gemm_fused_ref(bits, layer.mask, layer.sign,
+                                            layer.nnz, layer.sgn, layer.tau)
+        else:
+            name = "xnor_dense_fused"
+            bits = F.xnor_gemm_fused_ref(bits, layer.wp, layer.k, layer.sgn,
+                                         layer.tau)
+        compare(torch, err, name, got, bits, True, f"dense_{i}")
+    head = model.head
+    got = head.scores(bits)
+    if isinstance(head, TernaryDenseLogits):
+        name = "ternary_gemm"
+        s = ternary_gemm_ref(bits, head.mask, head.sign, head.nnz)
+    else:
+        name = "xnor_gemm_popcount"
+        s = xnor_gemm_popcount_ref(bits, head.wp, head.k)
+    compare(torch, err, name, got, s, False, "head s")
+    return head.logits(s)
+
+
+def phase_slices(torch, err: dict):
+    """Serve every path; returns the models and the summed launch counts."""
+    from qnx_torch.convert.pack_model import pack_mlp, pack_vgg
     from qnx_torch.models.factory import init_variables
-    from qnx_torch.serve.engine import ServeEngine, normalize_u8
-    from qnx_torch.utils.config import CIFAR10_BNN
+    from qnx_torch.utils.config import CIFAR10_BNN, MNIST_BNN, MNIST_TNN
 
-    model = pack_vgg(init_variables(CIFAR10_BNN, seed=0), CIFAR10_BNN).to("cuda")
-    golden = np.load(GOLDEN)
-    images = np.random.default_rng(2).integers(
-        0, 256, (sum(CHUNKS), *CIFAR10_BNN.input_shape), dtype=np.uint8)
-    images[:len(golden["images"])] = golden["images"]
-
-    engine = ServeEngine(model, batch_size=SERVE_BATCH, max_wait_ms=50.0)
-    futs, off = [], 0
-    for size in CHUNKS:  # queued before start: the batching is deterministic
-        futs += engine.submit_many(images[off:off + size])
-        off += size
-    F.xnor_conv_fused.launches = 0
-    F.xnor_gemm_fused.launches = 0
-    engine.start()
-    try:
-        logits = np.stack([f.result(timeout=600) for f in futs])
-    finally:
-        engine.stop()
-    launches = {"xnor_conv3x3_fused": F.xnor_conv_fused.launches,
-                "xnor_dense_fused": F.xnor_gemm_fused.launches}
-    stats = engine.stats()
-    batches = stats["batches"]
-    log("slice", f"engine answered {len(logits)}/{len(images)} requests in "
-        f"{batches} batches of {SERVE_BATCH} (pad fraction "
-        f"{stats['pad_fraction']:.3f}); launches {launches}")
-    if len(logits) != len(images) or not all(f.done() for f in futs):
-        raise AssertionError("not every request was answered")
-    if logits.shape != (len(images), CIFAR10_BNN.classes) or not np.isfinite(logits).all():
-        raise AssertionError(f"bad logits: shape {logits.shape}")
-    if launches != {"xnor_conv3x3_fused": 5 * batches, "xnor_dense_fused": 2 * batches}:
-        raise AssertionError(f"launch counts {launches} != 5 conv and 2 dense "
-                             f"per batch x {batches} batches")
-
-    plain = []
-    with torch.inference_mode():
-        for s in range(0, len(images), SERVE_BATCH):
-            x = normalize_u8(torch.from_numpy(images[s:s + SERVE_BATCH]).cuda())
-            plain.append(plain_forward(torch, model, x, err).cpu().numpy())
-    plain = np.concatenate(plain)
-    d_plain = float(np.abs(logits - plain).max())
-    np.testing.assert_allclose(
-        logits, plain, rtol=LOGIT_RTOL,
-        atol=LOGIT_ATOL_REL * float(np.abs(plain).max()))
-    if not (logits.argmax(-1) == plain.argmax(-1)).all():
-        raise AssertionError("argmax differs from the plain path")
-    gold = golden["logits"]
-    ours = logits[:len(gold)]
-    d_gold = float(np.abs(ours - gold).max())
-    np.testing.assert_allclose(ours, gold, rtol=LOGIT_RTOL,
-                               atol=LOGIT_ATOL_REL * float(np.abs(gold).max()))
-    if not (ours.argmax(-1) == gold.argmax(-1)).all():
-        raise AssertionError("argmax differs from the JAX golden")
-    log("slice", f"7 layers' words equal to the plain path for all "
-        f"{len(images)} images; logits max |engine - plain| {d_plain:.3g}, "
-        f"max |engine - JAX golden| {d_gold:.3g} (max |logit| "
-        f"{float(np.abs(gold).max()):.3g}); argmax identical")
-    return model, launches
+    models, launches = {}, dict.fromkeys(KERNELS, 0)
+    paths = [("cifar10_bnn", CIFAR10_BNN, pack_vgg, plain_vgg_forward,
+              {"xnor_conv3x3_fused": 5, "xnor_dense_fused": 2}),
+             ("mnist_bnn", MNIST_BNN, pack_mlp, plain_mlp_forward,
+              {"xnor_dense_fused": 2, "xnor_gemm_popcount": 1}),
+             ("mnist_tnn", MNIST_TNN, pack_mlp, plain_mlp_forward,
+              {"ternary_dense_fused": 2, "ternary_gemm": 1})]
+    for name, cf, pack, plain_forward, per_batch in paths:
+        model = pack(init_variables(cf, seed=0), cf).to("cuda")
+        gold = golden(name)
+        counts = serve(torch, f"slice {name}", model, requests(cf, gold),
+                       per_batch, plain_forward, err, gold)
+        for k, v in counts.items():
+            launches[k] += v
+        models[name] = model
+    return models, launches
 
 
 def time_ms(torch, fn, iters: int, reps: int = 7) -> list[float]:
@@ -295,59 +450,102 @@ def fmt(ms: list[float]) -> str:
             f"(min {min(ms):.4f}, max {max(ms):.4f}, n={len(ms)})")
 
 
-def phase_times(torch, card: str, model) -> dict:
-    from qnx_torch.kernels import xnor_conv_fused as F
-
+def phase_times(torch, card: str, models: dict) -> dict:
+    """Each kernel against its plain version, interleaved (plain, kernel,
+    kernel, plain); ``total`` sums the medians over every layer of every
+    path at batch 256 (a per-forward figure), the scan shape aside."""
     rng = np.random.default_rng(11)
-    total = {"xnor_conv3x3_fused": [0.0, 0.0], "xnor_dense_fused": [0.0, 0.0]}
+    total = {name: [0.0, 0.0] for name in KERNELS}
     b = TIME_BATCH
-    for kind, shape in ([("conv", s) for s in CONV_SHAPES]
-                        + [("dense", s) for s in DENSE_SHAPES]):
-        if kind == "conv":
-            h, w, c, n, pool = shape
-            xp, wp, k, corr, sgn, tau = conv_operands(torch, rng, b, h, w, c, n)
-            kern = lambda: F.xnor_conv_fused(xp, wp, k, corr, sgn, tau, pool=pool)
-            ref = lambda: F.xnor_conv_fused_ref(xp, wp, k, corr, sgn, tau, pool=pool)
-            name = "xnor_conv3x3_fused"
-        else:
-            k_in, n = shape
-            xp, wp, k, sgn, tau = dense_operands(torch, rng, b, k_in, n)
-            kern = lambda: F.xnor_gemm_fused(xp, wp, k, sgn, tau)
-            ref = lambda: F.xnor_gemm_fused_ref(xp, wp, k, sgn, tau)
-            name = "xnor_dense_fused"
-        # interleaved: plain, kernel, kernel, plain
+    # (kind, batch, shape, layers of this shape in the served paths)
+    cases = [("conv", b, s, 1) for s in CONV_SHAPES]
+    cases += [("dense", b, s, 1) for s in DENSE_SHAPES]
+    cases += [("dense", b, MLP_HIDDEN, 2), ("ternary_dense", b, MLP_HIDDEN, 2),
+              ("popcount", b, MLP_HEAD, 1), ("ternary", b, MLP_HEAD, 1)]
+    cases += [(kind, SCAN[0], SCAN[1], 0)
+              for kind in ("ternary_dense", "popcount", "ternary")]
+    for kind, m, shape, layers in cases:
+        name, kern, ref, _ = make_case(torch, rng, kind, m, shape)
         p1, k1 = time_ms(torch, ref, 3, 3), time_ms(torch, kern, 20, 4)
         k2, p2 = time_ms(torch, kern, 20, 4), time_ms(torch, ref, 3, 3)
         kt, pt = k1 + k2, p1 + p2
-        total[name][0] += statistics.median(kt)
-        total[name][1] += statistics.median(pt)
-        log("times", f"{card} | {name} batch {b} {shape}: kernel {fmt(kt)}; "
+        total[name][0] += layers * statistics.median(kt)
+        total[name][1] += layers * statistics.median(pt)
+        log("times", f"{card} | {name} batch {m} {shape}: kernel {fmt(kt)}; "
             f"plain {fmt(pt)}")
 
-    x = torch.from_numpy(np.random.default_rng(12).uniform(
-        -1, 1, (b, 32, 32, 3)).astype(np.float32)).cuda()
-    with torch.inference_mode():
-        fwd = time_ms(torch, lambda: model(x), 10)
-    med = statistics.median(fwd)
-    log("times", f"{card} | end-to-end PackedVGG forward batch {b}: {fmt(fwd)}"
-        f" = {b / med * 1e3:.1f} img/s")
-    log("times", f"{card} | per forward at batch {b}, summed over the layer "
-        f"shapes: " + "; ".join(f"{k} kernel {v[0]:.4f} ms, plain {v[1]:.4f} ms"
-                                for k, v in total.items()))
+    for name, model in models.items():
+        shape = (b, 32, 32, 3) if name.startswith("cifar") else (b, 28, 28, 1)
+        x = cuda(torch, np.random.default_rng(12).uniform(-1, 1, shape)
+                 .astype(np.float32))
+        with torch.inference_mode():
+            fwd = time_ms(torch, lambda: model(x), 10)
+        med = statistics.median(fwd)
+        log("times", f"{card} | end-to-end {type(model).__name__} {name} "
+            f"forward batch {b}: {fmt(fwd)} = {b / med * 1e3:.1f} img/s")
+    log("times", f"{card} | per forward at batch {b}, summed over the paths' "
+        f"layer shapes: " + "; ".join(f"{k} kernel {v[0]:.4f} ms, plain "
+                                      f"{v[1]:.4f} ms" for k, v in total.items()))
     return total
 
 
-def phase_stages(torch, card: str, model) -> None:
-    """Where the time goes at batch 256: each stage of the forward alone on
-    the slice's own activations, the forward's peak memory, and the engine
-    over many queued batches (host clock, first dispatch to last answer)."""
+def time_stages(torch, card: str, label: str, model, x, stages) -> None:
+    """Each stage alone, the whole forward, and its peak memory."""
+    with torch.inference_mode():
+        parts = 0.0
+        for name, fn in stages:
+            ms = time_ms(torch, fn, 20)
+            parts += statistics.median(ms)
+            log("stages", f"{card} | {label} {name} batch {TIME_BATCH}: {fmt(ms)}")
+        whole = time_ms(torch, lambda: model(x), 20)
+        log("stages", f"{card} | {label} whole forward batch {TIME_BATCH}: "
+            f"{fmt(whole)}; sum of the stage medians {parts:.4f} ms")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        model(x)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    weights = sum(t.numel() * t.element_size() for t in model.buffers())
+    log("stages", f"{card} | {label} peak device memory allocated over one "
+        f"forward at batch {TIME_BATCH}: {peak / 2**20:.1f} MiB, of which "
+        f"{(peak - before) / 2**20:.1f} MiB above what was allocated before "
+        f"it (all models, inputs and stage tensors; this model's buffers "
+        f"{weights / 2**20:.1f} MiB)")
+
+
+def engine_rate(card: str, label: str, model, rng, image_shape) -> None:
+    """The engine over ENGINE_BATCHES full batches queued at once (host
+    clock, first dispatch to last answer)."""
+    from qnx_torch.serve.engine import ServeEngine
+
+    images = rng.integers(0, 256, (ENGINE_BATCHES * SERVE_BATCH, *image_shape),
+                          dtype=np.uint8)
+    engine = ServeEngine(model, batch_size=SERVE_BATCH, max_wait_ms=50.0)
+    futs = [f for s in range(0, len(images), SERVE_BATCH)
+            for f in engine.submit_many(images[s:s + SERVE_BATCH])]
+    with engine:  # queued before start: every batch is full
+        for f in futs:
+            f.result(timeout=600)
+    st = engine.stats()
+    log("stages", f"{card} | {label} engine, {st['batches']} batches of "
+        f"{SERVE_BATCH} queued at once: {st['wall_throughput_ips']:.1f} img/s "
+        f"host clock from first dispatch to last answer; "
+        f"{st['throughput_ips']:.1f} img/s over the batches' busy time; "
+        f"latency p50 {st['latency_ms_p50']:.1f} ms, p99 "
+        f"{st['latency_ms_p99']:.1f} ms (queueing included)")
+
+
+def phase_stages(torch, card: str, models: dict) -> None:
+    """Where the time goes at batch 256: each stage of the VGG and mnist-bnn
+    forwards alone on their own activations, peak memory, and the engine."""
     from qnx_torch.ops.packing import pack_bits
-    from qnx_torch.serve.engine import ServeEngine, normalize_u8
+    from qnx_torch.serve.engine import normalize_u8
 
     b = TIME_BATCH
     rng = np.random.default_rng(13)
-    u8 = torch.from_numpy(rng.integers(0, 256, (b, 32, 32, 3),
-                                       dtype=np.uint8)).cuda()
+    model = models["cifar10_bnn"]
+    u8 = cuda(torch, rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8))
     first = model.first
     with torch.inference_mode():
         x = normalize_u8(u8)
@@ -366,38 +564,30 @@ def phase_stages(torch, card: str, model) -> None:
             stages.append((f"dense_{j} kernel", lambda l=dense, a=bits: l(a)))
             bits = dense(bits)
         stages.append(("head: unpack + sgemm + BN", lambda a=bits: model.head(a)))
-        parts = 0.0
-        for name, fn in stages:
-            ms = time_ms(torch, fn, 20)
-            parts += statistics.median(ms)
-            log("stages", f"{card} | {name} batch {b}: {fmt(ms)}")
-        whole = time_ms(torch, lambda: model(x), 20)
-        log("stages", f"{card} | whole forward batch {b}: {fmt(whole)}; sum "
-            f"of the stage medians {parts:.4f} ms")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        model(x)
-        torch.cuda.synchronize()
-    weights = sum(t.numel() * t.element_size() for t in model.buffers())
-    log("stages", f"{card} | peak device memory allocated over one forward at "
-        f"batch {b}: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
-        f"(model buffers {weights / 2**20:.1f} MiB)")
+    time_stages(torch, card, "cifar10_bnn", model, x, stages)
+    engine_rate(card, "cifar10_bnn", model, rng, (32, 32, 3))
 
-    images = rng.integers(0, 256, (ENGINE_BATCHES * SERVE_BATCH, 32, 32, 3),
-                          dtype=np.uint8)
-    engine = ServeEngine(model, batch_size=SERVE_BATCH, max_wait_ms=50.0)
-    futs = [f for s in range(0, len(images), SERVE_BATCH)
-            for f in engine.submit_many(images[s:s + SERVE_BATCH])]
-    with engine:  # queued before start: every batch is full
-        for f in futs:
-            f.result(timeout=600)
-    st = engine.stats()
-    log("stages", f"{card} | engine, {st['batches']} batches of {SERVE_BATCH} "
-        f"queued at once: {st['wall_throughput_ips']:.1f} img/s host clock "
-        f"from first dispatch to last answer; {st['throughput_ips']:.1f} img/s "
-        f"over the batches' busy time; latency p50 "
-        f"{st['latency_ms_p50']:.1f} ms, p99 {st['latency_ms_p99']:.1f} ms "
-        f"(queueing included)")
+    model = models["mnist_bnn"]
+    u8 = cuda(torch, rng.integers(0, 256, (b, 28, 28, 1), dtype=np.uint8))
+    first, head = model.first, model.head
+    with torch.inference_mode():
+        x = normalize_u8(u8)
+        flat = x.reshape(b, -1)
+        y = first.dense(flat)
+        z = first._bn(y)
+        stages = [("normalize_u8", lambda: normalize_u8(u8)),
+                  ("first: cuBLAS sgemm + bias", lambda: first.dense(flat)),
+                  ("first: BN", lambda: first._bn(y)),
+                  ("first: sign + pack_bits", lambda: pack_bits(z, axis=-1))]
+        bits = first(flat)
+        for i, layer in enumerate(model.hidden, 1):
+            stages.append((f"dense_{i} kernel", lambda l=layer, a=bits: l(a)))
+            bits = layer(bits)
+        s = head.scores(bits)
+        stages += [("head kernel", lambda a=bits: head.scores(a)),
+                   ("head: affine", lambda: head.logits(s))]
+    time_stages(torch, card, "mnist_bnn", model, x, stages)
+    engine_rate(card, "mnist_bnn", model, rng, (28, 28, 1))
 
 
 def main() -> int:
@@ -408,21 +598,19 @@ def main() -> int:
                            "needs one CUDA card")
     card = phase_device(torch)
     phase_build()
-    err = {"xnor_conv3x3_fused": 0.0, "xnor_dense_fused": 0.0}
+    err = dict.fromkeys(KERNELS, 0.0)
     phase_kernels(torch, err)
-    model, launches = phase_slice(torch, err)
-    total = phase_times(torch, card, model)
-    phase_stages(torch, card, model)
+    models, launches = phase_slices(torch, err)
+    total = phase_times(torch, card, models)
+    phase_stages(torch, card, models)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "qnx") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
-    source = "qnx_torch/kernels/csrc/xnor_fused.cu"
-    replaces = "qnx/kernels/xnor_conv_fused.py:54"
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": total[name][0], "plain_ms": total[name][1]}
-        for name in ("xnor_conv3x3_fused", "xnor_dense_fused")]}), flush=True)
+        for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""Conversion pass: trained fake-quant VGG variables -> packed
-:class:`qnx_torch.nn.inference.PackedVGG` (torch port of the binary branch
-of :func:`qnx.convert.pack_model.pack_vgg`).
+"""Conversion pass: trained fake-quant variables -> packed models (torch port
+of :func:`qnx.convert.pack_model.pack_mlp`, binary and ternary, and of the
+binary branch of :func:`qnx.convert.pack_model.pack_vgg`).
 
 Input is the JAX package's variables as numpy arrays — the
 ``{"params", "quant", "batch_stats"}`` dict of ``jax.device_get(init_model(
@@ -15,8 +15,8 @@ import torch
 
 from qnx_torch.kernels.xnor_conv import pack_conv_weights_np, padding_correction
 from qnx_torch.nn import inference as I
-from qnx_torch.ops.packing import pack_bits_np
-from qnx_torch.transforms.bn_fold import fold_bn_sign
+from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
+from qnx_torch.transforms.bn_fold import fold_bn_affine, fold_bn_sign
 from qnx_torch.utils.config import Config
 
 
@@ -40,6 +40,23 @@ def _binary_pattern(latent: np.ndarray, h: float) -> np.ndarray:
     hs = np.clip((latent / np.float32(h) + np.float32(1.0)) / np.float32(2.0),
                  np.float32(0.0), np.float32(1.0)).astype(np.float32)
     return (2.0 * np.round(hs) - 1.0).astype(np.float32)
+
+
+def _ternary_pattern(latent: np.ndarray, h: float, style: str):
+    """{-1, 0, +1} pattern and scale alpha, the numpy mirror of the forward
+    values of qnx.ops.quant.ternarize (``dingke``) and ternarize_twn."""
+    latent = np.asarray(latent, np.float32)
+    if style == "dingke":
+        wc = np.clip(latent, -h, h).astype(np.float32)
+        r = (wc / np.float32(h)).astype(np.float32)
+        t = np.where(r > 0.5, 1.0, np.where(r <= -0.5, -1.0, 0.0))
+        return t.astype(np.float32), h
+    delta = 0.7 * np.mean(np.abs(latent), dtype=np.float32)
+    mask = np.abs(latent) > delta
+    nnz = max(int(mask.sum()), 1)
+    alpha = float(np.sum(np.where(mask, np.abs(latent), 0.0), dtype=np.float32) / nnz)
+    t = np.where(mask, np.sign(latent), 0.0).astype(np.float32)
+    return t, alpha
 
 
 def _bn(params: dict, stats: dict, name: str, eps: float):
@@ -245,19 +262,102 @@ def pack_vgg(variables: dict, cf: Config) -> I.PackedVGG:
 
     # ---- head
     name = "dense_out"
-    if name in quant:
-        raise NotImplementedError(
-            "a binary (packed) head needs the unfused popcount GEMM kernel, "
-            "not ported yet (ROADMAP.md §2 kernel B, the MLP slice); use a "
-            "config with last_layer_float=True")
     latent = _np(params[name]["kernel"])
     bias = _np(params[name]["bias"]) if "bias" in params[name] else None
     bn = _bn(params, stats, "bn_out", eps)
-    head = I.FloatDenseLogitsFromBits(
-        w=_t(latent.astype(np.float32)),
-        bias=None if bias is None else _t(bias),
-        bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
-        bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]),
-        bn_eps=eps, k=latent.shape[0], coding="zo" if sig else "pm1")
+    if name not in quant:  # float head over the binary activations
+        head = I.FloatDenseLogitsFromBits(
+            w=_t(latent.astype(np.float32)),
+            bias=None if bias is None else _t(bias),
+            bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
+            bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]),
+            bn_eps=eps, k=latent.shape[0], coding="zo" if sig else "pm1")
+    else:
+        h = float(quant[name]["H"])
+        pattern = _binary_pattern(latent, h)
+        a_eff, b_eff = in_fold(h, bias, pattern)
+        aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                             eps, alpha=a_eff, bias=b_eff)
+        head = I.PackedDenseLogits(wp=_t(pack_bits_np(pattern, axis=0)),
+                                   a=_t(aff.a), c=_t(aff.c0), k=latent.shape[0])
 
     return I.PackedVGG(first=first, convs=convs, denses=denses, head=head)
+
+
+def pack_mlp(variables: dict, cf: Config) -> I.PackedMLP:
+    """Lower a trained QuantMLP (full-bnn / full-tnn, abits=1) into a
+    :class:`qnx_torch.nn.inference.PackedMLP` on the CPU; move it with
+    ``.to(device)``."""
+    if cf.architecture != "mlp":
+        raise ValueError("pack_mlp expects an mlp config")
+    if cf.abits != 1 or cf.network_type not in ("full-bnn", "full-tnn"):
+        raise ValueError(
+            "packed MLP path requires binary activations "
+            f"(network_type full-bnn/full-tnn, abits=1); got {cf.network_type}")
+    sig = _engine_activation(cf) == "binary_sigmoid"
+    ternary = cf.network_type == "full-tnn"
+    params = variables["params"]
+    quant = variables["quant"]
+    stats = variables["batch_stats"]
+    eps = cf.batch_norm_epsilon
+
+    def layer_weights(name):
+        latent = _np(params[name]["kernel"])
+        h = float(quant[name]["H"])
+        bias = _np(params[name]["bias"]) if "bias" in params[name] else None
+        return latent, h, bias
+
+    def in_fold(alpha, bias, pattern):
+        """Fold params for this layer's INPUT coding (sigmoid: {0,1} bits)."""
+        if sig:
+            return _zo_fold_params(alpha, bias, pattern, axes=0)
+        return alpha, bias
+
+    def pattern_of(latent, h):
+        if ternary:
+            return _ternary_pattern(latent, h, cf.ternary_style)
+        return _binary_pattern(latent, h), h
+
+    # first layer: real-valued input -> float GEMM with quantized weights
+    latent, h, bias = layer_weights("dense_0")
+    pattern, alpha = pattern_of(latent, h)
+    bn = _bn(params, stats, "bn_0", eps)
+    first = I.FloatDenseBits(
+        w=_t((pattern * alpha).astype(np.float32)),
+        bias=None if bias is None else _t(bias),
+        bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
+        bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]), bn_eps=eps)
+
+    hidden = []
+    for i in range(1, cf.num_hidden):
+        latent, h, bias = layer_weights(f"dense_{i}")
+        bn = _bn(params, stats, f"bn_{i}", eps)
+        pattern, alpha = pattern_of(latent, h)
+        a_eff, b_eff = in_fold(alpha, bias, pattern)
+        thr = fold_bn_sign(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                           eps, alpha=a_eff, bias=b_eff)
+        if ternary:
+            mask, sign, nnz = pack_ternary_np(pattern, axis=0)
+            hidden.append(I.TernaryDenseBits(
+                mask=_t(mask), sign=_t(sign), nnz=_t(nnz),
+                sgn=_t(thr.sgn), tau=_t(thr.tau)))
+        else:
+            hidden.append(I.PackedDenseBits(
+                wp=_t(pack_bits_np(pattern, axis=0)), sgn=_t(thr.sgn),
+                tau=_t(thr.tau), k=latent.shape[0]))
+
+    # head: integer GEMM + affine epilogue (BN folded, no sign)
+    latent, h, bias = layer_weights("dense_out")
+    bn = _bn(params, stats, "bn_out", eps)
+    pattern, alpha = pattern_of(latent, h)
+    a_eff, b_eff = in_fold(alpha, bias, pattern)
+    aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                         eps, alpha=a_eff, bias=b_eff)
+    if ternary:
+        mask, sign, nnz = pack_ternary_np(pattern, axis=0)
+        head = I.TernaryDenseLogits(mask=_t(mask), sign=_t(sign), nnz=_t(nnz),
+                                    a=_t(aff.a), c=_t(aff.c0))
+    else:
+        head = I.PackedDenseLogits(wp=_t(pack_bits_np(pattern, axis=0)),
+                                   a=_t(aff.a), c=_t(aff.c0), k=latent.shape[0])
+    return I.PackedMLP(first=first, hidden=hidden, head=head)

@@ -1,10 +1,11 @@
 """Build the CUDA kernels in ``csrc/`` at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface (a few seconds; sources that include PyTorch's headers would take
-minutes).  The library lands in ``_build/`` beside this file, named by a
-hash of the sources and flags, so an edited source rebuilds and an unchanged
-one is reused.  Nothing here runs at import time.
+``nvcc`` compiles every ``csrc/*.cu``, with the ``csrc/*.cuh`` headers they
+include, into one shared library with a plain C interface (a few seconds;
+sources that include PyTorch's headers would take minutes).  The library
+lands in ``_build/`` beside this file, named by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -23,15 +26,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument types of each C entry point in csrc/xnor_fused.cu
+# argument types of each C entry point in csrc/*.cu
 _SIGNATURES = {
     "qnx_xnor_dense_fused": [_P] * 5 + [_I] * 4 + [_P],
+    "qnx_ternary_dense_fused": [_P] * 7 + [_I] * 3 + [_P],
     "qnx_xnor_conv3x3_fused": [_P] * 6 + [_I] * 7 + [_P],
+    "qnx_xnor_gemm_popcount": [_P] * 3 + [_I] * 4 + [_P],
+    "qnx_ternary_gemm": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 
+def _units() -> list[Path]:
+    """The translation units nvcc compiles."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    """Every file the library is built from: the units and their headers."""
+    return _units() + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -67,7 +79,7 @@ def build_log() -> str:
 def _build(lib: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _units())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -94,8 +106,33 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, name: str, code: int) -> None:
-    """Raise if a C entry point reported a CUDA error for its launch."""
+def launch(fn_name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``fn_name`` on ``device``'s current stream with
+    ``args`` (tensors are passed by pointer) and raise if the launch was
+    refused."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, fn_name)(
+            *(ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a
+              for a in args), ctypes.c_void_p(stream))
     if code != 0:
         msg = lib.qnx_cuda_error_string(code).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed with error {code}: {msg}")
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {code}: {msg}")
+
+
+def check_operands(name: str, xp: torch.Tensor, **tensors: torch.Tensor) -> bool:
+    """Check what every kernel wrapper's operands must be: int32, contiguous,
+    on ``xp``'s device.  Returns True where the wrapper launches its kernel
+    (a CUDA tensor) and False where it runs its plain version (a CPU
+    tensor); any other device raises."""
+    for arg, t in {"xp": xp, **tensors}.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
+        if t.device != xp.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, xp on {xp.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if xp.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: no kernel for device {xp.device}")
+    return xp.is_cuda

@@ -1,6 +1,6 @@
-"""Numpy counterpart of :func:`qnx.models.factory.init_model` for the VGG:
-random variables with the tree, names, shapes and dtypes of flax
-``QuantVGG``, made without jax so a CUDA host without jax can build a model.
+"""Numpy counterpart of :func:`qnx.models.factory.init_model`: random
+variables with the tree, names, shapes and dtypes of flax ``QuantVGG`` and
+``QuantMLP``, made without jax so a CUDA host without jax can build a model.
 
 The draws do not equal jax's.  They are chosen so the packed engine's whole
 epilogue is exercised: latent kernels uniform in ±H (H by the Glorot rule of
@@ -35,11 +35,9 @@ def _resolve_h(H, fan_in: int, fan_out: int) -> float:
 
 def init_variables(cf: Config, seed: int) -> dict:
     """Random ``{"params", "quant", "batch_stats"}`` numpy variables of a VGG
-    config, from ``np.random.default_rng(seed)``."""
-    if cf.architecture != "vgg":
-        raise NotImplementedError(
-            "init_variables covers the VGG; the MLP comes with its slice "
-            "(ROADMAP.md §1)")
+    or MLP config, from ``np.random.default_rng(seed)``."""
+    if cf.architecture not in ("vgg", "mlp"):
+        raise ValueError(f"unknown architecture {cf.architecture!r}")
     rng = np.random.default_rng(seed)
     params: dict = {}
     quant: dict = {}
@@ -75,6 +73,17 @@ def init_variables(cf: Config, seed: int) -> dict:
         params[name] = {"scale": f32(scale), "bias": f32(bias)}
         stats[name] = {"mean": f32(rng.normal(0.0, 0.5 * sigma, c)),
                        "var": f32(sigma**2 * rng.uniform(0.5, 1.5, c))}
+
+    if cf.architecture == "mlp":  # num_hidden dense layers of dim units
+        k = math.prod(cf.input_shape)
+        for i in range(cf.num_hidden):
+            sigma = layer(f"dense_{i}", (k, cf.dim), k, cf.dim, all_float)
+            batchnorm(f"bn_{i}", cf.dim, sigma, binary_out=True)
+            k = cf.dim
+        sigma = layer("dense_out", (k, cf.classes), k, cf.classes,
+                      all_float or cf.last_layer_float)
+        batchnorm("bn_out", cf.classes, sigma, binary_out=False)
+        return {"params": params, "quant": quant, "batch_stats": stats}
 
     widths = [cf.width, cf.width, 2 * cf.width, 2 * cf.width,
               4 * cf.width, 4 * cf.width]

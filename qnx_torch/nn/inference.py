@@ -1,15 +1,15 @@
-"""Packed-integer inference engine for the binary VGG (torch port of the
-binary layers of :mod:`qnx.nn.inference`).
+"""Packed-integer inference engine for the binary VGG and the binary and
+ternary MLP (torch port of the packed layers of :mod:`qnx.nn.inference`).
 
 A packed model is a chain of
 
-    bits --XNOR popcount conv/GEMM--> int32 s --(sgn*s >= tau)--> bits
+    bits --XNOR/ternary popcount conv/GEMM--> int32 s --(sgn*s >= tau)--> bits
 
-with float math only at the first conv (real-valued images in) and the
+with float math only at the first layer (real-valued images in) and the
 logit head.  Layers are ``nn.Module``s whose packed words, corrections,
 thresholds and float weights are buffers, so ``model.to(device)`` moves all
 of it.  Tensors keep the JAX package's layout: NHWC activations packed along
-C, (9*Cw, N) tap-major conv weights, (Kw, N) dense weights.
+C, (9*Cw, N) tap-major conv weights, (Kw, N) dense weights and planes.
 """
 from __future__ import annotations
 
@@ -20,7 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from qnx_torch.kernels.xnor_conv_fused import xnor_conv_fused, xnor_gemm_fused
+from qnx_torch.kernels.ternary_gemm import ternary_gemm
+from qnx_torch.kernels.xnor_conv_fused import (ternary_gemm_fused,
+                                               xnor_conv_fused, xnor_gemm_fused)
+from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
 from qnx_torch.ops.packing import pack_bits, unpack_bits
 
 _TF32_LOCK = threading.Lock()
@@ -70,6 +73,132 @@ def _maxpool2(y: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
+def _affine(a: torch.Tensor, s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Logits ``a * s + c`` of an integer head, rounded once as the JAX
+    package's ``a * f32(s) + c`` is under XLA, which contracts it into one
+    fused multiply-add.  ``a * s`` is exact in float64 (a has 24 significant
+    bits, |s| < 2^24), so the float64 sum rounded to float32 is that one
+    rounding but for a double-rounding tie, which float64's 29 spare bits
+    make vanishingly rare."""
+    return (a.double() * s.double() + c.double()).float()
+
+
+class FloatDenseBits(_BatchNorm):
+    """Float-input dense layer producing sign bits: f32 ``x @ w`` (+bias) ->
+    BN -> bits packed along the features."""
+
+    def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                 bn_eps: float = 1e-4):
+        super().__init__(bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
+        self.register_buffer("w", w)        # (K, N) f32
+        self.register_buffer("bias", bias)  # (N,) f32 or None
+
+    def dense(self, x: torch.Tensor) -> torch.Tensor:
+        """The f32 matmul (+bias)."""
+        with _ieee_f32():
+            y = x @ self.w
+        return y if self.bias is None else y + self.bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pack_bits(self._bn(self.dense(x)), axis=-1)
+
+
+class PackedDenseBits(nn.Module):
+    """Binary hidden dense layer: popcount GEMM + integer threshold ->
+    packed bits, in one kernel."""
+
+    def __init__(self, wp, sgn, tau, k: int):
+        super().__init__()
+        self.register_buffer("wp", wp)      # (Kw, N) int32
+        self.register_buffer("sgn", sgn)
+        self.register_buffer("tau", tau)
+        self.k = k
+
+    def forward(self, bits: torch.Tensor) -> torch.Tensor:
+        return xnor_gemm_fused(bits, self.wp, self.k, self.sgn, self.tau)
+
+
+class TernaryDenseBits(nn.Module):
+    """Ternary hidden dense layer: two-plane popcount GEMM + integer
+    threshold -> packed bits, in one kernel."""
+
+    def __init__(self, mask, sign, nnz, sgn, tau):
+        super().__init__()
+        self.register_buffer("mask", mask)  # (Kw, N) int32
+        self.register_buffer("sign", sign)  # (Kw, N) int32
+        self.register_buffer("nnz", nnz)    # (N,) int32
+        self.register_buffer("sgn", sgn)
+        self.register_buffer("tau", tau)
+
+    def forward(self, bits: torch.Tensor) -> torch.Tensor:
+        return ternary_gemm_fused(bits, self.mask, self.sign, self.nnz,
+                                  self.sgn, self.tau)
+
+
+class _IntegerHead(nn.Module):
+    """Output head over packed bits: an integer GEMM ``scores`` (int32 s)
+    and the folded float affine ``a * s + c`` (``logits``)."""
+
+    def __init__(self, a, c):
+        super().__init__()
+        self.register_buffer("a", a)  # (N,) f32
+        self.register_buffer("c", c)  # (N,) f32
+
+    def scores(self, bits: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def logits(self, s: torch.Tensor) -> torch.Tensor:
+        return _affine(self.a, s, self.c)
+
+    def forward(self, bits: torch.Tensor) -> torch.Tensor:
+        return self.logits(self.scores(bits))
+
+
+class PackedDenseLogits(_IntegerHead):
+    """Binary output head: popcount GEMM -> int32 s -> float affine."""
+
+    def __init__(self, wp, a, c, k: int):
+        super().__init__(a, c)
+        self.register_buffer("wp", wp)  # (Kw, N) int32
+        self.k = k
+
+    def scores(self, bits: torch.Tensor) -> torch.Tensor:
+        """The head's int32 s."""
+        return xnor_gemm_popcount(bits, self.wp, self.k)
+
+
+class TernaryDenseLogits(_IntegerHead):
+    """Ternary output head: two-plane popcount GEMM -> int32 s -> affine."""
+
+    def __init__(self, mask, sign, nnz, a, c):
+        super().__init__(a, c)
+        self.register_buffer("mask", mask)  # (Kw, N) int32
+        self.register_buffer("sign", sign)  # (Kw, N) int32
+        self.register_buffer("nnz", nnz)    # (N,) int32
+
+    def scores(self, bits: torch.Tensor) -> torch.Tensor:
+        """The head's int32 s."""
+        return ternary_gemm(bits, self.mask, self.sign, self.nnz)
+
+
+class FloatDenseLogits(_BatchNorm):
+    """Float output head over ±1 values (``last_layer_float`` configs):
+    logits = BN(x @ w + bias)."""
+
+    def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                 bn_eps: float = 1e-4):
+        super().__init__(bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
+        self.register_buffer("w", w)
+        self.register_buffer("bias", bias)
+
+    def forward(self, bits_as_pm1: torch.Tensor) -> torch.Tensor:
+        with _ieee_f32():
+            y = bits_as_pm1 @ self.w
+        if self.bias is not None:
+            y = y + self.bias
+        return self._bn(y)
+
+
 class FloatConvBits(_BatchNorm):
     """Float first conv layer: f32 'SAME' conv (+bias) -> BN -> sign bits
     packed along channels.  Optional 2x2 max pool BEFORE BN (BinaryNet)."""
@@ -113,21 +242,6 @@ class PackedConvBits(nn.Module):
     def forward(self, bits: torch.Tensor) -> torch.Tensor:
         return xnor_conv_fused(bits, self.wp, self.k, self.corr, self.sgn,
                                self.tau, pool=self.pool)
-
-
-class PackedDenseBits(nn.Module):
-    """Binary hidden dense layer: popcount GEMM + integer threshold ->
-    packed bits, in one kernel."""
-
-    def __init__(self, wp, sgn, tau, k: int):
-        super().__init__()
-        self.register_buffer("wp", wp)      # (Kw, N) int32
-        self.register_buffer("sgn", sgn)
-        self.register_buffer("tau", tau)
-        self.k = k
-
-    def forward(self, bits: torch.Tensor) -> torch.Tensor:
-        return xnor_gemm_fused(bits, self.wp, self.k, self.sgn, self.tau)
 
 
 class FloatDenseLogitsFromBits(_BatchNorm):
@@ -178,5 +292,28 @@ class PackedVGG(nn.Module):
 
 def vgg_forward(model: PackedVGG, images: torch.Tensor) -> torch.Tensor:
     """Packed forward: NHWC images in [-1, 1] -> logits."""
+    with torch.inference_mode():
+        return model(images)
+
+
+class PackedMLP(nn.Module):
+    """End-to-end packed MLP: flatten -> float-in first layer -> hidden
+    packed (binary or ternary) dense layers -> integer head."""
+
+    def __init__(self, first: FloatDenseBits, hidden, head):
+        super().__init__()
+        self.first = first
+        self.hidden = nn.ModuleList(hidden)
+        self.head = head
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        bits = self.first(images.reshape(images.shape[0], -1))
+        for layer in self.hidden:
+            bits = layer(bits)
+        return self.head(bits)
+
+
+def mlp_forward(model: PackedMLP, images: torch.Tensor) -> torch.Tensor:
+    """Packed forward: images in [-1, 1] -> logits."""
     with torch.inference_mode():
         return model(images)

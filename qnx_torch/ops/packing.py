@@ -1,5 +1,5 @@
-"""Bit-packing of ±1 tensors into int32 words (torch port of
-:mod:`qnx.ops.packing`).
+"""Bit-packing of ±1 (binary) and {-1, 0, +1} (ternary) tensors into int32
+words (torch port of :mod:`qnx.ops.packing`).
 
 Layout contract, identical to the JAX package:
 
@@ -63,6 +63,20 @@ def unpack_bits(words: torch.Tensor, k: int, axis: int = -1,
     return torch.movedim(pm1, -1, axis)
 
 
+def pack_ternary(w: torch.Tensor, axis: int = 0):
+    """Pack a {-c, 0, +c}-valued tensor into (mask, sign) bit-planes.
+
+    Returns ``(mask_words, sign_words, nnz)`` where along ``axis`` the mask
+    bit is 1 iff the element is nonzero, the sign bit is 1 iff it is > 0
+    (zeros carry sign bit 0), and ``nnz`` is the int32 count of nonzeros of
+    each remaining-axes slice, as :func:`qnx.ops.packing.pack_ternary`.
+    Padding words are all-zero in both planes, so they contribute nothing."""
+    mask = pack_bits(w != 0, axis=axis)
+    sign = pack_bits(w, axis=axis)
+    nnz = torch.sum(w != 0, dim=axis, dtype=torch.int32)
+    return mask, sign, nnz
+
+
 def popcount(words: torch.Tensor) -> torch.Tensor:
     """Population count of int32 words (SWAR on the unsigned value, in
     int64 so no shift sees a sign bit)."""
@@ -85,3 +99,13 @@ def pack_bits_np(x: np.ndarray, axis: int = -1) -> np.ndarray:
     shifts = np.arange(WORD, dtype=np.uint32)
     words = np.sum(bits << shifts, axis=-1, dtype=np.uint32).view(np.int32)
     return np.moveaxis(words, -1, axis)
+
+
+def pack_ternary_np(w: np.ndarray, axis: int = 0):
+    """Host-side (numpy) :func:`pack_ternary`, same contract; used by the
+    conversion pass."""
+    w = np.asarray(w)
+    mask = pack_bits_np(np.where(w != 0, 1.0, -1.0), axis=axis)
+    sign = pack_bits_np(w, axis=axis)
+    nnz = np.sum(w != 0, axis=axis, dtype=np.int32)
+    return mask, sign, nnz

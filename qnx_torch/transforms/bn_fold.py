@@ -1,5 +1,6 @@
-"""BatchNorm -> per-channel integer threshold folding (torch port of
-:func:`qnx.transforms.bn_fold.fold_bn_sign`, in numpy as the original).
+"""BatchNorm -> per-channel integer threshold and affine folding (torch port
+of :func:`qnx.transforms.bn_fold.fold_bn_sign`, ``fold_bn_affine`` and
+``fold_affine``, in numpy as the originals).
 
 At inference every hidden block of the binary network is
 
@@ -15,8 +16,9 @@ epilogue collapses to one integer comparison:
 with ``sgn in {+1,-1}`` absorbing the sign of gamma and ``tau = floor(theta)
 + 1`` encoding the strict inequality ``s > theta`` exactly for integer s.
 Thresholds are computed in float64 at conversion time.  Degenerate
-gamma == 0 channels become constant bits via saturated thresholds.
-``tests/test_torch_config.py`` holds the fold equal to the JAX package's.
+gamma == 0 channels become constant bits via saturated thresholds.  A logit
+head keeps the float epilogue instead, collapsed to ``y = a*s + c0``.
+``tests/test_torch_config.py`` holds the folds equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -78,3 +80,36 @@ def fold_bn_sign(gamma, beta, mean, var, eps: float, alpha=1.0,
     tau = np.where(zero, np.where(beta > 0, INT32_MIN, INT32_MAX),
                    tau).astype(np.int32)
     return SignThreshold(sgn=sgn, tau=tau)
+
+
+@dataclass(frozen=True)
+class AffineEpilogue:
+    """Float epilogue for non-sign outputs (logits):
+    y[.., c] = a[c] * s[.., c] + c0[c]."""
+
+    a: np.ndarray  # (C,) float32
+    c0: np.ndarray  # (C,) float32
+
+
+def fold_bn_affine(gamma, beta, mean, var, eps, alpha=1.0, bias=None) -> AffineEpilogue:
+    """Collapse BN over an integer GEMM output into y = a*s + c0 (float64
+    math, float32 result)."""
+    gamma = np.asarray(gamma, np.float64)
+    beta = np.asarray(beta, np.float64)
+    mean = np.asarray(mean, np.float64)
+    var = np.asarray(var, np.float64)
+    alpha = np.broadcast_to(np.asarray(alpha, np.float64), gamma.shape)
+    bias = (np.zeros_like(gamma) if bias is None
+            else np.broadcast_to(np.asarray(bias, np.float64), gamma.shape))
+    std = np.sqrt(var + eps)
+    a = gamma * alpha / std
+    c0 = gamma * (bias - mean) / std + beta
+    return AffineEpilogue(a=a.astype(np.float32), c0=c0.astype(np.float32))
+
+
+def fold_affine(alpha=1.0, bias=None, channels: int | None = None) -> AffineEpilogue:
+    """No-BN affine epilogue: y = alpha*s + bias."""
+    c = channels if channels is not None else np.asarray(bias).shape[0]
+    one = np.ones(c)
+    return fold_bn_affine(one, np.zeros(c), np.zeros(c), one, 0.0,
+                          alpha=alpha, bias=bias)

@@ -1,9 +1,16 @@
-"""Write ``torch_port_golden_cifar10_bnn.npz``: the logits that the JAX
-package's ``ServeEngine`` gives for 8 seeded uint8 images through the
-full-width ``cifar10-bnn`` packed VGG, with the random variables of
-``qnx_torch.models.factory.init_variables(CIFAR10_BNN, seed=0)``.
-``chip_smoke.py`` holds the port's run on the card against it,
-``tests/test_torch_golden.py`` regenerates and compares it.
+"""Write the full-width goldens of the torch port: for each served config,
+the logits that the JAX package's ``ServeEngine`` gives for 8 seeded uint8
+images, with the random variables of
+``qnx_torch.models.factory.init_variables(cf, seed=0)``:
+
+* ``torch_port_golden_cifar10_bnn.npz``: the ``cifar10-bnn`` packed VGG;
+* ``torch_port_golden_mnist_bnn.npz``: the ``mnist-bnn`` packed MLP;
+* ``torch_port_golden_mnist_tnn.npz``: the ``mnist-tnn`` packed MLP.
+
+Each file holds the images and logits only, never the variables (the
+full-width float latents are about 147 MB for an MLP).  ``chip_smoke.py``
+holds the port's run on the card against them, ``tests/test_torch_golden.py``
+regenerates and compares them.
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_port_golden.py
 """
@@ -13,22 +20,29 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
-GOLDEN = Path(__file__).with_name("torch_port_golden_cifar10_bnn.npz")
+DATA = Path(__file__).parent
+NAMES = ("cifar10_bnn", "mnist_bnn", "mnist_tnn")
 VARIABLES_SEED = 0
 IMAGES_SEED = 1
 N_IMAGES = 8
 
 
-def golden() -> dict:
+def path(name: str) -> Path:
+    return DATA / f"torch_port_golden_{name}.npz"
+
+
+def golden(name: str) -> dict:
     """Images and the JAX engine's logits (interpret-mode Pallas on CPU)."""
-    from qnx.convert.pack_model import pack_vgg
+    from qnx.convert.pack_model import pack_mlp, pack_vgg
     from qnx.serve.engine import ServeEngine
-    from qnx.utils.config import CIFAR10_BNN
+    from qnx.utils import config
     from qnx_torch.models.factory import init_variables
 
+    cf = getattr(config, name.upper())
+    pack = pack_vgg if cf.architecture == "vgg" else pack_mlp
     images = np.random.default_rng(IMAGES_SEED).integers(
-        0, 256, (N_IMAGES, *CIFAR10_BNN.input_shape), dtype=np.uint8)
-    model = pack_vgg(init_variables(CIFAR10_BNN, VARIABLES_SEED), CIFAR10_BNN)
+        0, 256, (N_IMAGES, *cf.input_shape), dtype=np.uint8)
+    model = pack(init_variables(cf, VARIABLES_SEED), cf)
     with ServeEngine(model, batch_size=N_IMAGES) as engine:
         logits = engine.predict(images)
     return {"variables_seed": np.int64(VARIABLES_SEED), "images": images,
@@ -36,8 +50,9 @@ def golden() -> dict:
 
 
 def main() -> None:
-    np.savez(GOLDEN, **golden())
-    print(f"wrote {GOLDEN}")
+    for name in NAMES:
+        np.savez(path(name), **golden(name))
+        print(f"wrote {path(name)}")
 
 
 if __name__ == "__main__":

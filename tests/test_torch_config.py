@@ -72,3 +72,42 @@ def test_fold_bn_sign_rejects_non_positive_alpha():
             bn_fold.fold_bn_sign(one, one, one, one, 1e-4, alpha=alpha)
         with pytest.raises(ValueError, match="alpha"):
             jax_bn_fold.fold_bn_sign(one, one, one, one, 1e-4, alpha=alpha)
+
+
+def _affine_fields(epi):
+    return [(f.name, getattr(epi, f.name)) for f in dataclasses.fields(epi)]
+
+
+@pytest.mark.parametrize("alpha,with_bias", [
+    (1.0, False), (0.0625, True), ("per-channel", True), (-0.5, True)],
+    ids=["unit", "H-and-bias", "per-channel", "negative-alpha"])
+def test_fold_bn_affine_matches(alpha, with_bias):
+    rng = np.random.default_rng(1)
+    c = 48
+    gamma, beta, mean, var = _bn(rng, c)
+    if alpha == "per-channel":
+        alpha = rng.uniform(0.01, 2.0, c)
+    bias = rng.normal(0.0, 1.0, c) if with_bias else None
+    got = bn_fold.fold_bn_affine(gamma, beta, mean, var, 1e-4, alpha=alpha,
+                                 bias=bias)
+    want = jax_bn_fold.fold_bn_affine(gamma, beta, mean, var, 1e-4,
+                                      alpha=alpha, bias=bias)
+    assert [n for n, _ in _affine_fields(got)] == [n for n, _ in _affine_fields(want)]
+    for (name, g), (_, w) in zip(_affine_fields(got), _affine_fields(want)):
+        assert g.dtype == w.dtype == np.float32, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    # gamma == 0 channels collapse to the constant beta
+    np.testing.assert_array_equal(got.a[:4], 0.0)
+    np.testing.assert_array_equal(got.c0[:4], beta[:4].astype(np.float32))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(alpha=0.25, bias=np.linspace(-1.0, 1.0, 10)),
+    dict(alpha=np.linspace(0.1, 1.0, 7), channels=7),
+    dict(bias=np.arange(5.0))], ids=["bias", "channels", "unit-alpha"])
+def test_fold_affine_matches(kwargs):
+    got = bn_fold.fold_affine(**kwargs)
+    want = jax_bn_fold.fold_affine(**kwargs)
+    for (name, g), (_, w) in zip(_affine_fields(got), _affine_fields(want)):
+        assert g.dtype == w.dtype == np.float32, name
+        np.testing.assert_array_equal(g, w, err_msg=name)

@@ -1,17 +1,17 @@
-"""The committed full-width golden (tests/data/torch_port_golden_cifar10_bnn.npz)
-that ``chip_smoke.py`` holds the card's run against: regenerated here with
+"""The committed full-width goldens (tests/data/torch_port_golden_*.npz)
+that ``chip_smoke.py`` holds the card's runs against: regenerated here with
 the JAX package, and matched by the port's CPU path."""
 import importlib.util
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
-from qnx_torch.convert.pack_model import pack_vgg
+from qnx_torch.convert.pack_model import pack_mlp, pack_vgg
 from qnx_torch.models.factory import init_variables
-from qnx_torch.nn.inference import vgg_forward
 from qnx_torch.serve.engine import normalize_u8
-from qnx_torch.utils.config import CIFAR10_BNN
+from qnx_torch.utils import config
 
 torch.set_num_threads(2)
 
@@ -27,10 +27,12 @@ def _maker():
     return mod
 
 
-def test_golden_regenerates_from_the_jax_package():
-    maker = _maker()
-    committed = np.load(maker.GOLDEN)
-    fresh = maker.golden()
+MAKER = _maker()
+
+
+def _check_regenerates(name):
+    committed = np.load(MAKER.path(name))
+    fresh = MAKER.golden(name)
     assert set(committed.files) == set(fresh)
     np.testing.assert_array_equal(committed["images"], fresh["images"])
     assert int(committed["variables_seed"]) == int(fresh["variables_seed"])
@@ -38,14 +40,33 @@ def test_golden_regenerates_from_the_jax_package():
                                rtol=RTOL, atol=1e-6)
 
 
-def test_port_cpu_path_matches_golden():
-    g = np.load(DATA / "torch_port_golden_cifar10_bnn.npz")
-    model = pack_vgg(init_variables(CIFAR10_BNN, int(g["variables_seed"])),
-                     CIFAR10_BNN)
-    x = normalize_u8(torch.from_numpy(g["images"]))
-    got = vgg_forward(model, x).numpy()
+def _check_port_matches(name):
+    g = np.load(MAKER.path(name))
+    cf = getattr(config, name.upper())
+    pack = pack_vgg if cf.architecture == "vgg" else pack_mlp
+    model = pack(init_variables(cf, int(g["variables_seed"])), cf)
+    with torch.inference_mode():
+        got = model(normalize_u8(torch.from_numpy(g["images"]))).numpy()
     want = g["logits"]
-    assert got.shape == (8, CIFAR10_BNN.classes) and np.isfinite(got).all()
+    assert got.shape == (8, cf.classes) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=RTOL,
                                atol=ATOL_REL * np.abs(want).max())
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_golden_regenerates_from_the_jax_package():
+    _check_regenerates("cifar10_bnn")
+
+
+def test_port_cpu_path_matches_golden():
+    _check_port_matches("cifar10_bnn")
+
+
+@pytest.mark.parametrize("name", ["mnist_bnn", "mnist_tnn"])
+def test_mlp_golden_regenerates_from_the_jax_package(name):
+    _check_regenerates(name)
+
+
+@pytest.mark.parametrize("name", ["mnist_bnn", "mnist_tnn"])
+def test_port_cpu_path_matches_mlp_golden(name):
+    _check_port_matches(name)

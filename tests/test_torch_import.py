@@ -14,7 +14,8 @@ EXPECTED = {
     "qnx_torch.kernels._build", "qnx_torch.nn.inference",
     "qnx_torch.convert.pack_model", "qnx_torch.models.factory",
     "qnx_torch.serve.engine", "qnx_torch.utils.config",
-    "qnx_torch.transforms.bn_fold",
+    "qnx_torch.transforms.bn_fold", "qnx_torch.kernels.xnor_gemm",
+    "qnx_torch.kernels.ternary_gemm",
 }
 
 _PROBE = """

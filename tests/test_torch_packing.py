@@ -6,9 +6,10 @@ import pytest
 import torch
 
 from qnx.ops import packing as JP
+from qnx.ops.reference import ternary_gemm_ref as jax_ternary_gemm_ref
 from qnx.ops.reference import xnor_gemm_ref as jax_xnor_gemm_ref
 from qnx_torch.ops import packing as TP
-from qnx_torch.ops.reference import xnor_gemm_ref
+from qnx_torch.ops.reference import ternary_gemm_ref, xnor_gemm_ref
 
 torch.set_num_threads(2)
 
@@ -102,3 +103,52 @@ def test_xnor_gemm_ref_matches_jax_and_dense(m, k, n):
     np.testing.assert_array_equal(
         got, np.asarray(jax_xnor_gemm_ref(jnp.asarray(xp), jnp.asarray(wp), k)))
     np.testing.assert_array_equal(got, (x @ w).astype(np.int32))
+
+
+def _ternary(shape, seed, scale=0.25):
+    """{-scale, 0, +scale} values, about a third zero, with -0.0 among the
+    zeros and one all-zero slice along axis 0."""
+    rng = np.random.default_rng(seed)
+    w = rng.choice(np.array([-scale, 0.0, scale], np.float32), shape)
+    w[..., 0] = 0.0
+    flat = w.reshape(-1)
+    flat[rng.choice(flat.size, flat.size // 10, replace=False)] = -0.0
+    return w
+
+
+@pytest.mark.parametrize("shape,axis", [((70, 5), 0), ((64, 3), 0),
+                                        ((5, 100), -1), ((3, 40, 2), 1)])
+def test_pack_ternary_matches_jax(shape, axis):
+    w = _ternary(shape, seed=sum(shape))
+    want = JP.pack_ternary(jnp.asarray(w), axis=axis)
+    got = TP.pack_ternary(torch.from_numpy(w), axis=axis)
+    got_np = TP.pack_ternary_np(w, axis=axis)
+    for g, n, j, jn in zip(got, got_np, want, JP.pack_ternary_np(w, axis=axis)):
+        j = np.asarray(j)
+        assert g.dtype == torch.int32 and n.dtype == np.int32 == j.dtype
+        np.testing.assert_array_equal(g.numpy(), j)
+        np.testing.assert_array_equal(n, jn)
+        np.testing.assert_array_equal(n, j)
+    mask, sign, nnz = got_np
+    # sign bits only where the mask is set; pad words all zero in both planes
+    assert ((sign & ~mask) == 0).all()
+    k = shape[axis]
+    if k % 32:
+        tail = np.moveaxis(mask, axis, -1)[..., -1]
+        assert ((tail.view(np.uint32) >> (k % 32)) == 0).all()
+    np.testing.assert_array_equal(nnz, np.sum(w != 0, axis=axis))
+
+
+@pytest.mark.parametrize("m,k,n", [(7, 100, 5), (16, 64, 48), (3, 33, 1)])
+def test_ternary_gemm_ref_matches_jax_and_dense(m, k, n):
+    rng = np.random.default_rng(m * k + n)
+    x = np.where(rng.random((m, k)) < 0.5, 1.0, -1.0).astype(np.float32)
+    w = _ternary((k, n), seed=m + k + n, scale=1.0)
+    xp = JP.pack_bits_np(x, -1)
+    mask, sign, nnz = JP.pack_ternary_np(w, axis=0)
+    got = ternary_gemm_ref(*(torch.from_numpy(a) for a in (xp, mask, sign, nnz)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(),
+        np.asarray(jax_ternary_gemm_ref(*map(jnp.asarray, (xp, mask, sign, nnz)))))
+    np.testing.assert_array_equal(got.numpy(), (x @ w).astype(np.int32))

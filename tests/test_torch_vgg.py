@@ -12,7 +12,9 @@ import torch
 
 from engine_test_utils import VGG_CF
 from qnx.convert.pack_model import pack_vgg as jax_pack_vgg
+from qnx.kernels.xnor_gemm import xnor_gemm_popcount as jax_xnor_gemm_popcount
 from qnx.models.factory import build_model, init_model
+from qnx.nn.inference import PackedDenseLogits as JaxPackedDenseLogits
 from qnx.nn.inference import vgg_forward as jax_vgg_forward
 from qnx.ops.packing import unpack_bits as jax_unpack_bits
 from qnx.serve.engine import ServeEngine as JaxServeEngine
@@ -28,6 +30,9 @@ torch.set_num_threads(2)
 # the smallest VGG whose channel counts are whole packed words
 SMALL_CF = VGG_CF.replace(width=32)
 SIG_CF = SMALL_CF.replace(activation="binary_sigmoid")
+# the JAX suite's own VGG (width 8: 8, 16 and 32 channels, dense 64), and
+# with the binary packed head (PackedDenseLogits, kernel B)
+HEAD_CF = VGG_CF.replace(last_layer_float=False)
 # logits: equal bits feed the same float head; only the f32 summation order
 # of the first conv and the head differ between XLA and torch
 RTOL, ATOL_REL = 1e-5, 1e-4
@@ -68,8 +73,9 @@ def _jax_layers(jm):
             ("head", jm.head)]
 
 
-@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, CIFAR10_BNN],
-                         ids=["width32", "binary_sigmoid", "cifar10-bnn"])
+@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, CIFAR10_BNN, VGG_CF, HEAD_CF],
+                         ids=["width32", "binary_sigmoid", "cifar10-bnn",
+                              "width8", "binary-head"])
 def test_pack_vgg_buffers_equal_jax_leaves(cf):
     variables = init_variables(cf, seed=3)
     jm, tm = jax_pack_vgg(variables, cf), pack_vgg(variables, cf)
@@ -91,7 +97,8 @@ def test_pack_vgg_buffers_equal_jax_leaves(cf):
         assert conv.tau.min() == -2**31 and conv.tau.max() == 2**31 - 1
 
 
-@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF], ids=["width32", "binary_sigmoid"])
+@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, VGG_CF, HEAD_CF],
+                         ids=["width32", "binary_sigmoid", "width8", "binary-head"])
 def test_packed_layers_bit_exact_vs_jax(cf):
     """Fed the same input bits, every packed layer's words equal JAX's."""
     variables = init_variables(cf, seed=5)
@@ -112,9 +119,13 @@ def test_packed_layers_bit_exact_vs_jax(cf):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want),
                                           err_msg=f"dense_{j}")
             bits = want
-        np.testing.assert_allclose(
-            tm.head(torch.tensor(np.asarray(bits))).numpy(),
-            np.asarray(jm.head(bits)), rtol=RTOL, atol=1e-6)
+        tbits = torch.tensor(np.asarray(bits))
+        if isinstance(jm.head, JaxPackedDenseLogits):  # the head's int32 s
+            np.testing.assert_array_equal(
+                tm.head.scores(tbits).numpy(),
+                np.asarray(jax_xnor_gemm_popcount(bits, jm.head.wp, jm.head.k)))
+        np.testing.assert_allclose(tm.head(tbits).numpy(),
+                                   np.asarray(jm.head(bits)), rtol=RTOL, atol=1e-6)
 
 
 def test_first_layer_bits_differ_only_near_zero():
@@ -141,7 +152,8 @@ def test_first_layer_bits_differ_only_near_zero():
         assert np.abs(z[differ]).max() < 1e-5
 
 
-@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF], ids=["width32", "binary_sigmoid"])
+@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, VGG_CF, HEAD_CF],
+                         ids=["width32", "binary_sigmoid", "width8", "binary-head"])
 def test_logits_match_jax_vgg_forward(cf):
     variables = init_variables(cf, seed=8)
     _, x = _images(8, seed=9, cf=cf)
@@ -210,7 +222,6 @@ def test_unported_variants_raise():
     model = pack_vgg(init_variables(SMALL_CF, seed=0), SMALL_CF)
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(model, mesh=object())
-    for cf in (SMALL_CF.replace(network_type="full-tnn", wbits=2),
-               SMALL_CF.replace(last_layer_float=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pack_vgg(init_variables(cf, seed=0), cf)
+    cf = SMALL_CF.replace(network_type="full-tnn", wbits=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pack_vgg(init_variables(cf, seed=0), cf)

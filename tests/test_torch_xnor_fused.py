@@ -64,10 +64,15 @@ CASES = [
     ("conv", (3, 5, 7, 32, 32, False)),   # odd spatial
     ("conv", (2, 4, 4, 96, 64, False)),   # Cw = 3 words
     ("conv", (2, 4, 4, 40, 32, True)),    # C not a multiple of 32
+    ("conv", (2, 8, 8, 8, 8, True)),      # N = 8: one part-filled word
+    ("conv", (1, 5, 7, 16, 48, False)),   # N = 48: a full and a half word
+    ("conv", (2, 4, 4, 8, 16, True)),     # VGG_CF's width-8 conv_2 shape
     # dense (m, k, n)
     ("dense", (8, 32, 32)),
     ("dense", (16, 100, 64)),             # K not a multiple of 32
     ("dense", (130, 96, 128)),            # ragged M
+    ("dense", (5, 64, 8)),                # N = 8
+    ("dense", (9, 100, 48)),              # N = 48, K not a multiple of 32
 ]
 
 
@@ -88,6 +93,9 @@ def test_fused_words_match_jax(kind, shape):
     want = np.asarray(pack_bits_mxu(code, axis=-1))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+    n = code.shape[-1]
+    if n % 32:  # the pad bits of the last word are 0
+        assert ((want[..., -1].view(np.uint32) >> (n % 32)) == 0).all()
     # the int32-extreme channels are constant bits: tau=MIN on, tau=MAX off
     bits = (want[..., 0:1] >> np.arange(2)) & 1
     assert (bits[..., 0] == 1).all() and (bits[..., 1] == 0).all()
@@ -124,8 +132,10 @@ def test_cpu_tensors_never_count_launches():
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     xp, wp, k, sgn, tau = _dense_case(4, 64, 32)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        F.xnor_gemm_fused(*_t(xp, wp[:, :16]), k, *_t(sgn[:16], tau[:16]))
+    with pytest.raises(ValueError, match="sgn"):
+        F.xnor_gemm_fused(*_t(xp, wp[:, :16]), k, *_t(sgn, tau))
+    with pytest.raises(ValueError, match="Kw"):
+        F.xnor_gemm_fused(*_t(xp, wp[:1]), k, *_t(sgn, tau))
     with pytest.raises(TypeError, match="int32"):
         F.xnor_gemm_fused(*_t(xp, wp.astype(np.int64)), k, *_t(sgn, tau))
     with pytest.raises(ValueError, match="contiguous"):
