@@ -8,27 +8,36 @@ Drives the port's served paths through the hand-written CUDA kernels in
 
 * the full-width ``cifar10-bnn`` packed VGG (width 128, dense 1024);
 * the full-width ``mnist-bnn`` and ``mnist-tnn`` packed MLPs (3 layers of
-  4096, 10 classes),
+  4096, 10 classes);
+* the int8 engine (``pack_int8``) of ``cifar10-bnn`` (pm1 codes),
+  ``cifar10-tnn`` (level codes, abits 2) and ``mnist-bnn``: every hidden
+  conv through kernel E, the dense layers through ``torch._int_mm``,
 
-each with random weights from seed 0 and served by
-``qnx_torch.serve.ServeEngine``.  Phases:
+each with random weights from seed 0, built on the card by the converters'
+default and served by ``qnx_torch.serve.ServeEngine``.  Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
 2. build: compile the kernels, with the ptxas register report;
-3. kernels: each of the five kernels against its plain PyTorch version on
-   the card at its paths' layer shapes (batch 32, and 256 for the MLPs), the
-   packed GEMMs at 1024x4096x4096, ragged cases and any N (8, 48, 1, 10,
-   33): packed words and int32 s must be equal;
+3. kernels: each of the six kernels against its plain PyTorch version on
+   the card at its paths' layer shapes (batch 32, and 256 for the MLPs and
+   kernel E), the packed GEMMs at 1024x4096x4096, ragged cases and any N
+   (8, 48, 1, 10, 33); kernel E in the pm1 encoding and the levels encoding
+   with 1 and 3 thresholds: packed words, int32 s and int8 codes must be
+   equal;
 4. slice: for each path, 600 uint8 requests through the engine; every
-   request answered, each layer's words and each head's int32 s equal to the
-   plain path's, logits equal to the plain path's and to the JAX package's
-   committed golden logits, and each kernel's launch count equal to layers x
-   batches (counts set to 0 just before each path and read just after);
-5. times: each kernel against its plain version at batch 256 (and the
-   packed GEMMs at 1024x4096x4096) and each path's forward, with CUDA events;
-6. stages: each stage of the batch-256 VGG and ``mnist-bnn`` forwards
-   alone, their peak memory, and the engine's throughput over 40 queued
-   batches.
+   request answered, each layer's words or codes and each integer head's
+   int32 s equal to the plain path's, logits equal to the plain path's and
+   to the JAX package's committed golden logits, and each kernel's launch
+   count equal to layers x batches (counts set to 0 just before each path
+   and read just after);
+5. times: each kernel against its plain version and against one library
+   call (``torch._int_mm`` on the same product, unpacked) at batch 256 (and
+   the packed GEMMs at 1024x4096x4096), each path's forward, and the int8
+   VGG against the strict-f32 float twin at batch 256 and 1024, with CUDA
+   events;
+6. stages: each stage of the batch-256 VGG, ``mnist-bnn`` and int8 VGG
+   forwards alone, their peak memory, and the engine's throughput over 40
+   queued batches.
 
 Any failure raises (non-zero exit).  The last lines are a JSON summary of
 the kernels, the card's ``name, power.limit``, and the result object.
@@ -40,7 +49,9 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 
@@ -69,6 +80,19 @@ DENSE_SHAPES = [(8192, 1024), (1024, 1024)]
 MLP_HIDDEN = (4096, 4096)
 MLP_HEAD = (4096, 10)
 SCAN = (1024, (4096, 4096))  # the JAX package's packed GEMM scan shape
+# the int8 VGG against its f32 twin at these batches; 1024 is bench.py's
+TWIN_BATCHES = (256, 1024)
+# E's encodings: (JAX act, thresholds): pm1, and levels with 1 and 3
+I8_ENCODINGS = {"pm1": ("pm1", 1), "levels1": ("levels", 1),
+                "levels3": ("levels", 3)}
+
+# Peaks of one H100 SXM at 700 W for the bound (the least time the card
+# could take): dense int8 tensor cores 1,979 TOP/s (NVIDIA's data sheet),
+# i.e. 989.5e12 MAC/s; the popc bound of PERF.md §3, 132 SMs x 16 popc per
+# clock x 32 binary MACs at 1.98 GHz; HBM3 at 3.35 TB/s.
+INT8_MAC_RATE = 1979e12 / 2
+POPC_MAC_RATE = 132 * 16 * 32 * 1.98e9
+HBM_BYTES_RATE = 3.35e12
 
 KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "xnor_conv3x3_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
@@ -81,6 +105,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                            "qnx/kernels/xnor_gemm.py:73"),
     "ternary_gemm": ("qnx_torch/kernels/csrc/popcount_gemm.cu",
                      "qnx/kernels/ternary_gemm.py:29"),
+    "i8_conv3x3_fused": ("qnx_torch/kernels/csrc/i8_conv_fused.cu",
+                         "qnx/kernels/i8_conv_fused.py:40"),
 }
 
 
@@ -100,6 +126,7 @@ def golden(name: str):
 def wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches."""
     from qnx_torch.kernels import xnor_conv_fused as F
+    from qnx_torch.kernels.i8_conv_fused import i8_conv_fused
     from qnx_torch.kernels.ternary_gemm import ternary_gemm
     from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
 
@@ -107,7 +134,8 @@ def wrappers() -> dict:
             "xnor_dense_fused": F.xnor_gemm_fused,
             "ternary_dense_fused": F.ternary_gemm_fused,
             "xnor_gemm_popcount": xnor_gemm_popcount,
-            "ternary_gemm": ternary_gemm}
+            "ternary_gemm": ternary_gemm,
+            "i8_conv3x3_fused": i8_conv_fused}
 
 
 # ---------------------------------------------------------------- operands
@@ -169,37 +197,105 @@ def ternary_operands(torch, rng, m, k, n):
             cuda(torch, sgn), cuda(torch, tau))
 
 
-def make_case(torch, rng, kind: str, b: int, shape):
-    """(kernel name, kernel call, plain call, output is packed words) on
-    fresh operands of one shape."""
+def i8_operands(torch, rng, b, h, w, c, n, encoding: str, n_thresh: int):
+    """Codes of the encoding, ternary weights, mixed-direction thresholds
+    around the spread of s with int32-extreme channels (sgn = -1 on one, so
+    under the pool too)."""
+    if encoding == "pm1":
+        x = np.where(rng.random((b, h, w, c)) < 0.5, 1, -1).astype(np.int8)
+    else:
+        x = rng.integers(0, n_thresh + 1, (b, h, w, c), dtype=np.int8)
+    wgt = rng.integers(-1, 2, (3, 3, c, n), dtype=np.int8)
+    sgn = rng.choice(np.array([1, -1], np.int32), n)
+    sgn[1:2] = -1
+    lim = 2 * int(np.sqrt(9 * c)) + 1
+    tau = np.sort(rng.integers(-lim, lim, (n_thresh, n)), axis=0).astype(np.int32)
+    tau[:, :3] = np.array([I32_MIN, I32_MAX, I32_MIN], np.int64)[:n]
+    if encoding == "pm1":
+        tau = tau[0]
+    return [cuda(torch, a) for a in (x, wgt, sgn, tau)]
+
+
+def int_mm_call(torch, rng, m: int, k: int, n: int) -> Callable:
+    """One ``torch._int_mm`` on ±1 int8 operands of (M, K) x (K, N), the
+    library yardstick of a kernel: it computes the same int32 s, unpacked,
+    with no epilogue, pool or repack.  B is column-major, the layout cuBLAS
+    runs fastest; ``_int_mm`` takes only M > 16 and K, N multiples of 8, so
+    those are padded up (the heads' N = 10 to 16)."""
+    up = lambda v: -(-v // 8) * 8
+    a = cuda(torch, np.where(rng.random((max(m, 17), up(k))) < 0.5, 1, -1)
+             .astype(np.int8))
+    bt = cuda(torch, np.where(rng.random((up(n), up(k))) < 0.5, 1, -1)
+              .astype(np.int8))
+    return lambda: torch._int_mm(a, bt.t())
+
+
+@dataclass
+class Case:
+    """One kernel call on fresh operands: the kernel, its plain version,
+    whether the output is packed words, the inputs and the work (MACs at
+    ``rate``) for the bound, and the library call's (M, K, N)."""
+    name: str
+    kern: Callable
+    plain: Callable
+    words: bool
+    inputs: list
+    macs: int
+    rate: float
+    mkn: tuple
+
+    def bound(self, out) -> tuple[float, float]:
+        """(ms of the operations at the peak rate, ms of the bytes: each
+        input read once and the output written once)."""
+        nbytes = sum(t.numel() * t.element_size() for t in [*self.inputs, out])
+        return self.macs / self.rate * 1e3, nbytes / HBM_BYTES_RATE * 1e3
+
+
+def make_case(torch, rng, kind: str, b: int, shape) -> Case:
+    """A :class:`Case` of kernel ``kind`` at batch ``b`` on fresh operands
+    of one shape."""
+    from qnx_torch.kernels import i8_conv_fused as E
     from qnx_torch.kernels import ternary_gemm as T
     from qnx_torch.kernels import xnor_conv_fused as F
     from qnx_torch.kernels import xnor_gemm as X
 
+    if kind.startswith("i8conv-"):
+        encoding, n_thresh = I8_ENCODINGS[kind.split("-")[1]]
+        h, w, c, n, pool = shape
+        args = i8_operands(torch, rng, b, h, w, c, n, encoding, n_thresh)
+        kw = dict(encoding=encoding, pool=pool)
+        return Case("i8_conv3x3_fused", lambda: E.i8_conv_fused(*args, **kw),
+                    lambda: E.i8_conv_fused_ref(*args, **kw), False, args,
+                    b * h * w * 9 * c * n, INT8_MAC_RATE, (b * h * w, 9 * c, n))
     if kind == "conv":
         h, w, c, n, pool = shape
         xp, wp, k, corr, sgn, tau = conv_operands(torch, rng, b, h, w, c, n)
-        return ("xnor_conv3x3_fused",
-                lambda: F.xnor_conv_fused(xp, wp, k, corr, sgn, tau, pool=pool),
-                lambda: F.xnor_conv_fused_ref(xp, wp, k, corr, sgn, tau, pool=pool),
-                True)
+        return Case("xnor_conv3x3_fused",
+                    lambda: F.xnor_conv_fused(xp, wp, k, corr, sgn, tau, pool=pool),
+                    lambda: F.xnor_conv_fused_ref(xp, wp, k, corr, sgn, tau, pool=pool),
+                    True, [xp, wp, corr, sgn, tau], b * h * w * k * n,
+                    POPC_MAC_RATE, (b * h * w, k, n))
     k_in, n = shape
+    work = dict(macs=b * k_in * n, rate=POPC_MAC_RATE, mkn=(b, k_in, n))
     if kind in ("dense", "popcount"):
         xp, wp, k, sgn, tau = dense_operands(torch, rng, b, k_in, n)
         if kind == "dense":
-            return ("xnor_dense_fused",
-                    lambda: F.xnor_gemm_fused(xp, wp, k, sgn, tau),
-                    lambda: F.xnor_gemm_fused_ref(xp, wp, k, sgn, tau), True)
-        return ("xnor_gemm_popcount", lambda: X.xnor_gemm_popcount(xp, wp, k),
-                lambda: X.xnor_gemm_popcount_ref(xp, wp, k), False)
+            return Case("xnor_dense_fused",
+                        lambda: F.xnor_gemm_fused(xp, wp, k, sgn, tau),
+                        lambda: F.xnor_gemm_fused_ref(xp, wp, k, sgn, tau), True,
+                        [xp, wp, sgn, tau], **work)
+        return Case("xnor_gemm_popcount", lambda: X.xnor_gemm_popcount(xp, wp, k),
+                    lambda: X.xnor_gemm_popcount_ref(xp, wp, k), False,
+                    [xp, wp], **work)
     xp, mask, sign, nnz, sgn, tau = ternary_operands(torch, rng, b, k_in, n)
     if kind == "ternary_dense":
-        return ("ternary_dense_fused",
-                lambda: F.ternary_gemm_fused(xp, mask, sign, nnz, sgn, tau),
-                lambda: F.ternary_gemm_fused_ref(xp, mask, sign, nnz, sgn, tau),
-                True)
-    return ("ternary_gemm", lambda: T.ternary_gemm(xp, mask, sign, nnz),
-            lambda: T.ternary_gemm_ref(xp, mask, sign, nnz), False)
+        return Case("ternary_dense_fused",
+                    lambda: F.ternary_gemm_fused(xp, mask, sign, nnz, sgn, tau),
+                    lambda: F.ternary_gemm_fused_ref(xp, mask, sign, nnz, sgn, tau),
+                    True, [xp, mask, sign, nnz, sgn, tau], **work)
+    return Case("ternary_gemm", lambda: T.ternary_gemm(xp, mask, sign, nnz),
+                lambda: T.ternary_gemm_ref(xp, mask, sign, nnz), False,
+                [xp, mask, sign, nnz], **work)
 
 
 def word_err(torch, got, want) -> float:
@@ -271,13 +367,25 @@ def phase_kernels(torch, err: dict) -> None:
     kinds = ("ternary_dense", "popcount", "ternary")
     cases += [(kind, SCAN[0], SCAN[1]) for kind in kinds]
     cases += [(kind, 3, (100, n)) for kind in kinds for n in (10, 1, 33)]
+    # kernel E at the int8 VGGs' conv shapes at batch 32 and 256, ragged
+    # batch, odd spatial (with and without the pool), C = N = 8, each in
+    # the pm1 encoding and in levels with 1 and 3 thresholds
+    i8 = [f"i8conv-{e}" for e in I8_ENCODINGS]
+    cases += [(kind, b, s) for b in (CHECK_BATCH, TIME_BATCH)
+              for s in CONV_SHAPES for kind in i8]
+    cases += [(kind, b, s) for b, s in ((3, (5, 7, 16, 48, False)),
+                                        (3, (7, 5, 16, 48, True)),
+                                        (2, (32, 32, 8, 8, True)),
+                                        (3, (5, 7, 8, 8, False)))
+              for kind in i8]
     for kind, b, shape in cases:
-        name, kern, plain, words = make_case(torch, rng, kind, b, shape)
-        got, want = kern(), plain()
+        case = make_case(torch, rng, kind, b, shape)
+        got, want = case.kern(), case.plain()
         torch.cuda.synchronize()
-        compare(torch, err, name, got, want, words, f"batch {b} {shape}")
-        log("kernels", f"{name} batch {b} {shape}: out {tuple(got.shape)}, "
-            f"equal, max_abs_err {err[name]}")
+        compare(torch, err, case.name, got, want, case.words,
+                f"{kind} batch {b} {shape}")
+        log("kernels", f"{case.name} {kind} batch {b} {shape}: out "
+            f"{tuple(got.shape)}, equal, max_abs_err {err[case.name]}")
 
 
 def serve(torch, label: str, model, images, per_batch: dict, plain_forward,
@@ -334,7 +442,7 @@ def serve(torch, label: str, model, images, per_batch: dict, plain_forward,
                                atol=LOGIT_ATOL_REL * float(np.abs(gold).max()))
     if not (ours.argmax(-1) == gold.argmax(-1)).all():
         raise AssertionError(f"{label}: argmax differs from the JAX golden")
-    log(label, f"every layer's words equal to the plain path for all "
+    log(label, f"every layer's words or codes equal to the plain path for all "
         f"{len(images)} images; logits max |engine - plain| {d_plain:.3g}, "
         f"max |engine - JAX golden| {d_gold:.3g} (max |logit| "
         f"{float(np.abs(gold).max()):.3g}, {classes} classes); argmax "
@@ -402,11 +510,54 @@ def plain_mlp_forward(torch, model, x, err: dict):
     return head.logits(s)
 
 
+def exact_dot(torch, x8, w8):
+    """int8 (M, K) x (K, N) -> int32 in float64 (exact below 2^53): the
+    plain counterpart of the engine's ``torch._int_mm``."""
+    return (x8.double() @ w8.double()).to(torch.int32)
+
+
+def check_codes(torch, label: str, got, want) -> None:
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{label}: the engine's output differs from the "
+                             f"plain path's")
+
+
+def plain_i8_forward(torch, model, x, err: dict):
+    """The int8 forward with each conv run through kernel E and its plain
+    version on the same input codes (codes must be equal), and each dense
+    layer's and integer head's ``_int_mm`` against a float64 product."""
+    from qnx_torch.kernels.i8_conv_fused import act_epilogue, i8_conv_fused_ref
+    from qnx_torch.nn.int8_engine import I8DenseLogits, I8MLP
+
+    if isinstance(model, I8MLP):
+        x8, convs, denses = model.first(x.reshape(x.shape[0], -1)), [], model.hidden
+    else:
+        x8, convs, denses = model.first(x), model.convs, model.denses
+    for i, conv in enumerate(convs, 1):
+        got = conv(x8)
+        x8 = i8_conv_fused_ref(x8, conv.w8, conv.sgn, conv.tau,
+                               encoding=conv.act, pool=conv.pool)
+        compare(torch, err, "i8_conv3x3_fused", got, x8, False, f"conv_{i}")
+    x8 = x8.reshape(x8.shape[0], -1)
+    for j, dense in enumerate(denses):
+        got = dense(x8)
+        x8 = act_epilogue(dense.act, exact_dot(torch, x8, dense.w8), dense.sgn,
+                          dense.tau)
+        check_codes(torch, f"dense_{j} codes", got, x8)
+    head = model.head
+    if isinstance(head, I8DenseLogits):
+        s = exact_dot(torch, x8, head.w8)
+        check_codes(torch, "head int32 s", head.scores(x8), s)
+        return head.logits(s)
+    return head(x8)
+
+
 def phase_slices(torch, err: dict):
     """Serve every path; returns the models and the summed launch counts."""
-    from qnx_torch.convert.pack_model import pack_mlp, pack_vgg
+    from qnx_torch.convert.pack_model import pack_int8, pack_mlp, pack_vgg
     from qnx_torch.models.factory import init_variables
-    from qnx_torch.utils.config import CIFAR10_BNN, MNIST_BNN, MNIST_TNN
+    from qnx_torch.utils.config import (CIFAR10_BNN, CIFAR10_TNN, MNIST_BNN,
+                                        MNIST_TNN)
 
     models, launches = {}, dict.fromkeys(KERNELS, 0)
     paths = [("cifar10_bnn", CIFAR10_BNN, pack_vgg, plain_vgg_forward,
@@ -414,9 +565,16 @@ def phase_slices(torch, err: dict):
              ("mnist_bnn", MNIST_BNN, pack_mlp, plain_mlp_forward,
               {"xnor_dense_fused": 2, "xnor_gemm_popcount": 1}),
              ("mnist_tnn", MNIST_TNN, pack_mlp, plain_mlp_forward,
-              {"ternary_dense_fused": 2, "ternary_gemm": 1})]
+              {"ternary_dense_fused": 2, "ternary_gemm": 1}),
+             ("cifar10_bnn_int8", CIFAR10_BNN, pack_int8, plain_i8_forward,
+              {"i8_conv3x3_fused": 5}),
+             ("cifar10_tnn_int8", CIFAR10_TNN, pack_int8, plain_i8_forward,
+              {"i8_conv3x3_fused": 5}),
+             ("mnist_bnn_int8", MNIST_BNN, pack_int8, plain_i8_forward, {})]
     for name, cf, pack, plain_forward, per_batch in paths:
-        model = pack(init_variables(cf, seed=0), cf).to("cuda")
+        model = pack(init_variables(cf, seed=0), cf)  # on the card by default
+        if not all(t.is_cuda for t in model.buffers()):
+            raise AssertionError(f"{name}: the converter's default is not the card")
         gold = golden(name)
         counts = serve(torch, f"slice {name}", model, requests(cf, gold),
                        per_batch, plain_forward, err, gold)
@@ -451,28 +609,45 @@ def fmt(ms: list[float]) -> str:
 
 
 def phase_times(torch, card: str, models: dict) -> dict:
-    """Each kernel against its plain version, interleaved (plain, kernel,
-    kernel, plain); ``total`` sums the medians over every layer of every
-    path at batch 256 (a per-forward figure), the scan shape aside."""
+    """Each kernel against its plain version and its library call,
+    interleaved (plain, kernel, library, library, kernel, plain).  ``total``
+    sums, per kernel, the medians and the bound over every layer of every
+    path at batch 256 (a per-forward figure of each path, summed over the
+    paths; kernel E's over the two int8 VGGs, pm1 and levels), the scan
+    shape aside."""
     rng = np.random.default_rng(11)
-    total = {name: [0.0, 0.0] for name in KERNELS}
+    total = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                        ops_bound_ms=0.0, bytes_bound_ms=0.0) for name in KERNELS}
     b = TIME_BATCH
     # (kind, batch, shape, layers of this shape in the served paths)
     cases = [("conv", b, s, 1) for s in CONV_SHAPES]
     cases += [("dense", b, s, 1) for s in DENSE_SHAPES]
     cases += [("dense", b, MLP_HIDDEN, 2), ("ternary_dense", b, MLP_HIDDEN, 2),
               ("popcount", b, MLP_HEAD, 1), ("ternary", b, MLP_HEAD, 1)]
+    cases += [(kind, b, s, 1) for kind in ("i8conv-pm1", "i8conv-levels1")
+              for s in CONV_SHAPES]
     cases += [(kind, SCAN[0], SCAN[1], 0)
               for kind in ("ternary_dense", "popcount", "ternary")]
     for kind, m, shape, layers in cases:
-        name, kern, ref, _ = make_case(torch, rng, kind, m, shape)
-        p1, k1 = time_ms(torch, ref, 3, 3), time_ms(torch, kern, 20, 4)
-        k2, p2 = time_ms(torch, kern, 20, 4), time_ms(torch, ref, 3, 3)
-        kt, pt = k1 + k2, p1 + p2
-        total[name][0] += layers * statistics.median(kt)
-        total[name][1] += layers * statistics.median(pt)
-        log("times", f"{card} | {name} batch {m} {shape}: kernel {fmt(kt)}; "
-            f"plain {fmt(pt)}")
+        case = make_case(torch, rng, kind, m, shape)
+        lib = int_mm_call(torch, rng, *case.mkn)
+        p1, k1 = time_ms(torch, case.plain, 3, 3), time_ms(torch, case.kern, 20, 4)
+        l1, l2 = time_ms(torch, lib, 20, 4), time_ms(torch, lib, 20, 4)
+        k2, p2 = time_ms(torch, case.kern, 20, 4), time_ms(torch, case.plain, 3, 3)
+        kt, pt, lt = k1 + k2, p1 + p2, l1 + l2
+        ops_ms, bytes_ms = case.bound(case.kern())
+        t = total[case.name]
+        t["ms"] += layers * statistics.median(kt)
+        t["plain_ms"] += layers * statistics.median(pt)
+        t["library_ms"] += layers * statistics.median(lt)
+        t["bound_ms"] += layers * max(ops_ms, bytes_ms)
+        t["ops_bound_ms" if ops_ms >= bytes_ms else "bytes_bound_ms"] += (
+            layers * max(ops_ms, bytes_ms))
+        log("times", f"{card} | {case.name} {kind} batch {m} {shape}: kernel "
+            f"{fmt(kt)}; plain {fmt(pt)}; library torch._int_mm {case.mkn} "
+            f"(int8 GEMM only, no epilogue or pool) {fmt(lt)}; bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
+            f"{bytes_ms:.4f})")
 
     for name, model in models.items():
         shape = (b, 32, 32, 3) if name.startswith("cifar") else (b, 28, 28, 1)
@@ -484,9 +659,46 @@ def phase_times(torch, card: str, models: dict) -> dict:
         log("times", f"{card} | end-to-end {type(model).__name__} {name} "
             f"forward batch {b}: {fmt(fwd)} = {b / med * 1e3:.1f} img/s")
     log("times", f"{card} | per forward at batch {b}, summed over the paths' "
-        f"layer shapes: " + "; ".join(f"{k} kernel {v[0]:.4f} ms, plain "
-                                      f"{v[1]:.4f} ms" for k, v in total.items()))
+        f"layer shapes: " + "; ".join(
+            f"{k} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+            f"library {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
+            for k, v in total.items()))
     return total
+
+
+def phase_twin(torch, card: str, model) -> None:
+    """The int8 VGG (``cifar10-bnn``) against its strict-f32 float twin, TF32
+    off, at batch 256 and 1024 (``bench.py``'s batch), interleaved (f32,
+    int8, int8, f32); median and spread of each, and their ratio."""
+    from qnx_torch.bench.float_baseline import (float_forward, float_variables,
+                                                strict_f32)
+    from qnx_torch.models.factory import init_variables
+    from qnx_torch.utils.config import CIFAR10_BNN
+
+    fcf = CIFAR10_BNN.replace(network_type="float")
+    fvars = float_variables(init_variables(fcf, seed=0), "cuda")
+    rng = np.random.default_rng(14)
+    for b in TWIN_BATCHES:
+        x = cuda(torch, rng.uniform(-1, 1, (b, 32, 32, 3)).astype(np.float32))
+
+        def twin():
+            with strict_f32():
+                return float_forward(fvars, fcf, x)
+
+        with torch.inference_mode():
+            out = twin()
+            if out.shape != (b, 10) or not torch.isfinite(out).all():
+                raise AssertionError(f"float twin: bad logits {tuple(out.shape)}")
+            f1, i1 = time_ms(torch, twin, 3, 5), time_ms(torch, lambda: model(x), 5, 5)
+            i2, f2 = time_ms(torch, lambda: model(x), 5, 5), time_ms(torch, twin, 3, 5)
+        f, i = f1 + f2, i1 + i2
+        fm, im = statistics.median(f), statistics.median(i)
+        log("twin", f"{card} | batch {b}: strict-f32 twin {fmt(f)} "
+            f"(spread {(max(f) - min(f)) / fm:.3f}); int8 I8VGG {fmt(i)} "
+            f"(spread {(max(i) - min(i)) / im:.3f})")
+        print(f"{card} | int8 VGG cifar10-bnn against the strict-f32 twin, "
+              f"batch {b}: {fm / im:.3f}x the twin's img/s "
+              f"({b / im * 1e3:.1f} against {b / fm * 1e3:.1f})", flush=True)
 
 
 def time_stages(torch, card: str, label: str, model, x, stages) -> None:
@@ -589,6 +801,44 @@ def phase_stages(torch, card: str, models: dict) -> None:
     time_stages(torch, card, "mnist_bnn", model, x, stages)
     engine_rate(card, "mnist_bnn", model, rng, (28, 28, 1))
 
+    stages_int8(torch, card, models["cifar10_bnn_int8"], rng)
+
+
+def stages_int8(torch, card: str, model, rng) -> None:
+    """Each stage of the batch-256 int8 VGG (``cifar10-bnn``): the float
+    first layer, each kernel E conv, each dense layer's ``_int_mm`` and its
+    epilogue, the float head; then the engine."""
+    from qnx_torch.kernels.i8_conv_fused import act_epilogue
+    from qnx_torch.nn.int8_engine import _encode_float
+    from qnx_torch.serve.engine import normalize_u8
+
+    b = TIME_BATCH
+    u8 = cuda(torch, rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8))
+    first = model.first
+    with torch.inference_mode():
+        x = normalize_u8(u8)
+        y = first.conv(x)
+        z = first._bn(y)
+        stages = [("normalize_u8", lambda: normalize_u8(u8)),
+                  ("first: cuDNN conv + bias", lambda: first.conv(x)),
+                  ("first: BN", lambda: first._bn(y)),
+                  ("first: encode int8 codes",
+                   lambda: _encode_float(first.act, z, first.nb))]
+        x8 = first(x)
+        for i, conv in enumerate(model.convs, 1):
+            stages.append((f"conv_{i} kernel E", lambda l=conv, a=x8: l(a)))
+            x8 = conv(x8)
+        x8 = x8.reshape(b, -1)
+        for j, dense in enumerate(model.denses):
+            s = dense.scores(x8)
+            stages += [(f"dense_{j} torch._int_mm", lambda l=dense, a=x8: l.scores(a)),
+                       (f"dense_{j} epilogue", lambda l=dense, a=s:
+                        act_epilogue(l.act, a, l.sgn, l.tau))]
+            x8 = dense(x8)
+        stages.append(("head: codes * q + sgemm + BN", lambda a=x8: model.head(a)))
+    time_stages(torch, card, "cifar10_bnn_int8", model, x, stages)
+    engine_rate(card, "cifar10_bnn_int8", model, rng, (32, 32, 3))
+
 
 def main() -> int:
     import torch
@@ -602,14 +852,21 @@ def main() -> int:
     phase_kernels(torch, err)
     models, launches = phase_slices(torch, err)
     total = phase_times(torch, card, models)
+    phase_twin(torch, card, models["cifar10_bnn_int8"])
     phase_stages(torch, card, models)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "qnx") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
+    def bound_by(t: dict) -> str:
+        return ("operations" if t["ops_bound_ms"] >= t["bytes_bound_ms"]
+                else "bytes")
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": total[name][0], "plain_ms": total[name][1]}
+         "ms": total[name]["ms"], "plain_ms": total[name]["plain_ms"],
+         "bound_ms": total[name]["bound_ms"], "bound_by": bound_by(total[name]),
+         "library_ms": total[name]["library_ms"]}
         for name, (source, replaces) in KERNELS.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
-"""Conversion pass: trained fake-quant variables -> packed models (torch port
-of :func:`qnx.convert.pack_model.pack_mlp`, binary and ternary, and of the
-binary branch of :func:`qnx.convert.pack_model.pack_vgg`).
+"""Conversion pass: trained fake-quant variables -> packed and int8 models
+(torch port of :func:`qnx.convert.pack_model.pack_mlp`, binary and ternary,
+of the binary branch of :func:`qnx.convert.pack_model.pack_vgg`, and of the
+``full-bnn`` / ``full-tnn`` branches of :func:`qnx.convert.pack_model.
+pack_int8` with the ``pm1`` and ``levels`` encodings).
 
 Input is the JAX package's variables as numpy arrays — the
 ``{"params", "quant", "batch_stats"}`` dict of ``jax.device_get(init_model(
 ...)[1])``, of a training run, or of :func:`qnx_torch.models.factory.
 init_variables`.  Everything here is numpy, so the buffers equal the JAX
-converter's leaves byte for byte.
+converter's leaves byte for byte.  Each converter returns its model on
+``device``, the CUDA card unless the caller asks for ``"cpu"``; without a
+card the default raises.
 """
 from __future__ import annotations
 
@@ -15,13 +19,26 @@ import torch
 
 from qnx_torch.kernels.xnor_conv import pack_conv_weights_np, padding_correction
 from qnx_torch.nn import inference as I
+from qnx_torch.nn import int8_engine as E
 from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
-from qnx_torch.transforms.bn_fold import fold_bn_affine, fold_bn_sign
+from qnx_torch.transforms.bn_fold import (fold_bn_affine, fold_bn_levels,
+                                          fold_bn_sign)
 from qnx_torch.utils.config import Config
 
 
 def _np(x):
     return np.asarray(x)
+
+
+def _check_device(device) -> torch.device:
+    """The device a converter builds on; a CUDA device without a card
+    raises, so a model never lands on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA card for device={str(device)!r}: the converters build "
+            "on the card by default; pass device='cpu' for the CPU")
+    return device
 
 
 def _t(x) -> torch.Tensor:
@@ -173,10 +190,10 @@ def _pack_dense_per_position(pattern: np.ndarray, h: int, w: int, c: int):
     return wp.reshape(-1, n), h * w * c
 
 
-def pack_vgg(variables: dict, cf: Config) -> I.PackedVGG:
+def pack_vgg(variables: dict, cf: Config, device="cuda") -> I.PackedVGG:
     """Lower a trained binary QuantVGG (``full-bnn``, abits=1) into a
-    :class:`qnx_torch.nn.inference.PackedVGG` on the CPU; move it with
-    ``.to(device)``."""
+    :class:`qnx_torch.nn.inference.PackedVGG` on ``device``."""
+    device = _check_device(device)
     if cf.architecture != "vgg":
         raise ValueError("pack_vgg expects a vgg config")
     if cf.abits != 1 or cf.network_type not in ("full-bnn", "full-tnn"):
@@ -281,13 +298,14 @@ def pack_vgg(variables: dict, cf: Config) -> I.PackedVGG:
         head = I.PackedDenseLogits(wp=_t(pack_bits_np(pattern, axis=0)),
                                    a=_t(aff.a), c=_t(aff.c0), k=latent.shape[0])
 
-    return I.PackedVGG(first=first, convs=convs, denses=denses, head=head)
+    return I.PackedVGG(first=first, convs=convs, denses=denses,
+                       head=head).to(device)
 
 
-def pack_mlp(variables: dict, cf: Config) -> I.PackedMLP:
+def pack_mlp(variables: dict, cf: Config, device="cuda") -> I.PackedMLP:
     """Lower a trained QuantMLP (full-bnn / full-tnn, abits=1) into a
-    :class:`qnx_torch.nn.inference.PackedMLP` on the CPU; move it with
-    ``.to(device)``."""
+    :class:`qnx_torch.nn.inference.PackedMLP` on ``device``."""
+    device = _check_device(device)
     if cf.architecture != "mlp":
         raise ValueError("pack_mlp expects an mlp config")
     if cf.abits != 1 or cf.network_type not in ("full-bnn", "full-tnn"):
@@ -360,4 +378,125 @@ def pack_mlp(variables: dict, cf: Config) -> I.PackedMLP:
     else:
         head = I.PackedDenseLogits(wp=_t(pack_bits_np(pattern, axis=0)),
                                    a=_t(aff.a), c=_t(aff.c0), k=latent.shape[0])
-    return I.PackedMLP(first=first, hidden=hidden, head=head)
+    return I.PackedMLP(first=first, hidden=hidden, head=head).to(device)
+
+
+def pack_int8(variables: dict, cf: Config,
+              device="cuda") -> E.I8MLP | E.I8VGG:
+    """Lower a trained ``full-bnn`` or ``full-tnn`` model into the int8
+    engine (:mod:`qnx_torch.nn.int8_engine`) on ``device``: an
+    :class:`~qnx_torch.nn.int8_engine.I8MLP` or
+    :class:`~qnx_torch.nn.int8_engine.I8VGG`.
+
+    Weights become int8 patterns ({-1, +1} binary, {-1, 0, +1} ternary),
+    activations int8 codes: ``pm1`` for binary_tanh (abits 1), ``levels`` for
+    quantized_relu (abits > 1), with BN folded into integer thresholds
+    (``fold_bn_sign`` or ``fold_bn_levels`` with the level step folded into
+    alpha).  The codes are the activation values up to that exact step, so
+    no offset or pad correction is needed.  ``full-qnn``, the relu network
+    types and the ``zo`` / ``tanh`` encodings are not ported yet.
+    """
+    device = _check_device(device)
+    if cf.network_type not in ("full-bnn", "full-tnn", "full-qnn",
+                               "bnn", "tnn", "qnn"):
+        raise ValueError(f"int8 engine requires a quantized network_type; "
+                         f"got {cf.network_type}")
+    if cf.network_type not in ("full-bnn", "full-tnn"):
+        raise NotImplementedError(
+            f"pack_int8 of network_type {cf.network_type!r} is not ported yet "
+            "(ROADMAP.md §1 item 10); ported: full-bnn and full-tnn")
+    act_op = _engine_activation(cf)
+    act = {"binary_tanh": "pm1", "binary_sigmoid": "zo",
+           "quantized_relu": "levels", "quantized_tanh": "tanh"}[act_op]
+    if act not in ("pm1", "levels"):
+        raise NotImplementedError(
+            f"pack_int8 of the {act_op!r} activation ({act!r} codes) is not "
+            "ported yet (ROADMAP.md §1 item 10); ported: binary_tanh (pm1) "
+            "and quantized_relu (levels)")
+    if cf.architecture == "vgg":
+        validate_vgg_variables(variables, cf)
+    params = variables["params"]
+    quant = variables.get("quant", {})
+    stats = variables["batch_stats"]
+    eps = cf.batch_norm_epsilon
+    nb = cf.abits
+    q_in = 1.0 if act == "pm1" else 2.0 ** (1 - nb)
+
+    def get(name):
+        latent = _np(params[name]["kernel"])
+        bias = _np(params[name]["bias"]) if "bias" in params[name] else None
+        h = float(quant[name]["H"]) if name in quant else None
+        return latent, h, bias
+
+    def pattern_alpha(latent, h):
+        if cf.network_type == "full-tnn":
+            return _ternary_pattern(latent, h, cf.ternary_style)
+        return _binary_pattern(latent, h), h
+
+    def bn_of(name):
+        return _bn(params, stats, name, eps)
+
+    def fold_hidden(bn, alpha, bias):
+        if act == "pm1":
+            thr = fold_bn_sign(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                               eps, alpha=alpha * q_in, bias=bias)
+        else:
+            thr = fold_bn_levels(bn["gamma"], bn["beta"], bn["mean"],
+                                 bn["var"], eps, nb, alpha=alpha * q_in,
+                                 bias=bias, mode="relu")
+        return _t(thr.sgn), _t(thr.tau)
+
+    def first_quant_w(latent, h):
+        """First layer weights as f32 values (quantized if not float)."""
+        if h is None:
+            return latent.astype(np.float32)
+        pattern, alpha = pattern_alpha(latent, h)
+        return (pattern * alpha).astype(np.float32)
+
+    def bn_kwargs(bn):
+        return dict(bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
+                    bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]), bn_eps=eps)
+
+    def hidden_weights(name, bn_name):
+        latent, h, bias = get(name)
+        pattern, alpha = pattern_alpha(latent, h)
+        sgn, tau = fold_hidden(bn_of(bn_name), alpha, bias)
+        return dict(w8=_t(pattern.astype(np.int8)), sgn=sgn, tau=tau, act=act)
+
+    def head_layer(name, bn_name):
+        latent, h, bias = get(name)
+        bn = bn_of(bn_name)
+        if name not in quant:
+            return E.I8FloatHead(
+                w=_t(latent.astype(np.float32)),
+                bias=None if bias is None else _t(bias), q=q_in,
+                **bn_kwargs(bn))
+        pattern, alpha = pattern_alpha(latent, h)
+        aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                             eps, alpha=alpha * q_in, bias=bias)
+        return E.I8DenseLogits(w8=_t(pattern.astype(np.int8)), a=_t(aff.a),
+                               c=_t(aff.c0))
+
+    def first_kwargs(name, bn_name):
+        latent, h, bias = get(name)
+        return dict(w=_t(first_quant_w(latent, h)),
+                    bias=None if bias is None else _t(bias), act=act, nb=nb,
+                    **bn_kwargs(bn_of(bn_name)))
+
+    if cf.architecture == "mlp":
+        first = E.I8FirstDense(**first_kwargs("dense_0", "bn_0"))
+        hidden = [E.I8Dense(**hidden_weights(f"dense_{i}", f"bn_{i}"))
+                  for i in range(1, cf.num_hidden)]
+        model = E.I8MLP(first=first, hidden=hidden,
+                        head=head_layer("dense_out", "bn_out"))
+    elif cf.architecture == "vgg":
+        first = E.I8FirstConv(**first_kwargs("conv_0", "bn_conv_0"), pool=False)
+        convs = [E.I8Conv(**hidden_weights(f"conv_{i}", f"bn_conv_{i}"),
+                          pool=i % 2 == 1) for i in range(1, 6)]
+        denses = [E.I8Dense(**hidden_weights(f"dense_{j}", f"bn_dense_{j}"))
+                  for j in range(2)]
+        model = E.I8VGG(first=first, convs=convs, denses=denses,
+                        head=head_layer("dense_out", "bn_out"))
+    else:
+        raise ValueError(f"unknown architecture {cf.architecture!r}")
+    return model.to(device)

@@ -1,11 +1,12 @@
 """Build the CUDA kernels in ``csrc/`` at first use and bind them with ctypes.
 
 ``nvcc`` compiles every ``csrc/*.cu``, with the ``csrc/*.cuh`` headers they
-include, into one shared library with a plain C interface (a few seconds;
-sources that include PyTorch's headers would take minutes).  The library
-lands in ``_build/`` beside this file, named by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is reused.  Nothing
-here runs at import time.
+include, into one shared library with a plain C interface: one ``nvcc -c``
+for each source, all started together, then one link (seconds; sources that
+include PyTorch's headers would take minutes).  The library lands in
+``_build/`` beside this file, named by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one is reused.  Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,7 @@ _SIGNATURES = {
     "qnx_xnor_conv3x3_fused": [_P] * 6 + [_I] * 7 + [_P],
     "qnx_xnor_gemm_popcount": [_P] * 3 + [_I] * 4 + [_P],
     "qnx_ternary_gemm": [_P] * 5 + [_I] * 3 + [_P],
+    "qnx_i8_conv3x3_fused": [_P] * 5 + [_I] * 8 + [_P],
 }
 
 
@@ -78,15 +80,34 @@ def build_log() -> str:
 
 def _build(lib: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = BUILD_DIR / f"{lib.stem}.{os.getpid()}.objs"
+    objs.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _units())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    jobs = []
+    for unit in _units():  # one compiler per source, all at once
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{unit.stem}.o"),
+               str(unit)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:  # wait for every one, failed or not
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"(exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, sorted(objs.glob("*.o")))]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            failed.append(f"(exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}")
+    shutil.rmtree(objs, ignore_errors=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"building the qnx_torch CUDA kernels failed (exit "
-            f"{proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError("building the qnx_torch CUDA kernels failed "
+                           + "\n".join(failed))
+    lib.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -121,14 +142,20 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {code}: {msg}")
 
 
-def check_operands(name: str, xp: torch.Tensor, **tensors: torch.Tensor) -> bool:
-    """Check what every kernel wrapper's operands must be: int32, contiguous,
-    on ``xp``'s device.  Returns True where the wrapper launches its kernel
-    (a CUDA tensor) and False where it runs its plain version (a CPU
-    tensor); any other device raises."""
+def check_operands(name: str, xp: torch.Tensor,
+                   dtypes: dict[str, torch.dtype] | None = None,
+                   **tensors: torch.Tensor) -> bool:
+    """Check what every kernel wrapper's operands must be: of their dtype,
+    contiguous, on ``xp``'s device.  ``dtypes`` maps an operand's name
+    ("xp" for the first) to its dtype; an operand it does not name must be
+    int32.  Returns True where the wrapper launches its kernel (a CUDA
+    tensor) and False where it runs its plain version (a CPU tensor); any
+    other device raises."""
+    dtypes = dtypes or {}
     for arg, t in {"xp": xp, **tensors}.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
+        want = dtypes.get(arg, torch.int32)
+        if t.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
         if t.device != xp.device:
             raise ValueError(f"{name}: {arg} is on {t.device}, xp on {xp.device}")
         if not t.is_contiguous():

@@ -1,0 +1,167 @@
+"""Fused int8 3x3 conv + integer threshold epilogue (+2x2 max pool): torch
+port of :mod:`qnx.kernels.i8_conv_fused`, kernel E.
+
+    s    = 3x3 'SAME' stride-1 conv of x8 with w8, int32   (zero pads)
+    code = sgn * s >= tau ? 1 : -1            (encoding "pm1", tau (N,))
+    code = sum_v [sgn * s >= tau[v]]          (encoding "levels", tau (L, N))
+    pool: 2x2/2 max of the codes, the window's min where sgn < 0
+          ('VALID': an odd H or W floors)
+
+:func:`i8_conv_fused` launches the CUDA kernel of ``csrc/i8_conv_fused.cu``
+for a CUDA tensor and runs its plain version, :func:`i8_conv_fused_ref`,
+only for a tensor on the CPU; ``i8_conv_fused.launches`` counts kernel
+launches.  The plain version is the unfused ``qnx.nn.int8_engine.I8Conv``:
+conv, threshold, then the pool of the codes.
+
+The encoding is an argument, never inferred from ``tau``'s shape: the JAX
+``I8Conv(fused=True)`` passes ``levels = tau.shape[0]``, and its kernel takes
+one threshold as the sign encoding, so a levels layer with one threshold
+gives {-1, +1} there where ``I8Conv`` gives {0, 1} (ROADMAP.md §3).  The JAX
+wrapper's TPU tiling (``block_b``, ``block_n``, the VMEM budget) and its
+pool split between the kernel and XLA have no counterpart here.
+
+The epilogues (:func:`act_epilogue`) are shared with the dense layers of
+:mod:`qnx_torch.nn.int8_engine`.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+ENCODINGS = ("pm1", "levels")
+# |s| <= 9 * C * 128 * 128 must stay below 2^31 for int8 operands
+MAX_CHANNELS = (2**31 - 1) // (9 * 128 * 128)
+
+
+def _unported(act: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"the int8 engine's {act!r} encoding is not ported yet (ROADMAP.md "
+        "§1 item 10); ported: 'pm1' and 'levels'")
+
+
+def sign_epilogue(s: torch.Tensor, sgn: torch.Tensor,
+                  tau: torch.Tensor) -> torch.Tensor:
+    """±1 int8 codes of the integer threshold test ``sgn * s >= tau``
+    (sgn and tau (N,), broadcast over the leading dims of s)."""
+    return torch.where(sgn * s >= tau, 1, -1).to(torch.int8)
+
+
+def level_epilogue(s: torch.Tensor, sgn: torch.Tensor,
+                   tau: torch.Tensor) -> torch.Tensor:
+    """Level codes int8 ``sum_v [sgn * s >= tau[v]]`` (tau (n_thresh, N))."""
+    u = sgn * s
+    lvl = torch.zeros(s.shape, dtype=torch.int8, device=s.device)
+    for v in range(tau.shape[0]):
+        lvl += (u >= tau[v]).to(torch.int8)
+    return lvl
+
+
+def act_epilogue(act: str, s: torch.Tensor, sgn: torch.Tensor,
+                 tau: torch.Tensor) -> torch.Tensor:
+    """int32 s -> int8 activation codes of encoding ``act``."""
+    if act == "pm1":
+        return sign_epilogue(s, sgn, tau)
+    if act == "levels":
+        return level_epilogue(s, sgn, tau)
+    if act in ("zo", "tanh"):
+        raise _unported(act)
+    raise ValueError(f"unknown int8 encoding {act!r}")
+
+
+def _n_thresholds(encoding: str, n: int, sgn: torch.Tensor,
+                  tau: torch.Tensor) -> int:
+    """Check sgn (N,) and tau ((N,) for pm1, (L, N) for levels); return the
+    number of thresholds."""
+    if encoding not in ENCODINGS:
+        if encoding in ("zo", "tanh"):
+            raise _unported(encoding)
+        raise ValueError(f"encoding must be one of {ENCODINGS}, got {encoding!r}")
+    if encoding == "pm1":
+        tau_ok = tau.shape == (n,)
+    else:
+        tau_ok = tau.dim() == 2 and tau.shape[0] >= 1 and tau.shape[1] == n
+    if sgn.shape != (n,) or not tau_ok:
+        raise ValueError(f"i8_conv_fused: sgn {tuple(sgn.shape)} must be ({n},) "
+                         f"and tau {tuple(tau.shape)} ({n},) for pm1 or "
+                         f"(L >= 1, {n}) for levels (got {encoding!r})")
+    return 1 if encoding == "pm1" else tau.shape[0]
+
+
+def conv3x3_s_ref(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """Plain int8 3x3 'SAME' conv -> int32 s: gather the 9 taps (int8 zero
+    pads), float64 matmul (exact: integer sums below 2^53; a float32 product
+    is exact only below 2^24, which 9*512*127*128 exceeds)."""
+    b, h, w, c = x8.shape
+    n = w8.shape[-1]
+    xpad = x8.new_zeros(b, h + 2, w + 2, c)
+    xpad[:, 1:h + 1, 1:w + 1] = x8
+    patches = torch.cat([xpad[:, dy:dy + h, dx:dx + w]
+                         for dy in range(3) for dx in range(3)], dim=-1)
+    s = patches.reshape(b * h * w, 9 * c).double() @ w8.reshape(9 * c, n).double()
+    return s.to(torch.int32).reshape(b, h, w, n)
+
+
+def _maxpool2(y: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max pool, NHWC, 'VALID' (an odd H or W floors)."""
+    b, h, w, c = y.shape
+    y = y[:, :h // 2 * 2, :w // 2 * 2]
+    return y.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def i8_conv_fused_ref(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
+                      tau: torch.Tensor, *, encoding: str,
+                      pool: bool = False) -> torch.Tensor:
+    """Plain version of :func:`i8_conv_fused`, the unfused ``I8Conv``:
+    int32 conv, threshold, then the pool of the codes (channels with
+    sgn < 0 have a decreasing epilogue: pool -code and flip back)."""
+    out = act_epilogue(encoding, conv3x3_s_ref(x8, w8), sgn, tau)
+    if pool:
+        flip = sgn < 0
+        signed = torch.where(flip, -out, out)
+        p = _maxpool2(signed)
+        out = torch.where(flip, -p, p)
+    return out
+
+
+def i8_conv_fused(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
+                  tau: torch.Tensor, *, encoding: str,
+                  pool: bool = False) -> torch.Tensor:
+    """Fused int8 3x3 'SAME' stride-1 conv + threshold (+2x2 max pool).
+
+    Args:
+      x8:  (B, H, W, C) int8 activation codes.
+      w8:  (3, 3, C, N) int8 weights (HWIO), any int8 values.
+      sgn: (N,) int32 threshold direction (+1 / -1).
+      tau: (N,) int32 threshold (``encoding="pm1"``), or (L, N) int32
+           thresholds (``encoding="levels"``, L >= 1).
+      encoding: "pm1" (codes ±1) or "levels" (codes 0..L).
+      pool: 2x2/2 max pool of the codes (window min where sgn < 0).
+
+    Returns:
+      (B, H', W', N) int8 codes; H' = H // 2, W' = W // 2 with pool.
+    """
+    b, h, w, c = x8.shape
+    if w8.dim() != 4 or tuple(w8.shape[:3]) != (3, 3, c):
+        raise ValueError(f"i8_conv_fused: w8 {tuple(w8.shape)} must be "
+                         f"(3, 3, {c}, N) for x8 {tuple(x8.shape)}")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"i8_conv_fused: C = {c} > {MAX_CHANNELS} could "
+                         "overflow the int32 accumulator")
+    n = w8.shape[3]
+    n_thresh = _n_thresholds(encoding, n, sgn, tau)
+    if not _build.check_operands("i8_conv_fused", x8,
+                                 {"xp": torch.int8, "w8": torch.int8},
+                                 w8=w8, sgn=sgn, tau=tau):
+        return i8_conv_fused_ref(x8, w8, sgn, tau, encoding=encoding, pool=pool)
+    ho, wo = (h // 2, w // 2) if pool else (h, w)
+    out = torch.empty((b, ho, wo, n), dtype=torch.int8, device=x8.device)
+    if out.numel():
+        _build.launch("qnx_i8_conv3x3_fused", x8.device, x8, w8, sgn, tau, out,
+                      b, h, w, c, n, n_thresh, int(encoding == "levels"),
+                      int(pool))
+        i8_conv_fused.launches += 1
+    return out
+
+
+i8_conv_fused.launches = 0

@@ -25,6 +25,7 @@ from qnx_torch.kernels.xnor_conv_fused import (ternary_gemm_fused,
                                                xnor_conv_fused, xnor_gemm_fused)
 from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
 from qnx_torch.ops.packing import pack_bits, unpack_bits
+from qnx_torch.ops.quant import quantized_relu
 
 _TF32_LOCK = threading.Lock()
 
@@ -71,6 +72,14 @@ def _maxpool2(y: torch.Tensor) -> torch.Tensor:
     b, h, w, c = y.shape
     y = y[:, :h // 2 * 2, :w // 2 * 2]
     return y.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def _levels_from_float(y: torch.Tensor, nb: int) -> torch.Tensor:
+    """Float pre-activation -> int32 level index of quantized_relu(y, nb),
+    ``round(quantized_relu(y) / q)`` (the division by the pow2 step q is
+    exact in float32)."""
+    q = 2.0 ** (1 - nb)
+    return torch.round(quantized_relu(y, nb) / q).to(torch.int32)
 
 
 def _affine(a: torch.Tensor, s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

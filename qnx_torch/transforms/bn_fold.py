@@ -1,6 +1,6 @@
 """BatchNorm -> per-channel integer threshold and affine folding (torch port
-of :func:`qnx.transforms.bn_fold.fold_bn_sign`, ``fold_bn_affine`` and
-``fold_affine``, in numpy as the originals).
+of :func:`qnx.transforms.bn_fold.fold_bn_sign`, ``fold_bn_levels``,
+``fold_bn_affine`` and ``fold_affine``, in numpy as the originals).
 
 At inference every hidden block of the binary network is
 
@@ -80,6 +80,69 @@ def fold_bn_sign(gamma, beta, mean, var, eps: float, alpha=1.0,
     tau = np.where(zero, np.where(beta > 0, INT32_MIN, INT32_MAX),
                    tau).astype(np.int32)
     return SignThreshold(sgn=sgn, tau=tau)
+
+
+@dataclass(frozen=True)
+class LevelThresholds:
+    """Multi-level integer quantizer: level[c] = sum_v (sgn[c]*s >= tau[v,c]),
+    thresholds ascending in v.  mode='relu' has L-1 = 2^(nb-1)-1 rows
+    (quantized_relu: x = q * level); mode='tanh' has 2^nb - 2 rows
+    (quantized_tanh: x = q * (level - (2^(nb-1)-1))), q = 2^(1-nb)."""
+
+    sgn: np.ndarray   # (C,) int32 in {+1,-1}
+    tau: np.ndarray   # (n_thresholds, C) int32
+    q: float          # level step 2^(1-nb)
+
+
+def fold_bn_levels(gamma, beta, mean, var, eps: float, nb: int, alpha=1.0,
+                   bias=None, mode: str = "relu") -> LevelThresholds:
+    """Fold BN + an n-bit level quantizer into per-channel integer thresholds.
+
+    mode='relu' (quantized_relu): with y = BN(alpha*s + bias) and
+    q = 2^(1-nb), the level l = clip(round(hard_sigmoid(y)*2^nb) - 2^(nb-1),
+    0, 2^(nb-1)-1) is monotone in s, and
+
+        l >= v  <=>  y > y_v = 2*(c - 1/2)/2^nb - 1,   c = v + 2^(nb-1)
+
+    mode='tanh' (quantized_tanh): the unsigned index u = level + (L-1) over
+    the symmetric grid, u >= v <=> the same test with c = v + 1, 2^nb - 2
+    thresholds.  Strict '>' resolves round-half-to-even ties toward the lower
+    level.  Thresholds in float64; gamma < 0 folds into sgn = -1 and
+    gamma == 0 into saturated thresholds, as in :func:`fold_bn_sign`."""
+    gamma = np.asarray(gamma, np.float64)
+    beta = np.asarray(beta, np.float64)
+    mean = np.asarray(mean, np.float64)
+    var = np.asarray(var, np.float64)
+    alpha = np.broadcast_to(np.asarray(alpha, np.float64), gamma.shape)
+    bias = (np.zeros_like(gamma) if bias is None
+            else np.broadcast_to(np.asarray(bias, np.float64), gamma.shape))
+    if np.any(alpha <= 0):
+        raise ValueError(
+            "alpha (weight scale) must be positive: the scale is folded into "
+            "the threshold by dividing through it, so a non-positive alpha "
+            "would flip (or collapse) the comparison direction, which this "
+            "fold expresses only via the gamma sign")
+    if mode not in ("relu", "tanh"):
+        raise ValueError(f"fold_bn_levels mode must be 'relu' or 'tanh', got {mode!r}")
+    n_thresh = 2 ** (nb - 1) - 1 if mode == "relu" else 2**nb - 2
+    q = float(2.0 ** (1 - nb))
+    std = np.sqrt(var + eps)
+    safe_gamma = np.where(gamma == 0, 1.0, gamma)
+
+    sgn = np.where(gamma >= 0, 1, -1).astype(np.int32)
+    taus = []
+    for v in range(1, n_thresh + 1):
+        c = v + 2 ** (nb - 1) if mode == "relu" else v + 1
+        y_v = 2.0 * (c - 0.5) / (2.0**nb) - 1.0
+        # y > y_v  <=>  gamma*(alpha*s + bias - mean) > (y_v - beta)*std
+        theta = (mean - bias + (y_v - beta) * std / safe_gamma) / alpha
+        tau_v = np.where(sgn == 1, _strict_gt_threshold(theta),
+                         _strict_gt_threshold(-theta))
+        # gamma == 0: y = beta constant -> level = const
+        zero = gamma == 0
+        tau_v = np.where(zero, np.where(beta > y_v, INT32_MIN, INT32_MAX), tau_v)
+        taus.append(tau_v.astype(np.int32))
+    return LevelThresholds(sgn=sgn, tau=np.stack(taus, axis=0), q=q)
 
 
 @dataclass(frozen=True)

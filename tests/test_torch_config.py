@@ -1,6 +1,6 @@
-"""The port's own config and BN fold (qnx_torch.utils.config,
-qnx_torch.transforms.bn_fold) against the JAX package's originals, which
-the port does not import."""
+"""The port's own config and BN folds (qnx_torch.utils.config,
+qnx_torch.transforms.bn_fold: sign, levels, affine) against the JAX
+package's originals, which the port does not import."""
 import dataclasses
 
 import numpy as np
@@ -111,3 +111,43 @@ def test_fold_affine_matches(kwargs):
     for (name, g), (_, w) in zip(_affine_fields(got), _affine_fields(want)):
         assert g.dtype == w.dtype == np.float32, name
         np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("nb,mode,alpha,with_bias", [
+    (2, "relu", 1.0, False), (3, "relu", 0.0625, True),
+    (4, "relu", "per-channel", True), (3, "tanh", 0.5, True),
+    (2, "relu", 1e-9, False)],
+    ids=["nb2", "nb3-H-and-bias", "nb4-per-channel", "tanh-nb3",
+         "tiny-alpha-saturates"])
+def test_fold_bn_levels_matches(nb, mode, alpha, with_bias):
+    rng = np.random.default_rng(2)
+    c = 64
+    gamma, beta, mean, var = _bn(rng, c)
+    gamma[4:8] = -np.abs(gamma[4:8])  # gamma < 0: sgn = -1
+    beta[2:4] = [1.5, -1.5]  # gamma == 0 channels above and below every y_v
+    if alpha == "per-channel":
+        alpha = rng.uniform(0.01, 2.0, c)
+    bias = rng.normal(0.0, 1.0, c) if with_bias else None
+    got = bn_fold.fold_bn_levels(gamma, beta, mean, var, 1e-4, nb,
+                                 alpha=alpha, bias=bias, mode=mode)
+    want = jax_bn_fold.fold_bn_levels(gamma, beta, mean, var, 1e-4, nb,
+                                      alpha=alpha, bias=bias, mode=mode)
+    assert got.q == want.q == 2.0 ** (1 - nb)
+    for g, w in ((got.sgn, want.sgn), (got.tau, want.tau)):
+        assert g.dtype == w.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+    n_thresh = 2 ** (nb - 1) - 1 if mode == "relu" else 2**nb - 2
+    assert got.tau.shape == (n_thresh, c)
+    assert (got.sgn[4:8] == -1).all()
+    # gamma == 0: constant levels at the int32 extremes
+    assert (got.tau[:, 2] == bn_fold.INT32_MIN).all()
+    assert (got.tau[:, 3] == bn_fold.INT32_MAX).all()
+
+
+def test_fold_bn_levels_rejects_bad_alpha_and_mode():
+    one = np.ones(3)
+    for fold in (bn_fold.fold_bn_levels, jax_bn_fold.fold_bn_levels):
+        with pytest.raises(ValueError, match="alpha"):
+            fold(one, one, one, one, 1e-4, 2, alpha=0.0)
+        with pytest.raises(ValueError, match="mode"):
+            fold(one, one, one, one, 1e-4, 2, mode="sigmoid")

@@ -1,6 +1,7 @@
 """The committed full-width goldens (tests/data/torch_port_golden_*.npz)
-that ``chip_smoke.py`` holds the card's runs against: regenerated here with
-the JAX package, and matched by the port's CPU path."""
+that ``chip_smoke.py`` holds the card's runs against, for the packed and
+the int8 engine: regenerated here with the JAX package, and matched by the
+port's CPU path."""
 import importlib.util
 from pathlib import Path
 
@@ -8,10 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from qnx_torch.convert.pack_model import pack_mlp, pack_vgg
+from qnx_torch.convert.pack_model import pack_int8, pack_mlp, pack_vgg
 from qnx_torch.models.factory import init_variables
 from qnx_torch.serve.engine import normalize_u8
-from qnx_torch.utils import config
 
 torch.set_num_threads(2)
 
@@ -42,9 +42,14 @@ def _check_regenerates(name):
 
 def _check_port_matches(name):
     g = np.load(MAKER.path(name))
-    cf = getattr(config, name.upper())
-    pack = pack_vgg if cf.architecture == "vgg" else pack_mlp
-    model = pack(init_variables(cf, int(g["variables_seed"])), cf)
+    cf = MAKER.config_of(name)
+    if name.endswith(MAKER.INT8):
+        assert str(g["engine"]) == "int8"
+        pack = pack_int8
+    else:
+        pack = pack_vgg if cf.architecture == "vgg" else pack_mlp
+    model = pack(init_variables(cf, int(g["variables_seed"])), cf,
+                 device="cpu")
     with torch.inference_mode():
         got = model(normalize_u8(torch.from_numpy(g["images"]))).numpy()
     want = g["logits"]
@@ -69,4 +74,17 @@ def test_mlp_golden_regenerates_from_the_jax_package(name):
 
 @pytest.mark.parametrize("name", ["mnist_bnn", "mnist_tnn"])
 def test_port_cpu_path_matches_mlp_golden(name):
+    _check_port_matches(name)
+
+
+INT8_NAMES = ["cifar10_bnn_int8", "cifar10_tnn_int8", "mnist_bnn_int8"]
+
+
+@pytest.mark.parametrize("name", INT8_NAMES)
+def test_int8_golden_regenerates_from_the_jax_package(name):
+    _check_regenerates(name)
+
+
+@pytest.mark.parametrize("name", INT8_NAMES)
+def test_port_cpu_path_matches_int8_golden(name):
     _check_port_matches(name)

@@ -15,7 +15,9 @@ EXPECTED = {
     "qnx_torch.convert.pack_model", "qnx_torch.models.factory",
     "qnx_torch.serve.engine", "qnx_torch.utils.config",
     "qnx_torch.transforms.bn_fold", "qnx_torch.kernels.xnor_gemm",
-    "qnx_torch.kernels.ternary_gemm",
+    "qnx_torch.kernels.ternary_gemm", "qnx_torch.ops.quant",
+    "qnx_torch.kernels.i8_conv_fused", "qnx_torch.nn.int8_engine",
+    "qnx_torch.bench.float_baseline",
 }
 
 _PROBE = """

@@ -77,7 +77,7 @@ def test_init_variables_draws_exercise_the_epilogue():
     BN scales of both signs, two constant-bit channels per hidden BN."""
     cf = TNN_CF.replace(dim=256)
     v = init_variables(cf, seed=4)
-    tm = pack_mlp(v, cf)
+    tm = pack_mlp(v, cf, device="cpu")
     for layer in tm.hidden:
         share = 1.0 - float(layer.nnz.sum()) / (layer.mask.shape[0] * 32
                                                 * layer.mask.shape[1])
@@ -112,13 +112,14 @@ def _assert_buffers_equal(jm, tm):
 @pytest.mark.parametrize("cf", list(SMALL.values()), ids=list(SMALL))
 def test_pack_mlp_buffers_equal_jax_leaves(cf):
     variables = init_variables(cf, seed=3)
-    _assert_buffers_equal(jax_pack_mlp(variables, cf), pack_mlp(variables, cf))
+    _assert_buffers_equal(jax_pack_mlp(variables, cf),
+                          pack_mlp(variables, cf, device="cpu"))
 
 
 @pytest.mark.parametrize("cf", [MNIST_BNN, MNIST_TNN], ids=["mnist-bnn", "mnist-tnn"])
 def test_pack_mlp_buffers_equal_jax_leaves_full_width(cf):
     variables = init_variables(cf, seed=0)
-    tm = pack_mlp(variables, cf)
+    tm = pack_mlp(variables, cf, device="cpu")
     _assert_buffers_equal(jax_pack_mlp(variables, cf), tm)
     # FloatDenseBits -> 2 hidden layers -> integer head
     kind = "Ternary" if cf.network_type == "full-tnn" else "Packed"
@@ -139,7 +140,7 @@ def test_packed_layers_bit_exact_vs_jax(cf):
     int32 s equal JAX's; the first layer's words may differ only where the
     BN output is within rounding of 0."""
     variables = init_variables(cf, seed=5)
-    jm, tm = jax_pack_mlp(variables, cf), pack_mlp(variables, cf)
+    jm, tm = jax_pack_mlp(variables, cf), pack_mlp(variables, cf, device="cpu")
     _, x = _images(6, seed=6)
     x = x.reshape(6, -1)
     bits = jm.first(jnp.asarray(x))
@@ -173,7 +174,8 @@ def test_logits_match_jax_mlp_forward(cf):
     variables = init_variables(cf, seed=8)
     _, x = _images(8, seed=9)
     want = np.asarray(JI.mlp_forward(jax_pack_mlp(variables, cf), jnp.asarray(x)))
-    got = TI.mlp_forward(pack_mlp(variables, cf), torch.from_numpy(x)).numpy()
+    got = TI.mlp_forward(pack_mlp(variables, cf, device="cpu"),
+                         torch.from_numpy(x)).numpy()
     assert got.shape == (8, cf.classes) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=RTOL,
                                atol=ATOL_REL * np.abs(want).max())
@@ -203,7 +205,7 @@ def test_float_dense_logits_matches_jax():
 def test_serve_engine_serves_the_mlp():
     """uint8 (B, 28, 28, 1) requests through the engine equal the direct
     forward, across a split chunk and a padded tail."""
-    model = pack_mlp(init_variables(TNN_CF, seed=10), TNN_CF)
+    model = pack_mlp(init_variables(TNN_CF, seed=10), TNN_CF, device="cpu")
     u8, _ = _images(11, seed=11)
     engine = ServeEngine(model, batch_size=4, max_wait_ms=50.0)
     futs = [f for chunk in (u8[:3], u8[3:9], u8[9:])
@@ -220,8 +222,9 @@ def test_serve_engine_serves_the_mlp():
 
 def test_pack_mlp_rejects_what_it_does_not_lower():
     with pytest.raises(ValueError, match="mlp"):
-        pack_mlp({}, MLP_CF.replace(architecture="vgg"))
+        pack_mlp({}, MLP_CF.replace(architecture="vgg"), device="cpu")
     with pytest.raises(ValueError, match="binary activations"):
-        pack_mlp({}, MLP_CF.replace(network_type="full-qnn", wbits=2, abits=2))
+        pack_mlp({}, MLP_CF.replace(network_type="full-qnn", wbits=2, abits=2),
+                 device="cpu")
     with pytest.raises(ValueError, match="activation override"):
-        pack_mlp({}, MLP_CF.replace(activation="quantized_relu"))
+        pack_mlp({}, MLP_CF.replace(activation="quantized_relu"), device="cpu")

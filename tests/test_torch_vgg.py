@@ -78,7 +78,7 @@ def _jax_layers(jm):
                               "width8", "binary-head"])
 def test_pack_vgg_buffers_equal_jax_leaves(cf):
     variables = init_variables(cf, seed=3)
-    jm, tm = jax_pack_vgg(variables, cf), pack_vgg(variables, cf)
+    jm, tm = jax_pack_vgg(variables, cf), pack_vgg(variables, cf, device="cpu")
     tlayers = dict(tm.named_modules())
     for name, jlayer in _jax_layers(jm):
         tlayer = tlayers[name]
@@ -102,7 +102,7 @@ def test_pack_vgg_buffers_equal_jax_leaves(cf):
 def test_packed_layers_bit_exact_vs_jax(cf):
     """Fed the same input bits, every packed layer's words equal JAX's."""
     variables = init_variables(cf, seed=5)
-    jm, tm = jax_pack_vgg(variables, cf), pack_vgg(variables, cf)
+    jm, tm = jax_pack_vgg(variables, cf), pack_vgg(variables, cf, device="cpu")
     _, x = _images(4, seed=6, cf=cf)
     bits = jm.first(jnp.asarray(x))
     with torch.inference_mode():
@@ -132,7 +132,8 @@ def test_first_layer_bits_differ_only_near_zero():
     """XLA's and torch's f32 convs sum in different orders, so a first-layer
     bit may differ only where the BN output z is within rounding of 0."""
     variables = init_variables(CIFAR10_BNN, seed=0)
-    jm, tm = jax_pack_vgg(variables, CIFAR10_BNN), pack_vgg(variables, CIFAR10_BNN)
+    jm = jax_pack_vgg(variables, CIFAR10_BNN)
+    tm = pack_vgg(variables, CIFAR10_BNN, device="cpu")
     _, x = _images(8, seed=7, cf=CIFAR10_BNN)
     jbits = np.asarray(jax_unpack_bits(jm.first(jnp.asarray(x)), 128))
     with torch.inference_mode():
@@ -158,7 +159,8 @@ def test_logits_match_jax_vgg_forward(cf):
     variables = init_variables(cf, seed=8)
     _, x = _images(8, seed=9, cf=cf)
     want = np.asarray(jax_vgg_forward(jax_pack_vgg(variables, cf), jnp.asarray(x)))
-    got = vgg_forward(pack_vgg(variables, cf), torch.from_numpy(x)).numpy()
+    got = vgg_forward(pack_vgg(variables, cf, device="cpu"),
+                      torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL,
                                atol=ATOL_REL * np.abs(want).max())
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
@@ -169,7 +171,7 @@ def test_forward_leaves_the_callers_tf32_flags(allow):
     """The float layers switch TF32 off only around their own ops."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
-    model = pack_vgg(init_variables(SMALL_CF, seed=12), SMALL_CF)
+    model = pack_vgg(init_variables(SMALL_CF, seed=12), SMALL_CF, device="cpu")
     _, x = _images(2, seed=13)
     try:
         torch.backends.cuda.matmul.allow_tf32 = allow
@@ -183,7 +185,7 @@ def test_forward_leaves_the_callers_tf32_flags(allow):
 
 
 def test_serve_engine_matches_direct_forward():
-    model = pack_vgg(init_variables(SMALL_CF, seed=10), SMALL_CF)
+    model = pack_vgg(init_variables(SMALL_CF, seed=10), SMALL_CF, device="cpu")
     u8, _ = _images(15, seed=11)
     engine = ServeEngine(model, batch_size=8, max_wait_ms=50.0)
     # queued before start: [3] + [5 of 10] | [5 carried] + [2] + 1 pad
@@ -219,9 +221,9 @@ def test_uint8_normalisation_is_the_jax_engines_bit_for_bit():
 
 
 def test_unported_variants_raise():
-    model = pack_vgg(init_variables(SMALL_CF, seed=0), SMALL_CF)
+    model = pack_vgg(init_variables(SMALL_CF, seed=0), SMALL_CF, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(model, mesh=object())
     cf = SMALL_CF.replace(network_type="full-tnn", wbits=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pack_vgg(init_variables(cf, seed=0), cf)
+        pack_vgg(init_variables(cf, seed=0), cf, device="cpu")
