@@ -11,19 +11,26 @@ Drives the port's served paths through the hand-written CUDA kernels in
   4096, 10 classes);
 * the int8 engine (``pack_int8``) of ``cifar10-bnn`` (pm1 codes),
   ``cifar10-tnn`` (level codes, abits 2) and ``mnist-bnn``: every hidden
-  conv through kernel E, the dense layers through ``torch._int_mm``,
+  conv through kernel E, the dense layers through ``torch._int_mm``;
+* ``cifar10-tnn`` through the bit-plane engine (``pack_vgg_bitplane``,
+  ``PlaneVGG``): one {0,1} plane and one threshold per channel at its abits
+  2, and two planes, three thresholds and the integer head at abits 3, every
+  plane conv, dense layer and the head through kernel D;
+* ``cifar10-tnn`` at abits 1, the ternary packed VGG (``pack_vgg``): every
+  hidden conv and dense layer through the ternary branch of kernel A (A'),
 
 each with random weights from seed 0, built on the card by the converters'
 default and served by ``qnx_torch.serve.ServeEngine``.  Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
 2. build: compile the kernels, with the ptxas register report;
-3. kernels: each of the six kernels against its plain PyTorch version on
-   the card at its paths' layer shapes (batch 32, and 256 for the MLPs and
-   kernel E), the packed GEMMs at 1024x4096x4096, ragged cases and any N
-   (8, 48, 1, 10, 33); kernel E in the pm1 encoding and the levels encoding
-   with 1 and 3 thresholds: packed words, int32 s and int8 codes must be
-   equal;
+3. kernels: each of the ten kernels against its plain PyTorch version on
+   the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
+   kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
+   cases and any N (8, 48, 1, 10, 33); kernel E in the pm1 encoding and the
+   levels encoding with 1 and 3 thresholds; D with 1 to 5 planes and 1 to
+   31 thresholds, mixed threshold directions and int32-extreme thresholds:
+   packed words, planes, int32 s and int8 codes must be equal;
 4. slice: for each path, 600 uint8 requests through the engine; every
    request answered, each layer's words or codes and each integer head's
    int32 s equal to the plain path's, logits equal to the plain path's and
@@ -31,16 +38,26 @@ default and served by ``qnx_torch.serve.ServeEngine``.  Phases:
    count equal to layers x batches (counts set to 0 just before each path
    and read just after);
 5. times: each kernel against its plain version and against one library
-   call (``torch._int_mm`` on the same product, unpacked) at batch 256 (and
-   the packed GEMMs at 1024x4096x4096), each path's forward, and the int8
-   VGG against the strict-f32 float twin at batch 256 and 1024, with CUDA
-   events;
-6. stages: each stage of the batch-256 VGG, ``mnist-bnn`` and int8 VGG
-   forwards alone, their peak memory, and the engine's throughput over 40
-   queued batches.
+   call (``torch._int_mm`` on the same product, unpacked to int8) at batch
+   256 (and the packed GEMMs at 1024x4096x4096), each path's forward, and
+   the int8 VGG against the strict-f32 float twin at batch 256 and 1024,
+   with CUDA events;
+6. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
+   bit-plane VGG forwards alone, their peak memory, and the engine's
+   throughput over 40 queued batches.
 
 Any failure raises (non-zero exit).  The last lines are a JSON summary of
 the kernels, the card's ``name, power.limit``, and the result object.
+
+    python3 chip_smoke.py --ab KINDS DIR [DIR ...]
+
+times conv kernels in several checkouts of the repo instead, in turns on
+one card: for each DIR (a checkout, such as a parent commit unpacked with
+``git archive`` into the ignored ``archive_check/``) one process that
+imports that checkout's ``qnx_torch``, builds its kernels and times each
+kind of KINDS (comma-separated :func:`make_case` kinds: ``conv`` for A's
+binary conv, ``plane_conv-P-T`` for D) at the five VGG conv shapes at batch
+256 on the same seeded operands.  Run it as parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -49,7 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
 
@@ -76,9 +93,11 @@ CONV_SHAPES = [(32, 32, 128, 128, True), (16, 16, 128, 256, False),
                (16, 16, 256, 256, True), (8, 8, 256, 512, False),
                (8, 8, 512, 512, True)]
 DENSE_SHAPES = [(8192, 1024), (1024, 1024)]
-# (K, N) of the MLPs' two hidden layers and of their heads
+# (K, N) of the MLPs' two hidden layers and of their heads, and of the
+# abits-3 bit-plane VGG's integer head
 MLP_HIDDEN = (4096, 4096)
 MLP_HEAD = (4096, 10)
+PLANE_HEAD = (1024, 10)
 SCAN = (1024, (4096, 4096))  # the JAX package's packed GEMM scan shape
 # the int8 VGG against its f32 twin at these batches; 1024 is bench.py's
 TWIN_BATCHES = (256, 1024)
@@ -87,11 +106,13 @@ I8_ENCODINGS = {"pm1": ("pm1", 1), "levels1": ("levels", 1),
                 "levels3": ("levels", 3)}
 
 # Peaks of one H100 SXM at 700 W for the bound (the least time the card
-# could take): dense int8 tensor cores 1,979 TOP/s (NVIDIA's data sheet),
-# i.e. 989.5e12 MAC/s; the popc bound of PERF.md §3, 132 SMs x 16 popc per
-# clock x 32 binary MACs at 1.98 GHz; HBM3 at 3.35 TB/s.
+# could take, NVIDIA's data sheet): dense int8 tensor cores 1,979 TOP/s,
+# i.e. 989.5e12 MAC/s, and HBM3 at 3.35 TB/s.  Every kernel's product takes
+# ±1 activations or the levels of up to 8 {0,1} planes (unsigned, below
+# 2^8) against ±1 or ternary weights, which the int8 tensor cores' s8 x s8
+# and u8 x s8 MMA take, so each counts one int8 MAC per real MAC whatever
+# its planes.
 INT8_MAC_RATE = 1979e12 / 2
-POPC_MAC_RATE = 132 * 16 * 32 * 1.98e9
 HBM_BYTES_RATE = 3.35e12
 
 KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
@@ -107,6 +128,14 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                      "qnx/kernels/ternary_gemm.py:29"),
     "i8_conv3x3_fused": ("qnx_torch/kernels/csrc/i8_conv_fused.cu",
                          "qnx/kernels/i8_conv_fused.py:40"),
+    "ternary_conv3x3_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
+                              "qnx/kernels/xnor_conv_fused.py:54"),
+    "plane_conv3x3_fused": ("qnx_torch/kernels/csrc/plane_fused.cu",
+                            "qnx/kernels/plane_gemm.py:32"),
+    "plane_dense_fused": ("qnx_torch/kernels/csrc/plane_fused.cu",
+                          "qnx/kernels/plane_gemm.py:32"),
+    "plane_gemm": ("qnx_torch/kernels/csrc/plane_fused.cu",
+                   "qnx/kernels/plane_gemm.py:32"),
 }
 
 
@@ -125,6 +154,7 @@ def golden(name: str):
 
 def wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches."""
+    from qnx_torch.kernels import plane_gemm as D
     from qnx_torch.kernels import xnor_conv_fused as F
     from qnx_torch.kernels.i8_conv_fused import i8_conv_fused
     from qnx_torch.kernels.ternary_gemm import ternary_gemm
@@ -135,7 +165,11 @@ def wrappers() -> dict:
             "ternary_dense_fused": F.ternary_gemm_fused,
             "xnor_gemm_popcount": xnor_gemm_popcount,
             "ternary_gemm": ternary_gemm,
-            "i8_conv3x3_fused": i8_conv_fused}
+            "i8_conv3x3_fused": i8_conv_fused,
+            "ternary_conv3x3_fused": F.ternary_conv_fused,
+            "plane_conv3x3_fused": D.plane_conv_fused,
+            "plane_dense_fused": D.plane_dense_fused,
+            "plane_gemm": D.plane_gemm}
 
 
 # ---------------------------------------------------------------- operands
@@ -182,19 +216,66 @@ def dense_operands(torch, rng, m, k, n):
             cuda(torch, sgn), cuda(torch, tau))
 
 
+def ternary_weights(rng, shape):
+    """{-1, 0, +1} weights, half zero as the dingke weights are, with one
+    all-zero output channel where N > 2."""
+    w = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), shape,
+                   p=[0.25, 0.5, 0.25])
+    if shape[-1] > 2:
+        w[..., 1] = 0.0
+    return w
+
+
 def ternary_operands(torch, rng, m, k, n):
-    """±1 activations and {-1, 0, +1} weights, half zero as the MLP's dingke
-    weights are, with one all-zero column where N > 2."""
+    """±1 activations and ternary weights (:func:`ternary_weights`)."""
     from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
 
-    w = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), (k, n),
-                   p=[0.25, 0.5, 0.25])
-    if n > 2:
-        w[:, 1] = 0.0
+    w = ternary_weights(rng, (k, n))
     sgn, tau = epilogue(rng, n, k)
     return (cuda(torch, pack_bits_np(pm1(rng, (m, k)), -1)),
             *(cuda(torch, a) for a in pack_ternary_np(w, axis=0)),
             cuda(torch, sgn), cuda(torch, tau))
+
+
+def ternary_conv_operands(torch, rng, b, h, w, c, n):
+    """±1 inputs, 3x3 ternary weights as (mask, sign, nnz) and the ternary
+    pattern's pad correction, and :func:`epilogue` thresholds."""
+    from qnx_torch.kernels.xnor_conv import (pack_conv_ternary_np,
+                                             padding_correction)
+    from qnx_torch.ops.packing import pack_bits_np
+
+    pattern = ternary_weights(rng, (3, 3, c, n))
+    sgn, tau = epilogue(rng, n, 9 * c)
+    return [cuda(torch, a) for a in (
+        pack_bits_np(pm1(rng, (b, h, w, c)), -1), *pack_conv_ternary_np(pattern),
+        padding_correction(pattern, h, w), sgn, tau)]
+
+
+def plane_operands(torch, rng, p, n_thresh, lead, c, n, conv):
+    """Kernel D's operands: P {0,1} planes of levels drawn in [0, 2^P) over
+    ``lead + (c,)``, ternary weights (3x3 tap-major for a conv) as (mask,
+    msign); with ``n_thresh`` > 0 mixed-direction ascending thresholds
+    around the spread of s with int32-extreme channels (levels n_thresh, 0
+    and n_thresh - 1, sgn = -1 on the second)."""
+    from qnx_torch.kernels.xnor_conv import pack_conv_ternary_np
+    from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
+
+    lvl = rng.integers(0, 2**p, (*lead, c))
+    planes = np.stack([pack_bits_np((lvl >> j) & 1, axis=-1) for j in range(p)])
+    if conv:
+        mask, sign, _ = pack_conv_ternary_np(ternary_weights(rng, (3, 3, c, n)))
+    else:
+        mask, sign, _ = pack_ternary_np(ternary_weights(rng, (c, n)), axis=0)
+    args = [planes, mask, mask & sign]
+    lim = int(np.sqrt(9 * c if conv else c)) * 2 ** (p - 1) + 1
+    if n_thresh:
+        sgn = rng.choice(np.array([1, -1], np.int32), n)
+        sgn[1:2] = -1
+        tau = np.sort(rng.integers(-lim, lim, (n_thresh, n)), axis=0).astype(np.int32)
+        tau[:, :3] = np.array([I32_MIN, I32_MAX, I32_MIN], np.int64)[:n]
+        tau[-1, 2:3] = I32_MAX
+        args += [sgn, tau]
+    return [cuda(torch, a) for a in args]
 
 
 def i8_operands(torch, rng, b, h, w, c, n, encoding: str, n_thresh: int):
@@ -216,39 +297,50 @@ def i8_operands(torch, rng, b, h, w, c, n, encoding: str, n_thresh: int):
     return [cuda(torch, a) for a in (x, wgt, sgn, tau)]
 
 
-def int_mm_call(torch, rng, m: int, k: int, n: int) -> Callable:
-    """One ``torch._int_mm`` on ±1 int8 operands of (M, K) x (K, N), the
+def int_mm_call(torch, rng, m: int, k: int, n: int, levels: int = 0,
+                weights: str = "pm1") -> Callable:
+    """One ``torch._int_mm`` on int8 operands of (M, K) x (K, N), the
     library yardstick of a kernel: it computes the same int32 s, unpacked,
-    with no epilogue, pool or repack.  B is column-major, the layout cuBLAS
-    runs fastest; ``_int_mm`` takes only M > 16 and K, N multiples of 8, so
-    those are padded up (the heads' N = 10 to 16)."""
+    with no epilogue, pool or repack.  Activations ±1, or with ``levels`` =
+    P the levels in [0, 2^P) that P {0,1} planes hold (s = sum_j 2^j t_j
+    in one product); weights ±1 or {-1, 0, +1} (``ternary``).  B is
+    column-major, the layout cuBLAS runs fastest; ``_int_mm`` takes only
+    M > 16 and K, N multiples of 8, so those are padded up (the heads'
+    N = 10 to 16)."""
     up = lambda v: -(-v // 8) * 8
-    a = cuda(torch, np.where(rng.random((max(m, 17), up(k))) < 0.5, 1, -1)
-             .astype(np.int8))
-    bt = cuda(torch, np.where(rng.random((up(n), up(k))) < 0.5, 1, -1)
-              .astype(np.int8))
+    shape = (max(m, 17), up(k))
+    if levels:
+        a = rng.integers(0, 2**levels, shape).astype(np.int8)
+    else:
+        a = np.where(rng.random(shape) < 0.5, 1, -1).astype(np.int8)
+    if weights == "pm1":
+        b = np.where(rng.random((up(n), up(k))) < 0.5, 1, -1).astype(np.int8)
+    else:
+        b = rng.integers(-1, 2, (up(n), up(k))).astype(np.int8)
+    a, bt = cuda(torch, a), cuda(torch, b)
     return lambda: torch._int_mm(a, bt.t())
 
 
 @dataclass
 class Case:
     """One kernel call on fresh operands: the kernel, its plain version,
-    whether the output is packed words, the inputs and the work (MACs at
-    ``rate``) for the bound, and the library call's (M, K, N)."""
+    whether the output is packed words, the inputs and the MACs for the
+    bound, and the library call's (M, K, N) and operands
+    (:func:`int_mm_call`'s keywords)."""
     name: str
     kern: Callable
     plain: Callable
     words: bool
     inputs: list
     macs: int
-    rate: float
     mkn: tuple
+    lib: dict = field(default_factory=dict)
 
     def bound(self, out) -> tuple[float, float]:
-        """(ms of the operations at the peak rate, ms of the bytes: each
-        input read once and the output written once)."""
+        """(ms of the MACs at the int8 peak, ms of the bytes: each input
+        read once and the output written once)."""
         nbytes = sum(t.numel() * t.element_size() for t in [*self.inputs, out])
-        return self.macs / self.rate * 1e3, nbytes / HBM_BYTES_RATE * 1e3
+        return self.macs / INT8_MAC_RATE * 1e3, nbytes / HBM_BYTES_RATE * 1e3
 
 
 def make_case(torch, rng, kind: str, b: int, shape) -> Case:
@@ -259,6 +351,16 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
     from qnx_torch.kernels import xnor_conv_fused as F
     from qnx_torch.kernels import xnor_gemm as X
 
+    if kind.startswith("plane_"):  # plane_{conv,dense,gemm}-P[-n_thresh]
+        return plane_case(torch, rng, kind, b, shape)
+    if kind == "ternary_conv":
+        h, w, c, n, pool = shape
+        args = ternary_conv_operands(torch, rng, b, h, w, c, n)
+        return Case("ternary_conv3x3_fused",
+                    lambda: F.ternary_conv_fused(*args, pool=pool),
+                    lambda: F.ternary_conv_fused_ref(*args, pool=pool), True,
+                    args, b * h * w * 9 * c * n, (b * h * w, 9 * c, n),
+                    dict(weights="ternary"))
     if kind.startswith("i8conv-"):
         encoding, n_thresh = I8_ENCODINGS[kind.split("-")[1]]
         h, w, c, n, pool = shape
@@ -266,7 +368,7 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
         kw = dict(encoding=encoding, pool=pool)
         return Case("i8_conv3x3_fused", lambda: E.i8_conv_fused(*args, **kw),
                     lambda: E.i8_conv_fused_ref(*args, **kw), False, args,
-                    b * h * w * 9 * c * n, INT8_MAC_RATE, (b * h * w, 9 * c, n))
+                    b * h * w * 9 * c * n, (b * h * w, 9 * c, n))
     if kind == "conv":
         h, w, c, n, pool = shape
         xp, wp, k, corr, sgn, tau = conv_operands(torch, rng, b, h, w, c, n)
@@ -274,9 +376,9 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
                     lambda: F.xnor_conv_fused(xp, wp, k, corr, sgn, tau, pool=pool),
                     lambda: F.xnor_conv_fused_ref(xp, wp, k, corr, sgn, tau, pool=pool),
                     True, [xp, wp, corr, sgn, tau], b * h * w * k * n,
-                    POPC_MAC_RATE, (b * h * w, k, n))
+                    (b * h * w, k, n))
     k_in, n = shape
-    work = dict(macs=b * k_in * n, rate=POPC_MAC_RATE, mkn=(b, k_in, n))
+    work = dict(macs=b * k_in * n, mkn=(b, k_in, n))
     if kind in ("dense", "popcount"):
         xp, wp, k, sgn, tau = dense_operands(torch, rng, b, k_in, n)
         if kind == "dense":
@@ -288,6 +390,7 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
                     lambda: X.xnor_gemm_popcount_ref(xp, wp, k), False,
                     [xp, wp], **work)
     xp, mask, sign, nnz, sgn, tau = ternary_operands(torch, rng, b, k_in, n)
+    work["lib"] = dict(weights="ternary")
     if kind == "ternary_dense":
         return Case("ternary_dense_fused",
                     lambda: F.ternary_gemm_fused(xp, mask, sign, nnz, sgn, tau),
@@ -296,6 +399,33 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
     return Case("ternary_gemm", lambda: T.ternary_gemm(xp, mask, sign, nnz),
                 lambda: T.ternary_gemm_ref(xp, mask, sign, nnz), False,
                 [xp, mask, sign, nnz], **work)
+
+
+def plane_case(torch, rng, kind: str, b: int, shape) -> Case:
+    """A :class:`Case` of kernel D: ``plane_conv-P-T`` (shape (H, W, C, N,
+    pool)), ``plane_dense-P-T`` or ``plane_gemm-P`` (shape (K, N)) with P
+    planes and T thresholds.  The library call is one ``_int_mm`` on the
+    planes' levels."""
+    from qnx_torch.kernels import plane_gemm as D
+
+    name, p, *rest = kind.split("-")
+    p, n_thresh = int(p), int(rest[0]) if rest else 0
+    lib = dict(levels=p, weights="ternary")
+    if name == "plane_conv":
+        h, w, c, n, pool = shape
+        args = plane_operands(torch, rng, p, n_thresh, (b, h, w), c, n, conv=True)
+        return Case("plane_conv3x3_fused",
+                    lambda: D.plane_conv_fused(*args, pool=pool),
+                    lambda: D.plane_conv_fused_ref(*args, pool=pool), True, args,
+                    b * h * w * 9 * c * n, (b * h * w, 9 * c, n), lib)
+    k, n = shape
+    args = plane_operands(torch, rng, p, n_thresh, (b,), k, n, conv=False)
+    work = dict(macs=b * k * n, mkn=(b, k, n), lib=lib)
+    if name == "plane_dense":
+        return Case("plane_dense_fused", lambda: D.plane_dense_fused(*args),
+                    lambda: D.plane_dense_fused_ref(*args), True, args, **work)
+    return Case("plane_gemm", lambda: D.plane_gemm(*args),
+                lambda: D.plane_gemm_ref(*args), False, args, **work)
 
 
 def word_err(torch, got, want) -> float:
@@ -378,6 +508,7 @@ def phase_kernels(torch, err: dict) -> None:
                                         (2, (32, 32, 8, 8, True)),
                                         (3, (5, 7, 8, 8, False)))
               for kind in i8]
+    cases += ternary_vgg_cases() + plane_cases()
     for kind, b, shape in cases:
         case = make_case(torch, rng, kind, b, shape)
         got, want = case.kern(), case.plain()
@@ -386,6 +517,53 @@ def phase_kernels(torch, err: dict) -> None:
                 f"{kind} batch {b} {shape}")
         log("kernels", f"{case.name} {kind} batch {b} {shape}: out "
             f"{tuple(got.shape)}, equal, max_abs_err {err[case.name]}")
+
+
+def ternary_vgg_cases() -> list:
+    """A' at the ternary VGG's (abits 1) conv and dense shapes at batch 32
+    and 256; the conv with ragged batch, odd spatial, C not a multiple of
+    32, N = 8, 10, 33, 48."""
+    cases = [(kind, b, s) for b in (CHECK_BATCH, TIME_BATCH)
+             for kind, shapes in (("ternary_conv", CONV_SHAPES),
+                                  ("ternary_dense", DENSE_SHAPES))
+             for s in shapes]
+    return cases + [("ternary_conv", 3, (5, 7, 16, 48, False)),
+                    ("ternary_conv", 2, (32, 32, 8, 8, True)),
+                    ("ternary_conv", 3, (4, 6, 40, 33, True)),
+                    ("ternary_conv", 3, (6, 4, 64, 10, False))]
+
+
+def plane_cases() -> list:
+    """D at the bit-plane VGGs' shapes at batch 32 and 256: one plane and
+    one threshold (``cifar10-tnn``), two planes and three thresholds (abits
+    3) and the abits-3 head; then 1 to 5 planes with 1 to 31 thresholds,
+    ragged batch, odd spatial, C not a multiple of 32, N = 8, 10, 33, 48, K
+    not a multiple of 32."""
+    cases = []
+    for b in (CHECK_BATCH, TIME_BATCH):
+        cases += [(f"plane_conv-{pt}", b, s) for pt in ("1-1", "2-3")
+                  for s in CONV_SHAPES]
+        cases += [(f"plane_dense-{pt}", b, s) for pt in ("1-1", "2-3")
+                  for s in DENSE_SHAPES]
+        cases.append(("plane_gemm-2", b, PLANE_HEAD))
+    cases += [("plane_conv-2-1", CHECK_BATCH, CONV_SHAPES[0]),
+              ("plane_conv-3-3", CHECK_BATCH, CONV_SHAPES[1]),
+              ("plane_conv-3-7", CHECK_BATCH, CONV_SHAPES[2]),
+              ("plane_conv-1-1", CHECK_BATCH, CONV_SHAPES[0]),
+              ("plane_conv-2-3", 3, (5, 7, 16, 48, False)),
+              ("plane_conv-3-3", 3, (5, 7, 40, 10, False)),
+              ("plane_conv-2-3", 3, (4, 6, 32, 33, True)),
+              ("plane_conv-1-1", 2, (32, 32, 8, 8, True)),
+              ("plane_conv-4-15", 2, (8, 8, 8, 8, True)),
+              ("plane_dense-3-3", CHECK_BATCH, DENSE_SHAPES[0]),
+              ("plane_dense-3-7", 3, (100, 48)),
+              ("plane_dense-2-3", 37, (96, 33)),
+              ("plane_dense-1-1", 5, (100, 10)),
+              ("plane_dense-5-31", 3, (64, 8)),
+              ("plane_gemm-1", 3, (100, 10)),
+              ("plane_gemm-3", 3, (100, 33)),
+              ("plane_gemm-2", 37, DENSE_SHAPES[0])]
+    return cases
 
 
 def serve(torch, label: str, model, images, per_batch: dict, plain_forward,
@@ -462,20 +640,61 @@ def plain_vgg_forward(torch, model, x, err: dict):
     """The VGG forward with each packed layer run both ways on the same
     input bits: kernel words must equal the plain version's."""
     from qnx_torch.kernels import xnor_conv_fused as F
+    from qnx_torch.nn.inference import TernaryConvBits, TernaryDenseBits
 
     bits = model.first(x)
     for i, conv in enumerate(model.convs, 1):
         got = conv(bits)
-        bits = F.xnor_conv_fused_ref(bits, conv.wp, conv.k, conv.corr,
-                                     conv.sgn, conv.tau, pool=conv.pool)
-        compare(torch, err, "xnor_conv3x3_fused", got, bits, True, f"conv_{i}")
+        if isinstance(conv, TernaryConvBits):
+            name = "ternary_conv3x3_fused"
+            bits = F.ternary_conv_fused_ref(bits, conv.mask, conv.sign, conv.nnz,
+                                            conv.corr, conv.sgn, conv.tau,
+                                            pool=conv.pool)
+        else:
+            name = "xnor_conv3x3_fused"
+            bits = F.xnor_conv_fused_ref(bits, conv.wp, conv.k, conv.corr,
+                                         conv.sgn, conv.tau, pool=conv.pool)
+        compare(torch, err, name, got, bits, True, f"conv_{i}")
     bits = bits.reshape(bits.shape[0], -1)
     for j, dense in enumerate(model.denses):
         got = dense(bits)
-        bits = F.xnor_gemm_fused_ref(bits, dense.wp, dense.k, dense.sgn,
-                                     dense.tau)
-        compare(torch, err, "xnor_dense_fused", got, bits, True, f"dense_{j}")
+        if isinstance(dense, TernaryDenseBits):
+            name = "ternary_dense_fused"
+            bits = F.ternary_gemm_fused_ref(bits, dense.mask, dense.sign,
+                                            dense.nnz, dense.sgn, dense.tau)
+        else:
+            name = "xnor_dense_fused"
+            bits = F.xnor_gemm_fused_ref(bits, dense.wp, dense.k, dense.sgn,
+                                         dense.tau)
+        compare(torch, err, name, got, bits, True, f"dense_{j}")
     return model.head(bits)
+
+
+def plain_plane_forward(torch, model, x, err: dict):
+    """The bit-plane VGG forward with each plane layer and the integer
+    head's GEMM run both ways on the same input planes: planes and int32 s
+    must be equal."""
+    from qnx_torch.kernels import plane_gemm as D
+    from qnx_torch.nn.inference import PlaneDenseLogits
+
+    planes = model.first(x)
+    for i, conv in enumerate(model.convs, 1):
+        got = conv(planes)
+        planes = D.plane_conv_fused_ref(planes, conv.mask, conv.msign, conv.sgn,
+                                        conv.tau, pool=conv.pool)
+        compare(torch, err, "plane_conv3x3_fused", got, planes, True, f"conv_{i}")
+    planes = planes.reshape(planes.shape[0], planes.shape[1], -1)
+    for j, dense in enumerate(model.denses):
+        got = dense(planes)
+        planes = D.plane_dense_fused_ref(planes, dense.mask, dense.msign,
+                                         dense.sgn, dense.tau)
+        compare(torch, err, "plane_dense_fused", got, planes, True, f"dense_{j}")
+    head = model.head
+    if isinstance(head, PlaneDenseLogits):
+        s = D.plane_gemm_ref(planes, head.mask, head.msign)
+        compare(torch, err, "plane_gemm", head.scores(planes), s, False, "head s")
+        return head.logits(s)
+    return head(planes)
 
 
 def plain_mlp_forward(torch, model, x, err: dict):
@@ -554,7 +773,8 @@ def plain_i8_forward(torch, model, x, err: dict):
 
 def phase_slices(torch, err: dict):
     """Serve every path; returns the models and the summed launch counts."""
-    from qnx_torch.convert.pack_model import pack_int8, pack_mlp, pack_vgg
+    from qnx_torch.convert.pack_model import (pack_int8, pack_mlp, pack_vgg,
+                                              pack_vgg_bitplane)
     from qnx_torch.models.factory import init_variables
     from qnx_torch.utils.config import (CIFAR10_BNN, CIFAR10_TNN, MNIST_BNN,
                                         MNIST_TNN)
@@ -570,7 +790,15 @@ def phase_slices(torch, err: dict):
               {"i8_conv3x3_fused": 5}),
              ("cifar10_tnn_int8", CIFAR10_TNN, pack_int8, plain_i8_forward,
               {"i8_conv3x3_fused": 5}),
-             ("mnist_bnn_int8", MNIST_BNN, pack_int8, plain_i8_forward, {})]
+             ("mnist_bnn_int8", MNIST_BNN, pack_int8, plain_i8_forward, {}),
+             ("cifar10_tnn", CIFAR10_TNN, pack_vgg_bitplane, plain_plane_forward,
+              {"plane_conv3x3_fused": 5, "plane_dense_fused": 2}),
+             ("cifar10_tnn_a3", CIFAR10_TNN.replace(abits=3, last_layer_float=False),
+              pack_vgg_bitplane, plain_plane_forward,
+              {"plane_conv3x3_fused": 5, "plane_dense_fused": 2, "plane_gemm": 1}),
+             ("cifar10_tnn_a1", CIFAR10_TNN.replace(abits=1), pack_vgg,
+              plain_vgg_forward,
+              {"ternary_conv3x3_fused": 5, "ternary_dense_fused": 2})]
     for name, cf, pack, plain_forward, per_batch in paths:
         model = pack(init_variables(cf, seed=0), cf)  # on the card by default
         if not all(t.is_cuda for t in model.buffers()):
@@ -613,8 +841,8 @@ def phase_times(torch, card: str, models: dict) -> dict:
     interleaved (plain, kernel, library, library, kernel, plain).  ``total``
     sums, per kernel, the medians and the bound over every layer of every
     path at batch 256 (a per-forward figure of each path, summed over the
-    paths; kernel E's over the two int8 VGGs, pm1 and levels), the scan
-    shape aside."""
+    paths; kernel E's over the two int8 VGGs, pm1 and levels; D's over the
+    two bit-plane VGGs, one plane and two), the scan shape aside."""
     rng = np.random.default_rng(11)
     total = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_bound_ms=0.0, bytes_bound_ms=0.0) for name in KERNELS}
@@ -628,9 +856,18 @@ def phase_times(torch, card: str, models: dict) -> dict:
               for s in CONV_SHAPES]
     cases += [(kind, SCAN[0], SCAN[1], 0)
               for kind in ("ternary_dense", "popcount", "ternary")]
+    # the ternary VGG's A' layers, and D at the bit-plane VGGs' layers: one
+    # plane and one threshold, then two planes, three thresholds and the head
+    cases += [(kind, b, s, 1) for kind, shapes in (("ternary_conv", CONV_SHAPES),
+                                                   ("ternary_dense", DENSE_SHAPES))
+              for s in shapes]
+    cases += [(f"plane_{layer}-{pt}", b, s, 1) for pt in ("1-1", "2-3")
+              for layer, shapes in (("conv", CONV_SHAPES), ("dense", DENSE_SHAPES))
+              for s in shapes]
+    cases.append(("plane_gemm-2", b, PLANE_HEAD, 1))
     for kind, m, shape, layers in cases:
         case = make_case(torch, rng, kind, m, shape)
-        lib = int_mm_call(torch, rng, *case.mkn)
+        lib = int_mm_call(torch, rng, *case.mkn, **case.lib)
         p1, k1 = time_ms(torch, case.plain, 3, 3), time_ms(torch, case.kern, 20, 4)
         l1, l2 = time_ms(torch, lib, 20, 4), time_ms(torch, lib, 20, 4)
         k2, p2 = time_ms(torch, case.kern, 20, 4), time_ms(torch, case.plain, 3, 3)
@@ -802,6 +1039,7 @@ def phase_stages(torch, card: str, models: dict) -> None:
     engine_rate(card, "mnist_bnn", model, rng, (28, 28, 1))
 
     stages_int8(torch, card, models["cifar10_bnn_int8"], rng)
+    stages_plane(torch, card, models["cifar10_tnn"], rng)
 
 
 def stages_int8(torch, card: str, model, rng) -> None:
@@ -840,12 +1078,87 @@ def stages_int8(torch, card: str, model, rng) -> None:
     engine_rate(card, "cifar10_bnn_int8", model, rng, (32, 32, 3))
 
 
-def main() -> int:
+def stages_plane(torch, card: str, model, rng) -> None:
+    """Each stage of the batch-256 bit-plane VGG (``cifar10-tnn``): the float
+    first layer, each kernel D conv and dense layer, the float head over the
+    planes; then the engine."""
+    from qnx_torch.serve.engine import normalize_u8
+
+    b = TIME_BATCH
+    u8 = cuda(torch, rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8))
+    first = model.first
+    with torch.inference_mode():
+        x = normalize_u8(u8)
+        y = first.conv(x)
+        z = first._bn(y)
+        stages = [("normalize_u8", lambda: normalize_u8(u8)),
+                  ("first: cuDNN conv + bias", lambda: first.conv(x)),
+                  ("first: BN", lambda: first._bn(y)),
+                  ("first: levels + planes", lambda: first.levels(z))]
+        planes = first(x)
+        for i, conv in enumerate(model.convs, 1):
+            stages.append((f"conv_{i} kernel D", lambda l=conv, a=planes: l(a)))
+            planes = conv(planes)
+        planes = planes.reshape(planes.shape[0], b, -1)
+        for j, dense in enumerate(model.denses):
+            stages.append((f"dense_{j} kernel D", lambda l=dense, a=planes: l(a)))
+            planes = dense(planes)
+        stages.append(("head: planes to values + sgemm + BN",
+                       lambda a=planes: model.head(a)))
+    time_stages(torch, card, "cifar10_tnn", model, x, stages)
+    engine_rate(card, "cifar10_tnn", model, rng, (32, 32, 3))
+
+
+def ab_child(kinds: str, root: str) -> int:
+    """One run of ``--ab``: time each kind of ``kinds`` at CONV_SHAPES at
+    batch TIME_BATCH with the ``qnx_torch`` of checkout ``root``; print the
+    medians as JSON."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    import qnx_torch
+
+    if not Path(qnx_torch.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {qnx_torch.__file__}, not {root}'s")
+    rng = np.random.default_rng(0)
+    ms = {kind: [statistics.median(time_ms(
+        torch, make_case(torch, rng, kind, TIME_BATCH, s).kern, 20))
+        for s in CONV_SHAPES] for kind in kinds.split(",")}
+    print(json.dumps(ms))
+    return 0
+
+
+def ab(kinds: str, roots: list[str]) -> int:
+    """``--ab``: each checkout of ``roots`` in turn, each in a process of
+    its own; one line per run and kind."""
+    card = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    for i, root in enumerate(roots):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--ab-child", kinds, root], capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{root}: exit {proc.returncode}\n{proc.stderr}")
+        for kind, ms in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            print(f"{card} | run {i} {root}: {kind} conv_1..conv_5 at batch "
+                  f"{TIME_BATCH}: " + ", ".join(f"{t:.4f}" for t in ms)
+                  + f" ms; sum {sum(ms):.4f} ms", flush=True)
+    return 0
+
+
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: chip_smoke.py "
                            "needs one CUDA card")
+    if argv[:1] == ["--ab"] and len(argv) > 2:
+        return ab(argv[1], argv[2:])
+    if argv[:1] == ["--ab-child"] and len(argv) == 3:
+        return ab_child(argv[1], argv[2])
+    if argv:
+        raise SystemExit(f"usage: python3 chip_smoke.py [--ab KINDS DIR ...]; "
+                         f"got {argv}")
     card = phase_device(torch)
     phase_build()
     err = dict.fromkeys(KERNELS, 0.0)
@@ -876,4 +1189,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

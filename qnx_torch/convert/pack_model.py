@@ -1,6 +1,7 @@
-"""Conversion pass: trained fake-quant variables -> packed and int8 models
-(torch port of :func:`qnx.convert.pack_model.pack_mlp`, binary and ternary,
-of the binary branch of :func:`qnx.convert.pack_model.pack_vgg`, and of the
+"""Conversion pass: trained fake-quant variables -> packed, bit-plane and
+int8 models (torch port of :func:`qnx.convert.pack_model.pack_mlp` and
+:func:`qnx.convert.pack_model.pack_vgg`, binary and ternary, of the relu
+mode of :func:`qnx.convert.pack_model.pack_vgg_bitplane`, and of the
 ``full-bnn`` / ``full-tnn`` branches of :func:`qnx.convert.pack_model.
 pack_int8` with the ``pm1`` and ``levels`` encodings).
 
@@ -17,7 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qnx_torch.kernels.xnor_conv import pack_conv_weights_np, padding_correction
+from qnx_torch.kernels.xnor_conv import (pack_conv_ternary_np,
+                                         pack_conv_weights_np,
+                                         padding_correction)
 from qnx_torch.nn import inference as I
 from qnx_torch.nn import int8_engine as E
 from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
@@ -74,6 +77,15 @@ def _ternary_pattern(latent: np.ndarray, h: float, style: str):
     alpha = float(np.sum(np.where(mask, np.abs(latent), 0.0), dtype=np.float32) / nnz)
     t = np.where(mask, np.sign(latent), 0.0).astype(np.float32)
     return t, alpha
+
+
+def _weight_pattern(cf: Config, latent: np.ndarray, h: float):
+    """A quantized layer's weight pattern and scale alpha: ternary
+    {-1, 0, +1} for ``full-tnn`` (``cf.ternary_style``), else binary ±1
+    with alpha = H."""
+    if cf.network_type == "full-tnn":
+        return _ternary_pattern(latent, h, cf.ternary_style)
+    return _binary_pattern(latent, h), h
 
 
 def _bn(params: dict, stats: dict, name: str, eps: float):
@@ -191,7 +203,8 @@ def _pack_dense_per_position(pattern: np.ndarray, h: int, w: int, c: int):
 
 
 def pack_vgg(variables: dict, cf: Config, device="cuda") -> I.PackedVGG:
-    """Lower a trained binary QuantVGG (``full-bnn``, abits=1) into a
+    """Lower a trained binary- or ternary-weight QuantVGG with binary
+    activations (``full-bnn`` / ``full-tnn``, abits=1) into a
     :class:`qnx_torch.nn.inference.PackedVGG` on ``device``."""
     device = _check_device(device)
     if cf.architecture != "vgg":
@@ -200,12 +213,9 @@ def pack_vgg(variables: dict, cf: Config, device="cuda") -> I.PackedVGG:
         raise ValueError(
             "packed VGG path requires binary activations (abits=1); "
             f"got {cf.network_type}/abits={cf.abits}")
-    if cf.network_type == "full-tnn":
-        raise NotImplementedError(
-            "ternary packed VGG is not ported yet (ROADMAP.md §1 item 8, "
-            "kernel A' of §2)")
     sig = _engine_activation(cf) == "binary_sigmoid"
     validate_vgg_variables(variables, cf)
+    ternary = cf.network_type == "full-tnn"
     params = variables["params"]
     quant = variables.get("quant", {})
     stats = variables["batch_stats"]
@@ -230,7 +240,8 @@ def pack_vgg(variables: dict, cf: Config, device="cuda") -> I.PackedVGG:
     if h is None:  # float first layer (cf.first_layer_float)
         w0 = latent.astype(np.float32)
     else:
-        w0 = (_binary_pattern(latent, h) * h).astype(np.float32)
+        pattern, alpha = _weight_pattern(cf, latent, h)
+        w0 = (pattern * alpha).astype(np.float32)
     bn = _bn(params, stats, "bn_conv_0", eps)
     first = I.FloatConvBits(
         w=_t(w0), bias=None if bias is None else _t(bias),
@@ -245,16 +256,22 @@ def pack_vgg(variables: dict, cf: Config, device="cuda") -> I.PackedVGG:
             sh, sw = sh // 2, sw // 2
         latent, h, bias = conv_weights(f"conv_{i}")
         bn = _bn(params, stats, f"bn_conv_{i}", eps)
-        pattern = _binary_pattern(latent, h)
-        wp, k = pack_conv_weights_np(pattern)
+        pattern, alpha = _weight_pattern(cf, latent, h)
         corr = (np.zeros((sh, sw, pattern.shape[-1]), np.int32) if sig
                 else padding_correction(pattern, sh, sw))
-        a_eff, b_eff = in_fold(h, bias, pattern, axes=(0, 1, 2))
+        a_eff, b_eff = in_fold(alpha, bias, pattern, axes=(0, 1, 2))
         thr = fold_bn_sign(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
                            eps, alpha=a_eff, bias=b_eff)
-        convs.append(I.PackedConvBits(
-            wp=_t(wp), corr=_t(corr), sgn=_t(thr.sgn), tau=_t(thr.tau),
-            k=k, pool=i % 2 == 1))
+        if ternary:
+            mask, sign, nnz = pack_conv_ternary_np(pattern)
+            convs.append(I.TernaryConvBits(
+                mask=_t(mask), sign=_t(sign), nnz=_t(nnz), corr=_t(corr),
+                sgn=_t(thr.sgn), tau=_t(thr.tau), pool=i % 2 == 1))
+        else:
+            wp, k = pack_conv_weights_np(pattern)
+            convs.append(I.PackedConvBits(
+                wp=_t(wp), corr=_t(corr), sgn=_t(thr.sgn), tau=_t(thr.tau),
+                k=k, pool=i % 2 == 1))
 
     # ---- dense stack: dense_0 consumes the per-position packed flatten
     fh, fw = sh // 2, sw // 2  # after conv_5's pool
@@ -266,16 +283,26 @@ def pack_vgg(variables: dict, cf: Config, device="cuda") -> I.PackedVGG:
         h = float(quant[name]["H"])
         bias = _np(params[name]["bias"]) if "bias" in params[name] else None
         bn = _bn(params, stats, f"bn_dense_{j}", eps)
-        pattern = _binary_pattern(latent, h)
-        if j == 0:
-            wp, k = _pack_dense_per_position(pattern, fh, fw, c_last)
-        else:
-            wp, k = pack_bits_np(pattern, axis=0), pattern.shape[0]
-        a_eff, b_eff = in_fold(h, bias, pattern)
+        pattern, alpha = _weight_pattern(cf, latent, h)
+        a_eff, b_eff = in_fold(alpha, bias, pattern)
         thr = fold_bn_sign(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
                            eps, alpha=a_eff, bias=b_eff)
-        denses.append(I.PackedDenseBits(wp=_t(wp), sgn=_t(thr.sgn),
-                                        tau=_t(thr.tau), k=k))
+        if ternary:
+            if j == 0:
+                mask, sign, nnz = _pack_ternary_per_position(pattern, fh, fw,
+                                                             c_last)
+            else:
+                mask, sign, nnz = pack_ternary_np(pattern, axis=0)
+            denses.append(I.TernaryDenseBits(
+                mask=_t(mask), sign=_t(sign), nnz=_t(nnz), sgn=_t(thr.sgn),
+                tau=_t(thr.tau)))
+        else:
+            if j == 0:
+                wp, k = _pack_dense_per_position(pattern, fh, fw, c_last)
+            else:
+                wp, k = pack_bits_np(pattern, axis=0), pattern.shape[0]
+            denses.append(I.PackedDenseBits(wp=_t(wp), sgn=_t(thr.sgn),
+                                            tau=_t(thr.tau), k=k))
 
     # ---- head
     name = "dense_out"
@@ -290,16 +317,132 @@ def pack_vgg(variables: dict, cf: Config, device="cuda") -> I.PackedVGG:
             bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]),
             bn_eps=eps, k=latent.shape[0], coding="zo" if sig else "pm1")
     else:
-        h = float(quant[name]["H"])
-        pattern = _binary_pattern(latent, h)
-        a_eff, b_eff = in_fold(h, bias, pattern)
+        pattern, alpha = _weight_pattern(cf, latent, float(quant[name]["H"]))
+        a_eff, b_eff = in_fold(alpha, bias, pattern)
         aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
                              eps, alpha=a_eff, bias=b_eff)
-        head = I.PackedDenseLogits(wp=_t(pack_bits_np(pattern, axis=0)),
-                                   a=_t(aff.a), c=_t(aff.c0), k=latent.shape[0])
+        if ternary:
+            mask, sign, nnz = pack_ternary_np(pattern, axis=0)
+            head = I.TernaryDenseLogits(mask=_t(mask), sign=_t(sign),
+                                        nnz=_t(nnz), a=_t(aff.a), c=_t(aff.c0))
+        else:
+            head = I.PackedDenseLogits(wp=_t(pack_bits_np(pattern, axis=0)),
+                                       a=_t(aff.a), c=_t(aff.c0),
+                                       k=latent.shape[0])
 
     return I.PackedVGG(first=first, convs=convs, denses=denses,
                        head=head).to(device)
+
+
+def _pack_ternary_per_position(pattern: np.ndarray, h: int, w: int, c: int):
+    """Ternary :func:`_pack_dense_per_position`: (mask, sign) of shape
+    (h*w*Cw, N), packed along C per spatial position, and nnz (N,)."""
+    n = pattern.shape[1]
+    mask, sign, nnz = pack_ternary_np(pattern.reshape(h * w, c, n), axis=1)
+    return mask.reshape(-1, n), sign.reshape(-1, n), nnz.sum(axis=0, dtype=np.int32)
+
+
+def pack_vgg_bitplane(variables: dict, cf: Config, device="cuda") -> I.PlaneVGG:
+    """Lower a trained QuantVGG with n-bit activations (abits > 1) and
+    ternary or binary weights into a :class:`qnx_torch.nn.inference.PlaneVGG`
+    on ``device`` (``cifar10-tnn``: ternary weights, 2-bit activations).
+
+    Activations decompose into {0,1} planes (x = q * sum 2^j b_j), the
+    effective GEMM scale becomes alpha*q, and BN + quantized_relu fold into
+    multi-level integer thresholds (``fold_bn_levels``).  The
+    ``quantized_tanh`` lowering (unsigned indices, the (L-1)-scaled border
+    correction) is not ported yet and raises (ROADMAP.md §1 item 10)."""
+    device = _check_device(device)
+    if cf.architecture != "vgg":
+        raise ValueError("pack_vgg_bitplane expects a vgg config")
+    if cf.abits < 2 or cf.network_type not in ("full-tnn", "full-bnn"):
+        raise ValueError(
+            "bitplane VGG path requires abits >= 2 with ternary/binary "
+            f"weights; got {cf.network_type}/abits={cf.abits}")
+    if _engine_activation(cf) == "quantized_tanh":
+        raise NotImplementedError(
+            "pack_vgg_bitplane of the 'quantized_tanh' activation (tanh-mode "
+            "planes and border correction) is not ported yet (ROADMAP.md §1 "
+            "item 10); ported: quantized_relu")
+    validate_vgg_variables(variables, cf)
+    params = variables["params"]
+    quant = variables.get("quant", {})
+    stats = variables["batch_stats"]
+    eps = cf.batch_norm_epsilon
+    nb = cf.abits
+    q = 2.0 ** (1 - nb)
+    hin, win, _ = cf.input_shape
+
+    def get(name):
+        latent = _np(params[name]["kernel"])
+        bias = _np(params[name]["bias"]) if "bias" in params[name] else None
+        h = float(quant[name]["H"]) if name in quant else None
+        return latent, h, bias
+
+    def levels(name, alpha, bias):
+        bn = _bn(params, stats, name, eps)
+        lt = fold_bn_levels(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                            eps, nb, alpha=alpha * q, bias=bias, mode="relu")
+        return _t(lt.sgn), _t(lt.tau)
+
+    # first conv: float path -> planes
+    latent, h, bias = get("conv_0")
+    if h is None:
+        w0 = latent.astype(np.float32)
+    else:
+        pattern, alpha = _weight_pattern(cf, latent, h)
+        w0 = (pattern * alpha).astype(np.float32)
+    bn = _bn(params, stats, "bn_conv_0", eps)
+    first = I.FloatConvPlanes(
+        w=_t(w0), bias=None if bias is None else _t(bias),
+        bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
+        bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]), bn_eps=eps, nb=nb,
+        pool=False)
+
+    convs = []
+    for i in range(1, 6):
+        latent, h, bias = get(f"conv_{i}")
+        pattern, alpha = _weight_pattern(cf, latent, h)
+        mask, sign, _ = pack_conv_ternary_np(pattern)
+        sgn, tau = levels(f"bn_conv_{i}", alpha, bias)
+        convs.append(I.PlaneConvTernary(
+            mask=_t(mask), msign=_t(mask & sign), sgn=sgn, tau=tau,
+            pool=i % 2 == 1))
+
+    fh, fw = hin // 8, win // 8  # after three 2x2 pools
+    c_last = _np(params["conv_5"]["kernel"]).shape[-1]
+    denses = []
+    for j in range(2):
+        latent, h, bias = get(f"dense_{j}")
+        pattern, alpha = _weight_pattern(cf, latent, h)
+        if j == 0:  # per-position packing to match the plane flatten
+            mask, sign, _ = _pack_ternary_per_position(pattern, fh, fw, c_last)
+        else:
+            mask, sign, _ = pack_ternary_np(pattern, axis=0)
+        sgn, tau = levels(f"bn_dense_{j}", alpha, bias)
+        denses.append(I.PlaneDenseTernary(mask=_t(mask), msign=_t(mask & sign),
+                                          sgn=sgn, tau=tau))
+
+    # head
+    latent, h, bias = get("dense_out")
+    bn = _bn(params, stats, "bn_out", eps)
+    if "dense_out" not in quant:
+        head = I.FloatDenseLogitsFromPlanes(
+            w=_t(latent.astype(np.float32)),
+            bias=None if bias is None else _t(bias),
+            bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
+            bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]), bn_eps=eps,
+            k=latent.shape[0], q=q)
+    else:
+        pattern, alpha = _weight_pattern(cf, latent, h)
+        aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
+                             eps, alpha=alpha * q, bias=bias)
+        mask, sign, _ = pack_ternary_np(pattern, axis=0)
+        head = I.PlaneDenseLogits(mask=_t(mask), msign=_t(mask & sign),
+                                  a=_t(aff.a), c=_t(aff.c0))
+
+    return I.PlaneVGG(first=first, convs=convs, denses=denses,
+                      head=head).to(device)
 
 
 def pack_mlp(variables: dict, cf: Config, device="cuda") -> I.PackedMLP:
@@ -331,14 +474,9 @@ def pack_mlp(variables: dict, cf: Config, device="cuda") -> I.PackedMLP:
             return _zo_fold_params(alpha, bias, pattern, axes=0)
         return alpha, bias
 
-    def pattern_of(latent, h):
-        if ternary:
-            return _ternary_pattern(latent, h, cf.ternary_style)
-        return _binary_pattern(latent, h), h
-
     # first layer: real-valued input -> float GEMM with quantized weights
     latent, h, bias = layer_weights("dense_0")
-    pattern, alpha = pattern_of(latent, h)
+    pattern, alpha = _weight_pattern(cf, latent, h)
     bn = _bn(params, stats, "bn_0", eps)
     first = I.FloatDenseBits(
         w=_t((pattern * alpha).astype(np.float32)),
@@ -350,7 +488,7 @@ def pack_mlp(variables: dict, cf: Config, device="cuda") -> I.PackedMLP:
     for i in range(1, cf.num_hidden):
         latent, h, bias = layer_weights(f"dense_{i}")
         bn = _bn(params, stats, f"bn_{i}", eps)
-        pattern, alpha = pattern_of(latent, h)
+        pattern, alpha = _weight_pattern(cf, latent, h)
         a_eff, b_eff = in_fold(alpha, bias, pattern)
         thr = fold_bn_sign(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
                            eps, alpha=a_eff, bias=b_eff)
@@ -367,7 +505,7 @@ def pack_mlp(variables: dict, cf: Config, device="cuda") -> I.PackedMLP:
     # head: integer GEMM + affine epilogue (BN folded, no sign)
     latent, h, bias = layer_weights("dense_out")
     bn = _bn(params, stats, "bn_out", eps)
-    pattern, alpha = pattern_of(latent, h)
+    pattern, alpha = _weight_pattern(cf, latent, h)
     a_eff, b_eff = in_fold(alpha, bias, pattern)
     aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
                          eps, alpha=a_eff, bias=b_eff)
@@ -428,11 +566,6 @@ def pack_int8(variables: dict, cf: Config,
         h = float(quant[name]["H"]) if name in quant else None
         return latent, h, bias
 
-    def pattern_alpha(latent, h):
-        if cf.network_type == "full-tnn":
-            return _ternary_pattern(latent, h, cf.ternary_style)
-        return _binary_pattern(latent, h), h
-
     def bn_of(name):
         return _bn(params, stats, name, eps)
 
@@ -450,7 +583,7 @@ def pack_int8(variables: dict, cf: Config,
         """First layer weights as f32 values (quantized if not float)."""
         if h is None:
             return latent.astype(np.float32)
-        pattern, alpha = pattern_alpha(latent, h)
+        pattern, alpha = _weight_pattern(cf, latent, h)
         return (pattern * alpha).astype(np.float32)
 
     def bn_kwargs(bn):
@@ -459,7 +592,7 @@ def pack_int8(variables: dict, cf: Config,
 
     def hidden_weights(name, bn_name):
         latent, h, bias = get(name)
-        pattern, alpha = pattern_alpha(latent, h)
+        pattern, alpha = _weight_pattern(cf, latent, h)
         sgn, tau = fold_hidden(bn_of(bn_name), alpha, bias)
         return dict(w8=_t(pattern.astype(np.int8)), sgn=sgn, tau=tau, act=act)
 
@@ -471,7 +604,7 @@ def pack_int8(variables: dict, cf: Config,
                 w=_t(latent.astype(np.float32)),
                 bias=None if bias is None else _t(bias), q=q_in,
                 **bn_kwargs(bn))
-        pattern, alpha = pattern_alpha(latent, h)
+        pattern, alpha = _weight_pattern(cf, latent, h)
         aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
                              eps, alpha=alpha * q_in, bias=bias)
         return E.I8DenseLogits(w8=_t(pattern.astype(np.int8)), a=_t(aff.a),

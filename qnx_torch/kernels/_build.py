@@ -35,6 +35,10 @@ _SIGNATURES = {
     "qnx_xnor_gemm_popcount": [_P] * 3 + [_I] * 4 + [_P],
     "qnx_ternary_gemm": [_P] * 5 + [_I] * 3 + [_P],
     "qnx_i8_conv3x3_fused": [_P] * 5 + [_I] * 8 + [_P],
+    "qnx_ternary_conv3x3_fused": [_P] * 8 + [_I] * 6 + [_P],
+    "qnx_plane_conv3x3_fused": [_P] * 6 + [_I] * 8 + [_P],
+    "qnx_plane_dense_fused": [_P] * 6 + [_I] * 5 + [_P],
+    "qnx_plane_gemm": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

@@ -47,14 +47,21 @@ def sign_epilogue(s: torch.Tensor, sgn: torch.Tensor,
     return torch.where(sgn * s >= tau, 1, -1).to(torch.int8)
 
 
+def multi_threshold(s: torch.Tensor, sgn: torch.Tensor,
+                    tau: torch.Tensor) -> torch.Tensor:
+    """int32 level ``sum_v [sgn * s >= tau[v]]`` (tau (n_thresh, N),
+    ascending, broadcast over the leading dims of s)."""
+    u = sgn * s
+    lvl = torch.zeros(s.shape, dtype=torch.int32, device=s.device)
+    for v in range(tau.shape[0]):
+        lvl += (u >= tau[v]).to(torch.int32)
+    return lvl
+
+
 def level_epilogue(s: torch.Tensor, sgn: torch.Tensor,
                    tau: torch.Tensor) -> torch.Tensor:
     """Level codes int8 ``sum_v [sgn * s >= tau[v]]`` (tau (n_thresh, N))."""
-    u = sgn * s
-    lvl = torch.zeros(s.shape, dtype=torch.int8, device=s.device)
-    for v in range(tau.shape[0]):
-        lvl += (u >= tau[v]).to(torch.int8)
-    return lvl
+    return multi_threshold(s, sgn, tau).to(torch.int8)
 
 
 def act_epilogue(act: str, s: torch.Tensor, sgn: torch.Tensor,
@@ -109,19 +116,22 @@ def _maxpool2(y: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
+def pool_codes(code: torch.Tensor, sgn: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max pool (NHWC, 'VALID') of threshold codes, the window's min on
+    channels with sgn < 0, whose epilogue decreases (negate, pool, negate
+    back), as the JAX ``_pool_codes``."""
+    flip = sgn < 0
+    p = _maxpool2(torch.where(flip, -code, code))
+    return torch.where(flip, -p, p)
+
+
 def i8_conv_fused_ref(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
                       tau: torch.Tensor, *, encoding: str,
                       pool: bool = False) -> torch.Tensor:
     """Plain version of :func:`i8_conv_fused`, the unfused ``I8Conv``:
-    int32 conv, threshold, then the pool of the codes (channels with
-    sgn < 0 have a decreasing epilogue: pool -code and flip back)."""
+    int32 conv, threshold, then the pool of the codes."""
     out = act_epilogue(encoding, conv3x3_s_ref(x8, w8), sgn, tau)
-    if pool:
-        flip = sgn < 0
-        signed = torch.where(flip, -out, out)
-        p = _maxpool2(signed)
-        out = torch.where(flip, -p, p)
-    return out
+    return pool_codes(out, sgn) if pool else out
 
 
 def i8_conv_fused(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,

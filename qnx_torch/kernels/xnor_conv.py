@@ -1,7 +1,7 @@
-"""Packed binary convolution helpers (torch port of
+"""Packed binary and ternary convolution helpers (torch port of
 :mod:`qnx.kernels.xnor_conv`): packed-word patch gathering, host-side weight
-packing and the zero-padding correction, plus the unfused conv as a plain
-reference.
+packing (sign planes, or mask and sign planes) and the zero-padding
+correction, plus the unfused convs as plain references.
 
 Zero-padding correction: a zero pad is a third symbol in the ±1 domain.
 The packed input is padded with 0-bits, which decode to -1, so
@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qnx_torch.ops.packing import pack_bits_np
-from qnx_torch.ops.reference import xnor_gemm_ref
+from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
+from qnx_torch.ops.reference import ternary_gemm_ref, xnor_gemm_ref
 
 
 def extract_packed_patches(xp: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
@@ -47,9 +47,25 @@ def pack_conv_weights_np(pattern: np.ndarray):
     return np.concatenate(blocks, axis=0), kh * kw * c
 
 
+def pack_conv_ternary_np(pattern: np.ndarray):
+    """Host-side ternary variant: (kh, kw, C, N) {-1, 0, +1} pattern ->
+    (mask, sign, nnz) of shapes (kh*kw*Cw, N), (kh*kw*Cw, N), (N,), tap-major
+    like :func:`pack_conv_weights_np`."""
+    kh, kw, c, n = pattern.shape
+    masks, signs = [], []
+    nnz = np.zeros(n, np.int32)
+    for dy in range(kh):
+        for dx in range(kw):
+            m, s, z = pack_ternary_np(pattern[dy, dx], axis=0)
+            masks.append(m)
+            signs.append(s)
+            nnz += z
+    return np.concatenate(masks, 0), np.concatenate(signs, 0), nnz
+
+
 def padding_correction(pattern: np.ndarray, h: int, w: int) -> np.ndarray:
     """Host-side: corr[h, w, n] = sum over taps falling outside the image of
-    sum_c pattern[dy, dx, c, n].  Adding ``corr`` to the packed conv output
+    sum_c pattern[dy, dx, c, n] (a ±1 or {-1, 0, +1} pattern).  Adding ``corr`` to the packed conv output
     yields the exact zero-padding conv result."""
     kh, kw, _, n = pattern.shape
     ph, pw = kh // 2, kw // 2
@@ -72,4 +88,15 @@ def xnor_conv(xp: torch.Tensor, wp: torch.Tensor, k: int, corr: torch.Tensor,
     b, h, w, _ = xp.shape
     patches = extract_packed_patches(xp, kh, kw)
     s = xnor_gemm_ref(patches.reshape(b * h * w, -1), wp, k)
+    return s.reshape(b, h, w, -1) + corr[None]
+
+
+def ternary_conv(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
+                 nnz: torch.Tensor, corr: torch.Tensor, kh: int = 3,
+                 kw: int = 3) -> torch.Tensor:
+    """Packed ternary-weight 'SAME' conv, stride 1 (two-plane popcount):
+    exact zero-pad conv output (B,H,W,N) int32 (plain reference)."""
+    b, h, w, _ = xp.shape
+    patches = extract_packed_patches(xp, kh, kw)
+    s = ternary_gemm_ref(patches.reshape(b * h * w, -1), mask, sign, nnz)
     return s.reshape(b, h, w, -1) + corr[None]

@@ -1,6 +1,6 @@
 """Fused packed popcount dense and 3x3 conv with the integer threshold
-epilogue (torch port of :mod:`qnx.kernels.xnor_conv_fused`: the binary
-branch, and the dense entry of the ternary branch).
+epilogue (torch port of :mod:`qnx.kernels.xnor_conv_fused`: the binary and
+the ternary branch, dense and conv).
 
     s    = K - 2 * sum_kw popcount(x ^ w)       (±1 dot product)
     s    = nnz - 2 * sum_kw popcount(mask & (x ^ sign))   (ternary weights)
@@ -121,19 +121,50 @@ ternary_gemm_fused.launches = 0
 # conv: (B, H, W, Cw) x (9*Cw, N) -> (B, H', W', ceil(N/32)) packed words
 # ---------------------------------------------------------------------------
 
+def _conv_ref(xp: torch.Tensor, gemm, corr: torch.Tensor, sgn: torch.Tensor,
+              tau: torch.Tensor, pool: bool) -> torch.Tensor:
+    """Gather 3x3 patches padded with zero words (= -1 bits), ``gemm`` them
+    to s, + corr, 2x2 max of s, threshold, pack."""
+    b, h, w, cw = xp.shape
+    patches = extract_packed_patches(xp, 3, 3).reshape(b * h * w, 9 * cw)
+    s = gemm(patches).reshape(b, h, w, -1) + corr[None]
+    if pool:
+        s = s.reshape(b, h // 2, 2, w // 2, 2, -1).amax(dim=(2, 4))
+    return _threshold_pack(s, sgn, tau)
+
+
+def _check_conv(name: str, xp: torch.Tensor, w_plane: torch.Tensor,
+                corr: torch.Tensor, sgn, tau, pool: bool) -> tuple:
+    """Shape checks of a fused conv's operands; returns (b, h, w, cw, n)."""
+    b, h, w, cw = xp.shape
+    n = w_plane.shape[1]
+    if w_plane.shape[0] != 9 * cw:
+        raise ValueError(f"{name}: weights {tuple(w_plane.shape)} must be "
+                         f"(9*Cw, N) for xp {tuple(xp.shape)}")
+    if corr.shape != (h, w, n):
+        raise ValueError(f"{name}: corr {tuple(corr.shape)} must be "
+                         f"{(h, w, n)}")
+    if pool and (h % 2 or w % 2):
+        raise ValueError(f"{name}: pool needs even H and W, got {h}x{w}")
+    _check_epilogue(name, n, sgn, tau)
+    return b, h, w, cw, n
+
+
+def _conv_out(xp: torch.Tensor, n: int, pool: bool) -> torch.Tensor:
+    b, h, w, _ = xp.shape
+    ho, wo = (h // 2, w // 2) if pool else (h, w)
+    return torch.empty((b, ho, wo, packed_len(n)), dtype=torch.int32,
+                       device=xp.device)
+
+
 def xnor_conv_fused_ref(xp: torch.Tensor, wp: torch.Tensor, k: int,
                         corr: torch.Tensor, sgn: torch.Tensor,
                         tau: torch.Tensor, *, pool: bool = False) -> torch.Tensor:
     """Plain version of :func:`xnor_conv_fused`: gather 3x3 patches padded
     with zero words (= -1 bits), unpack to ±1, float32 matmul, + corr,
     2x2 max of s, threshold, pack."""
-    b, h, w, cw = xp.shape
-    n = wp.shape[1]
-    patches = extract_packed_patches(xp, 3, 3).reshape(b * h * w, 9 * cw)
-    s = xnor_gemm_popcount_ref(patches, wp, k).reshape(b, h, w, n) + corr[None]
-    if pool:
-        s = s.reshape(b, h // 2, 2, w // 2, 2, n).amax(dim=(2, 4))
-    return _threshold_pack(s, sgn, tau)
+    return _conv_ref(xp, lambda p: xnor_gemm_popcount_ref(p, wp, k), corr,
+                     sgn, tau, pool)
 
 
 def xnor_conv_fused(xp: torch.Tensor, wp: torch.Tensor, k: int,
@@ -152,23 +183,11 @@ def xnor_conv_fused(xp: torch.Tensor, wp: torch.Tensor, k: int,
     Returns:
       (B, H', W', ceil(N/32)) int32 packed words; H' = H/2, W' = W/2 when pool.
     """
-    b, h, w, cw = xp.shape
-    n = wp.shape[1]
-    if wp.shape[0] != 9 * cw:
-        raise ValueError(f"xnor_conv_fused: wp {tuple(wp.shape)} must be "
-                         f"(9*Cw, N) for xp {tuple(xp.shape)}")
-    if corr.shape != (h, w, n):
-        raise ValueError(f"xnor_conv_fused: corr {tuple(corr.shape)} must be "
-                         f"{(h, w, n)}")
-    if pool and (h % 2 or w % 2):
-        raise ValueError(f"xnor_conv_fused: pool needs even H and W, got {h}x{w}")
-    _check_epilogue("xnor_conv_fused", n, sgn, tau)
+    b, h, w, cw, n = _check_conv("xnor_conv_fused", xp, wp, corr, sgn, tau, pool)
     if not _build.check_operands("xnor_conv_fused", xp, wp=wp, corr=corr,
                                  sgn=sgn, tau=tau):
         return xnor_conv_fused_ref(xp, wp, k, corr, sgn, tau, pool=pool)
-    ho, wo = (h // 2, w // 2) if pool else (h, w)
-    out = torch.empty((b, ho, wo, packed_len(n)), dtype=torch.int32,
-                      device=xp.device)
+    out = _conv_out(xp, n, pool)
     if out.numel():
         _build.launch("qnx_xnor_conv3x3_fused", xp.device, xp, wp, corr, sgn,
                       tau, out, b, h, w, cw, n, k, int(pool))
@@ -177,3 +196,54 @@ def xnor_conv_fused(xp: torch.Tensor, wp: torch.Tensor, k: int,
 
 
 xnor_conv_fused.launches = 0
+
+
+def ternary_conv_fused_ref(xp: torch.Tensor, mask: torch.Tensor,
+                           sign: torch.Tensor, nnz: torch.Tensor,
+                           corr: torch.Tensor, sgn: torch.Tensor,
+                           tau: torch.Tensor, *, pool: bool = False) -> torch.Tensor:
+    """Plain version of :func:`ternary_conv_fused`: gather 3x3 patches padded
+    with zero words, the plain ternary GEMM, + corr, 2x2 max of s,
+    threshold, pack."""
+    return _conv_ref(xp, lambda p: ternary_gemm_ref(p, mask, sign, nnz), corr,
+                     sgn, tau, pool)
+
+
+def ternary_conv_fused(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
+                       nnz: torch.Tensor, corr: torch.Tensor, sgn: torch.Tensor,
+                       tau: torch.Tensor, *, pool: bool = False) -> torch.Tensor:
+    """Fused packed ternary-weight 3x3 'SAME' stride-1 conv + threshold
+    (+2x2 pool): ``s = nnz - 2*popcount(mask & (x ^ sign))`` + corr.
+
+    Args:
+      xp:   (B, H, W, Cw) int32 channel-packed sign bits.
+      mask, sign: (9*Cw, N) int32 weight planes, tap-major
+            (pack_conv_ternary_np).
+      nnz:  (N,) int32 nonzero count of each weight column over all taps.
+      corr: (H, W, N) int32 zero-pad correction (padding_correction of the
+            ternary pattern).
+      sgn, tau: (N,) int32 threshold direction / integer threshold.
+      pool: fuse the 2x2/2 max pool (of s, before the threshold).
+
+    Returns:
+      (B, H', W', ceil(N/32)) int32 packed words, as :func:`xnor_conv_fused`.
+    """
+    b, h, w, cw, n = _check_conv("ternary_conv_fused", xp, mask, corr, sgn,
+                                 tau, pool)
+    if sign.shape != mask.shape or nnz.shape != (n,):
+        raise ValueError(f"ternary_conv_fused: sign {tuple(sign.shape)} and nnz "
+                         f"{tuple(nnz.shape)} must be {tuple(mask.shape)} and "
+                         f"({n},)")
+    if not _build.check_operands("ternary_conv_fused", xp, mask=mask, sign=sign,
+                                 nnz=nnz, corr=corr, sgn=sgn, tau=tau):
+        return ternary_conv_fused_ref(xp, mask, sign, nnz, corr, sgn, tau,
+                                      pool=pool)
+    out = _conv_out(xp, n, pool)
+    if out.numel():
+        _build.launch("qnx_ternary_conv3x3_fused", xp.device, xp, mask, sign,
+                      nnz, corr, sgn, tau, out, b, h, w, cw, n, int(pool))
+        ternary_conv_fused.launches += 1
+    return out
+
+
+ternary_conv_fused.launches = 0

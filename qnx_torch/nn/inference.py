@@ -1,9 +1,15 @@
-"""Packed-integer inference engine for the binary VGG and the binary and
-ternary MLP (torch port of the packed layers of :mod:`qnx.nn.inference`).
+"""Packed-integer inference engines for the binary and ternary VGG and MLP
+and the bit-plane VGG (torch port of the packed and bit-plane layers of
+:mod:`qnx.nn.inference`).
 
 A packed model is a chain of
 
     bits --XNOR/ternary popcount conv/GEMM--> int32 s --(sgn*s >= tau)--> bits
+
+and a bit-plane model (n-bit quantized_relu activations, abits > 1) one of
+
+    {0,1} planes --plane popcount conv/GEMM--> s = sum_j 2^j t_j
+                 --(sum_v [sgn*s >= tau[v]])--> level --bit j--> planes
 
 with float math only at the first layer (real-valued images in) and the
 logit head.  Layers are ``nn.Module``s whose packed words, corrections,
@@ -20,8 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from qnx_torch.kernels.plane_gemm import (levels_to_planes, plane_conv_fused,
+                                          plane_dense_fused, plane_gemm)
 from qnx_torch.kernels.ternary_gemm import ternary_gemm
-from qnx_torch.kernels.xnor_conv_fused import (ternary_gemm_fused,
+from qnx_torch.kernels.xnor_conv_fused import (ternary_conv_fused,
+                                               ternary_gemm_fused,
                                                xnor_conv_fused, xnor_gemm_fused)
 from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
 from qnx_torch.ops.packing import pack_bits, unpack_bits
@@ -253,6 +262,25 @@ class PackedConvBits(nn.Module):
                                self.tau, pool=self.pool)
 
 
+class TernaryConvBits(nn.Module):
+    """Ternary hidden conv: two-plane packed 3x3 conv + pad corr (+ max pool
+    of s) + integer threshold -> packed bits, in one kernel."""
+
+    def __init__(self, mask, sign, nnz, corr, sgn, tau, pool: bool = False):
+        super().__init__()
+        self.register_buffer("mask", mask)  # (9*Cw, N) int32
+        self.register_buffer("sign", sign)  # (9*Cw, N) int32
+        self.register_buffer("nnz", nnz)    # (N,) int32
+        self.register_buffer("corr", corr)  # (H, W, N) int32
+        self.register_buffer("sgn", sgn)    # (N,) int32 in {+1, -1}
+        self.register_buffer("tau", tau)    # (N,) int32
+        self.pool = pool
+
+    def forward(self, bits: torch.Tensor) -> torch.Tensor:
+        return ternary_conv_fused(bits, self.mask, self.sign, self.nnz,
+                                  self.corr, self.sgn, self.tau, pool=self.pool)
+
+
 class FloatDenseLogitsFromBits(_BatchNorm):
     """Float head over binary activations: unpack bits to ±1 ('pm1') or
     {0,1} ('zo', binary_sigmoid), f32 GEMM (+bias), BN -> logits."""
@@ -293,7 +321,8 @@ class PackedVGG(nn.Module):
         bits = self.first(images)
         for layer in self.convs:
             bits = layer(bits)
-        bits = bits.reshape(bits.shape[0], -1)  # (H*W*Cw) word-aligned flatten
+        # (H*W*Cw) word-aligned flatten, of each plane in a bit-plane model
+        bits = bits.reshape(*bits.shape[:-3], -1)
         for layer in self.denses:
             bits = layer(bits)
         return self.head(bits)
@@ -326,3 +355,115 @@ def mlp_forward(model: PackedMLP, images: torch.Tensor) -> torch.Tensor:
     """Packed forward: images in [-1, 1] -> logits."""
     with torch.inference_mode():
         return model(images)
+
+
+# ---------------------------------------------------------------------------
+# bit-plane engine (abits > 1): {0,1} activation planes, multi-level
+# thresholds
+# ---------------------------------------------------------------------------
+
+class FloatConvPlanes(FloatConvBits):
+    """Float first conv -> BN -> n-bit quantized_relu levels -> packed {0,1}
+    planes (abits > 1 configs).  Only the relu mode is ported; the tanh
+    lowering is ROADMAP.md §1 item 10."""
+
+    def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                 bn_eps: float = 1e-4, nb: int = 2, pool: bool = False):
+        super().__init__(w, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                         bn_eps=bn_eps, pool=pool)
+        self.nb = nb
+
+    def levels(self, z: torch.Tensor) -> torch.Tensor:
+        """BN output -> the nb - 1 planes of its quantized_relu level, which
+        spans [0, 2^(nb-1) - 1]."""
+        return levels_to_planes(_levels_from_float(z, self.nb), self.nb - 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        if self.pool:
+            y = _maxpool2(y)
+        return self.levels(self._bn(y))
+
+
+class PlaneConvTernary(nn.Module):
+    """Ternary- (or binary-) weight conv over activation planes + multi-level
+    integer thresholds (+ max pool of s) -> the next planes, in one kernel.
+    Zero pads add nothing to {0,1} planes: relu mode needs no border term."""
+
+    def __init__(self, mask, msign, sgn, tau, pool: bool = False):
+        super().__init__()
+        self.register_buffer("mask", mask)    # (9*Cw, N) int32
+        self.register_buffer("msign", msign)  # mask & sign
+        self.register_buffer("sgn", sgn)      # (N,) int32
+        self.register_buffer("tau", tau)      # (n_thresh, N) int32
+        self.pool = pool
+
+    def forward(self, planes: torch.Tensor) -> torch.Tensor:
+        return plane_conv_fused(planes, self.mask, self.msign, self.sgn,
+                                self.tau, pool=self.pool)
+
+
+class PlaneDenseTernary(nn.Module):
+    """Ternary-weight dense over flattened activation planes + multi-level
+    thresholds -> planes, in one kernel."""
+
+    def __init__(self, mask, msign, sgn, tau):
+        super().__init__()
+        self.register_buffer("mask", mask)    # (Kw, N) int32
+        self.register_buffer("msign", msign)
+        self.register_buffer("sgn", sgn)
+        self.register_buffer("tau", tau)      # (n_thresh, N) int32
+
+    def forward(self, planes: torch.Tensor) -> torch.Tensor:
+        return plane_dense_fused(planes, self.mask, self.msign, self.sgn,
+                                 self.tau)
+
+
+class PlaneDenseLogits(_IntegerHead):
+    """Integer head over planes: s = sum_j 2^j t_j (one kernel over all
+    planes), logits = a * s + c."""
+
+    def __init__(self, mask, msign, a, c):
+        super().__init__(a, c)
+        self.register_buffer("mask", mask)    # (Kw, N) int32
+        self.register_buffer("msign", msign)
+
+    def scores(self, planes: torch.Tensor) -> torch.Tensor:
+        """The head's int32 s."""
+        return plane_gemm(planes, self.mask, self.msign)
+
+
+class FloatDenseLogitsFromPlanes(_BatchNorm):
+    """Float head over n-bit activations: x = q * sum_j 2^j b_j, f32 GEMM
+    (+bias), BN -> logits (``last_layer_float`` configs)."""
+
+    def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                 bn_eps: float = 1e-4, k: int = 0, q: float = 0.5):
+        super().__init__(bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
+        self.register_buffer("w", w)        # (K, N) f32
+        self.register_buffer("bias", bias)
+        self.k = k
+        self.q = q
+
+    def forward(self, planes: torch.Tensor) -> torch.Tensor:
+        lvl = None
+        for j in range(planes.shape[0]):
+            b = (unpack_bits(planes[j], self.k, axis=-1, dtype=torch.int32) + 1) // 2
+            lvl = b if lvl is None else lvl + (b << j)
+        # the int32 level times the pow2 step q: exact
+        x = lvl.to(torch.float32) * self.q
+        with _ieee_f32():
+            y = x @ self.w
+        if self.bias is not None:
+            y = y + self.bias
+        return self._bn(y)
+
+
+class PlaneVGG(PackedVGG):
+    """End-to-end n-bit-activation VGG (the CIFAR-10 TNN config): float first
+    conv (``FloatConvPlanes``) -> plane convs -> flatten each plane
+    (C-word-aligned) -> plane dense -> head, on (P, B, ...) planes."""
+
+
+# the bit-plane forward (NHWC images in [-1, 1] -> logits) is the packed one
+plane_forward = vgg_forward

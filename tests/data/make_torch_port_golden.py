@@ -8,7 +8,14 @@ images, with the random variables of
 * ``torch_port_golden_mnist_tnn.npz``: the ``mnist-tnn`` packed MLP;
 * ``torch_port_golden_{cifar10_bnn,cifar10_tnn,mnist_bnn}_int8.npz``: the
   same configs through the int8 engine (``pack_int8``: pm1 codes, and level
-  codes for ``cifar10-tnn``'s abits 2).
+  codes for ``cifar10-tnn``'s abits 2);
+* ``torch_port_golden_cifar10_tnn.npz``: ``cifar10-tnn`` through the packed
+  engine, which is the bit-plane engine at its abits 2
+  (``pack_vgg_bitplane``);
+* ``torch_port_golden_cifar10_tnn_a3.npz``: the same at abits 3 with a
+  quantized head (two planes, three thresholds, ``PlaneDenseLogits``);
+* ``torch_port_golden_cifar10_tnn_a1.npz``: the same at abits 1, the ternary
+  packed VGG (``pack_vgg``'s ternary branch).
 
 Each file holds the images and logits only, never the variables (the
 full-width float latents are about 147 MB for an MLP); the int8 files also
@@ -26,8 +33,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[2]
 DATA = Path(__file__).parent
 NAMES = ("cifar10_bnn", "mnist_bnn", "mnist_tnn", "cifar10_bnn_int8",
-         "cifar10_tnn_int8", "mnist_bnn_int8")
+         "cifar10_tnn_int8", "mnist_bnn_int8", "cifar10_tnn",
+         "cifar10_tnn_a1", "cifar10_tnn_a3")
 INT8 = "_int8"
+# a golden's name -> (preset, the fields it changes)
+VARIANTS = {"cifar10_tnn_a1": ("CIFAR10_TNN", dict(abits=1)),
+            "cifar10_tnn_a3": ("CIFAR10_TNN", dict(abits=3,
+                                                   last_layer_float=False))}
 VARIABLES_SEED = 0
 IMAGES_SEED = 1
 N_IMAGES = 8
@@ -37,26 +49,33 @@ def path(name: str) -> Path:
     return DATA / f"torch_port_golden_{name}.npz"
 
 
-def config_of(name: str):
-    """The preset of a golden's name (``cifar10_bnn_int8`` -> CIFAR10_BNN)."""
-    from qnx_torch.utils import config
-
-    return getattr(config, name.removesuffix(INT8).upper())
+def config_of(name: str, module=None):
+    """The config of a golden's name (``cifar10_bnn_int8`` -> CIFAR10_BNN,
+    ``cifar10_tnn_a3`` -> CIFAR10_TNN at abits 3 with a quantized head),
+    from ``module`` (the port's config module by default)."""
+    if module is None:
+        from qnx_torch.utils import config as module
+    base = name.removesuffix(INT8)
+    preset, changes = VARIANTS.get(base, (base.upper(), {}))
+    return getattr(module, preset).replace(**changes)
 
 
 def golden(name: str) -> dict:
     """Images and the JAX engine's logits (interpret-mode Pallas on CPU)."""
-    from qnx.convert.pack_model import pack_int8, pack_mlp, pack_vgg
+    from qnx.convert.pack_model import (pack_int8, pack_mlp, pack_vgg,
+                                        pack_vgg_bitplane)
     from qnx.serve.engine import ServeEngine
     from qnx.utils import config
     from qnx_torch.models.factory import init_variables
 
     int8 = name.endswith(INT8)
-    cf = getattr(config, name.removesuffix(INT8).upper())
+    cf = config_of(name, config)
     if int8:
         pack = pack_int8
+    elif cf.architecture == "mlp":
+        pack = pack_mlp
     else:
-        pack = pack_vgg if cf.architecture == "vgg" else pack_mlp
+        pack = pack_vgg_bitplane if cf.abits > 1 else pack_vgg
     images = np.random.default_rng(IMAGES_SEED).integers(
         0, 256, (N_IMAGES, *cf.input_shape), dtype=np.uint8)
     model = pack(init_variables(cf, VARIABLES_SEED), cf)

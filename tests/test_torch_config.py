@@ -1,6 +1,7 @@
-"""The port's own config and BN folds (qnx_torch.utils.config,
-qnx_torch.transforms.bn_fold: sign, levels, affine) against the JAX
-package's originals, which the port does not import."""
+"""The port's own config, BN folds and numpy weight packing
+(qnx_torch.utils.config, qnx_torch.transforms.bn_fold: sign, levels, affine;
+qnx_torch.kernels.xnor_conv.pack_conv_ternary_np) against the JAX package's
+originals, which the port does not import."""
 import dataclasses
 
 import numpy as np
@@ -151,3 +152,16 @@ def test_fold_bn_levels_rejects_bad_alpha_and_mode():
             fold(one, one, one, one, 1e-4, 2, alpha=0.0)
         with pytest.raises(ValueError, match="mode"):
             fold(one, one, one, one, 1e-4, 2, mode="sigmoid")
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 40, 16), (3, 3, 128, 10), (1, 1, 32, 3)])
+def test_pack_conv_ternary_np_matches(shape):
+    """The port's copy of the numpy-only ternary conv weight packing."""
+    from qnx.kernels.xnor_conv import pack_conv_ternary_np as jax_pack
+    from qnx_torch.kernels.xnor_conv import pack_conv_ternary_np
+
+    rng = np.random.default_rng(sum(shape))
+    w = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), shape)
+    for got, want in zip(pack_conv_ternary_np(w), jax_pack(w)):
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)

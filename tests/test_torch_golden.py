@@ -1,6 +1,6 @@
 """The committed full-width goldens (tests/data/torch_port_golden_*.npz)
-that ``chip_smoke.py`` holds the card's runs against, for the packed and
-the int8 engine: regenerated here with the JAX package, and matched by the
+that ``chip_smoke.py`` holds the card's runs against, for the packed, the
+bit-plane and the int8 engine: regenerated here with the JAX package, and matched by the
 port's CPU path."""
 import importlib.util
 from pathlib import Path
@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from qnx_torch.convert.pack_model import pack_int8, pack_mlp, pack_vgg
+from qnx_torch.convert.pack_model import (pack_int8, pack_mlp, pack_vgg,
+                                          pack_vgg_bitplane)
 from qnx_torch.models.factory import init_variables
 from qnx_torch.serve.engine import normalize_u8
 
@@ -46,8 +47,10 @@ def _check_port_matches(name):
     if name.endswith(MAKER.INT8):
         assert str(g["engine"]) == "int8"
         pack = pack_int8
+    elif cf.architecture == "mlp":
+        pack = pack_mlp
     else:
-        pack = pack_vgg if cf.architecture == "vgg" else pack_mlp
+        pack = pack_vgg_bitplane if cf.abits > 1 else pack_vgg
     model = pack(init_variables(cf, int(g["variables_seed"])), cf,
                  device="cpu")
     with torch.inference_mode():
@@ -87,4 +90,19 @@ def test_int8_golden_regenerates_from_the_jax_package(name):
 
 @pytest.mark.parametrize("name", INT8_NAMES)
 def test_port_cpu_path_matches_int8_golden(name):
+    _check_port_matches(name)
+
+
+# cifar10-tnn through the bit-plane engine (abits 2, and abits 3 with the
+# integer head) and the ternary packed VGG (abits 1)
+TNN_NAMES = ["cifar10_tnn", "cifar10_tnn_a1", "cifar10_tnn_a3"]
+
+
+@pytest.mark.parametrize("name", TNN_NAMES)
+def test_tnn_golden_regenerates_from_the_jax_package(name):
+    _check_regenerates(name)
+
+
+@pytest.mark.parametrize("name", TNN_NAMES)
+def test_port_cpu_path_matches_tnn_golden(name):
     _check_port_matches(name)

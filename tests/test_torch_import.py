@@ -17,7 +17,7 @@ EXPECTED = {
     "qnx_torch.transforms.bn_fold", "qnx_torch.kernels.xnor_gemm",
     "qnx_torch.kernels.ternary_gemm", "qnx_torch.ops.quant",
     "qnx_torch.kernels.i8_conv_fused", "qnx_torch.nn.int8_engine",
-    "qnx_torch.bench.float_baseline",
+    "qnx_torch.bench.float_baseline", "qnx_torch.kernels.plane_gemm",
 }
 
 _PROBE = """

@@ -1,5 +1,5 @@
-"""The qnx_torch packed VGG against the JAX package on the same numpy
-variables: the variable tree, the packed buffers, every packed layer's
+"""The qnx_torch packed VGG, binary and ternary weights, against the JAX
+package on the same numpy variables: the variable tree, the packed buffers, every packed layer's
 output words, the logits, and the serving engine.  Off the card every packed
 layer runs its kernel's plain version."""
 import dataclasses
@@ -12,14 +12,16 @@ import torch
 
 from engine_test_utils import VGG_CF
 from qnx.convert.pack_model import pack_vgg as jax_pack_vgg
+from qnx.kernels.ternary_gemm import ternary_gemm as jax_ternary_gemm
 from qnx.kernels.xnor_gemm import xnor_gemm_popcount as jax_xnor_gemm_popcount
 from qnx.models.factory import build_model, init_model
 from qnx.nn.inference import PackedDenseLogits as JaxPackedDenseLogits
+from qnx.nn.inference import TernaryDenseLogits as JaxTernaryDenseLogits
 from qnx.nn.inference import vgg_forward as jax_vgg_forward
 from qnx.ops.packing import unpack_bits as jax_unpack_bits
 from qnx.serve.engine import ServeEngine as JaxServeEngine
-from qnx.utils.config import CIFAR10_BNN
-from qnx_torch.convert.pack_model import pack_vgg
+from qnx.utils.config import CIFAR10_BNN, CIFAR10_TNN
+from qnx_torch.convert.pack_model import pack_vgg, pack_vgg_bitplane
 from qnx_torch.models.factory import init_variables
 from qnx_torch.nn.inference import vgg_forward
 from qnx_torch.ops.packing import unpack_bits
@@ -33,6 +35,17 @@ SIG_CF = SMALL_CF.replace(activation="binary_sigmoid")
 # the JAX suite's own VGG (width 8: 8, 16 and 32 channels, dense 64), and
 # with the binary packed head (PackedDenseLogits, kernel B)
 HEAD_CF = VGG_CF.replace(last_layer_float=False)
+# ternary weights with binary activations (abits 1): dingke and twn, the
+# {0,1} input coding, and the ternary packed head (TernaryDenseLogits,
+# kernel C); kernel A' conv and dense
+TNN_CF = VGG_CF.replace(network_type="full-tnn", wbits=2)
+TWN_CF = TNN_CF.replace(ternary_style="twn")
+TNN_SIG_CF = SMALL_CF.replace(network_type="full-tnn", wbits=2,
+                              activation="binary_sigmoid")
+TNN_HEAD_CF = TNN_CF.replace(last_layer_float=False)
+TERNARY_CFS = [TNN_CF, TWN_CF, TNN_SIG_CF, TNN_HEAD_CF]
+TERNARY_IDS = ["ternary-width8", "twn", "ternary-binary_sigmoid",
+               "ternary-head"]
 # logits: equal bits feed the same float head; only the f32 summation order
 # of the first conv and the head differ between XLA and torch
 RTOL, ATOL_REL = 1e-5, 1e-4
@@ -73,15 +86,18 @@ def _jax_layers(jm):
             ("head", jm.head)]
 
 
-@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, CIFAR10_BNN, VGG_CF, HEAD_CF],
+@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, CIFAR10_BNN, VGG_CF, HEAD_CF,
+                                *TERNARY_CFS, CIFAR10_TNN.replace(abits=1)],
                          ids=["width32", "binary_sigmoid", "cifar10-bnn",
-                              "width8", "binary-head"])
+                              "width8", "binary-head", *TERNARY_IDS,
+                              "cifar10-tnn-abits1"])
 def test_pack_vgg_buffers_equal_jax_leaves(cf):
     variables = init_variables(cf, seed=3)
     jm, tm = jax_pack_vgg(variables, cf), pack_vgg(variables, cf, device="cpu")
     tlayers = dict(tm.named_modules())
     for name, jlayer in _jax_layers(jm):
         tlayer = tlayers[name]
+        assert type(tlayer).__name__ == type(jlayer).__name__, name
         for f in dataclasses.fields(jlayer):
             want, got = getattr(jlayer, f.name), getattr(tlayer, f.name)
             if want is None or isinstance(want, (int, float, str, bool)):
@@ -97,8 +113,9 @@ def test_pack_vgg_buffers_equal_jax_leaves(cf):
         assert conv.tau.min() == -2**31 and conv.tau.max() == 2**31 - 1
 
 
-@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, VGG_CF, HEAD_CF],
-                         ids=["width32", "binary_sigmoid", "width8", "binary-head"])
+@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, VGG_CF, HEAD_CF, *TERNARY_CFS],
+                         ids=["width32", "binary_sigmoid", "width8", "binary-head",
+                              *TERNARY_IDS])
 def test_packed_layers_bit_exact_vs_jax(cf):
     """Fed the same input bits, every packed layer's words equal JAX's."""
     variables = init_variables(cf, seed=5)
@@ -124,6 +141,11 @@ def test_packed_layers_bit_exact_vs_jax(cf):
             np.testing.assert_array_equal(
                 tm.head.scores(tbits).numpy(),
                 np.asarray(jax_xnor_gemm_popcount(bits, jm.head.wp, jm.head.k)))
+        if isinstance(jm.head, JaxTernaryDenseLogits):
+            np.testing.assert_array_equal(
+                tm.head.scores(tbits).numpy(),
+                np.asarray(jax_ternary_gemm(bits, jm.head.mask, jm.head.sign,
+                                            jm.head.nnz)))
         np.testing.assert_allclose(tm.head(tbits).numpy(),
                                    np.asarray(jm.head(bits)), rtol=RTOL, atol=1e-6)
 
@@ -153,8 +175,9 @@ def test_first_layer_bits_differ_only_near_zero():
         assert np.abs(z[differ]).max() < 1e-5
 
 
-@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, VGG_CF, HEAD_CF],
-                         ids=["width32", "binary_sigmoid", "width8", "binary-head"])
+@pytest.mark.parametrize("cf", [SMALL_CF, SIG_CF, VGG_CF, HEAD_CF, *TERNARY_CFS],
+                         ids=["width32", "binary_sigmoid", "width8", "binary-head",
+                              *TERNARY_IDS])
 def test_logits_match_jax_vgg_forward(cf):
     variables = init_variables(cf, seed=8)
     _, x = _images(8, seed=9, cf=cf)
@@ -224,6 +247,9 @@ def test_unported_variants_raise():
     model = pack_vgg(init_variables(SMALL_CF, seed=0), SMALL_CF, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(model, mesh=object())
-    cf = SMALL_CF.replace(network_type="full-tnn", wbits=2)
+    cf = SMALL_CF.replace(network_type="full-tnn", wbits=2, abits=2,
+                          activation="quantized_tanh")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pack_vgg_bitplane(init_variables(cf, seed=0), cf, device="cpu")
+    with pytest.raises(ValueError, match="abits=1"):
         pack_vgg(init_variables(cf, seed=0), cf, device="cpu")
