@@ -20,29 +20,41 @@ Drives the port's served paths through the hand-written CUDA kernels in
   hidden conv and dense layer through the ternary branch of kernel A (A'),
 
 each with random weights from seed 0, built on the card by the converters'
-default and served by ``qnx_torch.serve.ServeEngine``.  Phases:
+default and served by ``qnx_torch.serve.ServeEngine``; and the measurement
+path, ``python -m qnx_torch.experiments.{gemm_shootout, xnor_sol_variants,
+vpu_probe}`` and ``python -m qnx_torch.bench.roofline``, through the
+popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
 2. build: compile the kernels, with the ptxas register report;
-3. kernels: each of the ten kernels against its plain PyTorch version on
-   the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
+3. kernels: each of the sixteen kernels against its plain PyTorch version
+   on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
    cases and any N (8, 48, 1, 10, 33); kernel E in the pm1 encoding and the
    levels encoding with 1 and 3 thresholds; D with 1 to 5 planes and 1 to
-   31 thresholds, mixed threshold directions and int32-extreme thresholds:
-   packed words, planes, int32 s and int8 codes must be equal;
+   31 thresholds, mixed threshold directions and int32-extreme thresholds;
+   F1-F4 and G at every geometry the shootout sweeps on ragged M and K
+   with N = 1, 10, 33, 128, the MNIST head and 1024x4096x4096 (a geometry
+   that does not fit is logged as such); H in each mode and compiled
+   length with the int32 extremes in both operands: packed words, planes,
+   int32 s and int8 codes must be equal;
 4. slice: for each path, 600 uint8 requests through the engine; every
    request answered, each layer's words or codes and each integer head's
    int32 s equal to the plain path's, logits equal to the plain path's and
    to the JAX package's committed golden logits, and each kernel's launch
    count equal to layers x batches (counts set to 0 just before each path
    and read just after);
-5. times: each kernel against its plain version and against one library
+5. measure: the measurement path at reduced repeats (8 x 3), counts set to
+   0 just before and read just after: the shootout at its four full shapes
+   with every candidate equal to kernel B, the accumulator scan, the probe's
+   six modes with the SM clock and SASS counts, the roofline table; each of
+   F1-F4, G and H must have launched;
+6. times: each kernel against its plain version and against one library
    call (``torch._int_mm`` on the same product, unpacked to int8) at batch
-   256 (and the packed GEMMs at 1024x4096x4096), each path's forward, and
-   the int8 VGG against the strict-f32 float twin at batch 256 and 1024,
-   with CUDA events;
-6. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
+   256 (the packed GEMMs and the formulations at 1024x4096x4096, H at the
+   JAX probe's 4096x1024), each path's forward, and the int8 VGG against
+   the strict-f32 float twin at batch 256 and 1024, with CUDA events;
+7. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches.
 
@@ -99,21 +111,19 @@ MLP_HIDDEN = (4096, 4096)
 MLP_HEAD = (4096, 10)
 PLANE_HEAD = (1024, 10)
 SCAN = (1024, (4096, 4096))  # the JAX package's packed GEMM scan shape
+# each formulation's kind timed at SCAN: the wrappers' default geometries,
+# and G's faster accumulator count
+MEASURED_TIMED = ("outer-128x128", "outer_acc-128x128x16", "chunk3d-64x64x4",
+                  "lanered-1x16", "multiacc-4")
+PROBE_SHAPE = (4096, 1024)  # vpu_probe's BLOCK (256, 1024) x GRID 16
+# the measurement phase's reduced repeats (the experiments' defaults are
+# 16 x 5 and, for the probe, 64 x 3)
+MEASURE_REPEATS = dict(iters=8, repeats=3)
 # the int8 VGG against its f32 twin at these batches; 1024 is bench.py's
 TWIN_BATCHES = (256, 1024)
 # E's encodings: (JAX act, thresholds): pm1, and levels with 1 and 3
 I8_ENCODINGS = {"pm1": ("pm1", 1), "levels1": ("levels", 1),
                 "levels3": ("levels", 3)}
-
-# Peaks of one H100 SXM at 700 W for the bound (the least time the card
-# could take, NVIDIA's data sheet): dense int8 tensor cores 1,979 TOP/s,
-# i.e. 989.5e12 MAC/s, and HBM3 at 3.35 TB/s.  Every kernel's product takes
-# ±1 activations or the levels of up to 8 {0,1} planes (unsigned, below
-# 2^8) against ±1 or ternary weights, which the int8 tensor cores' s8 x s8
-# and u8 x s8 MMA take, so each counts one int8 MAC per real MAC whatever
-# its planes.
-INT8_MAC_RATE = 1979e12 / 2
-HBM_BYTES_RATE = 3.35e12
 
 KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "xnor_conv3x3_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
@@ -136,7 +146,23 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                           "qnx/kernels/plane_gemm.py:32"),
     "plane_gemm": ("qnx_torch/kernels/csrc/plane_fused.cu",
                    "qnx/kernels/plane_gemm.py:32"),
+    "gemm_outer": ("qnx_torch/kernels/csrc/gemm_formulations.cu",
+                   "experiments/gemm_shootout.py:36"),
+    "gemm_outer_acc": ("qnx_torch/kernels/csrc/gemm_formulations.cu",
+                       "experiments/gemm_shootout.py:65"),
+    "gemm_chunk3d": ("qnx_torch/kernels/csrc/gemm_formulations.cu",
+                     "experiments/gemm_shootout.py:95"),
+    "gemm_lanered": ("qnx_torch/kernels/csrc/gemm_formulations.cu",
+                     "experiments/gemm_shootout.py:122"),
+    "xnor_multiacc": ("qnx_torch/kernels/csrc/gemm_formulations.cu",
+                      "experiments/xnor_sol_variants.py:52"),
+    "int_chain": ("qnx_torch/kernels/csrc/int_probe.cu",
+                  "experiments/vpu_probe.py:50"),
 }
+# the kernels that the measurement path (phase 5) runs; the others run on
+# the slices (phase 4)
+MEASURED = ("gemm_outer", "gemm_outer_acc", "gemm_chunk3d", "gemm_lanered",
+            "xnor_multiacc", "int_chain")
 
 
 def log(phase: str, msg: str) -> None:
@@ -154,9 +180,11 @@ def golden(name: str):
 
 def wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches."""
+    from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels import plane_gemm as D
     from qnx_torch.kernels import xnor_conv_fused as F
     from qnx_torch.kernels.i8_conv_fused import i8_conv_fused
+    from qnx_torch.kernels.int_probe import int_chain
     from qnx_torch.kernels.ternary_gemm import ternary_gemm
     from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
 
@@ -169,7 +197,13 @@ def wrappers() -> dict:
             "ternary_conv3x3_fused": F.ternary_conv_fused,
             "plane_conv3x3_fused": D.plane_conv_fused,
             "plane_dense_fused": D.plane_dense_fused,
-            "plane_gemm": D.plane_gemm}
+            "plane_gemm": D.plane_gemm,
+            "gemm_outer": G.gemm_outer,
+            "gemm_outer_acc": G.gemm_outer_acc,
+            "gemm_chunk3d": G.gemm_chunk3d,
+            "gemm_lanered": G.gemm_lanered,
+            "xnor_multiacc": G.xnor_multiacc,
+            "int_chain": int_chain}
 
 
 # ---------------------------------------------------------------- operands
@@ -326,21 +360,31 @@ class Case:
     """One kernel call on fresh operands: the kernel, its plain version,
     whether the output is packed words, the inputs and the MACs for the
     bound, and the library call's (M, K, N) and operands
-    (:func:`int_mm_call`'s keywords)."""
+    (:func:`int_mm_call`'s keywords); ``mkn`` None where no library call
+    computes the function."""
     name: str
     kern: Callable
     plain: Callable
     words: bool
     inputs: list
     macs: int
-    mkn: tuple
+    mkn: tuple | None
     lib: dict = field(default_factory=dict)
 
     def bound(self, out) -> tuple[float, float]:
         """(ms of the MACs at the int8 peak, ms of the bytes: each input
-        read once and the output written once)."""
+        read once and the output written once), the least time the card
+        could take, from the peaks of
+        :data:`qnx_torch.bench.roofline.H100_PEAKS`.  Every kernel's product
+        takes ±1 activations or the levels of up to 8 {0,1} planes
+        (unsigned, below 2^8) against ±1 or ternary weights, which the int8
+        tensor cores' s8 x s8 and u8 x s8 MMA take, so each counts one int8
+        MAC per real MAC whatever its planes."""
+        from qnx_torch.bench.roofline import H100_PEAKS
+
         nbytes = sum(t.numel() * t.element_size() for t in [*self.inputs, out])
-        return self.macs / INT8_MAC_RATE * 1e3, nbytes / HBM_BYTES_RATE * 1e3
+        return (self.macs / H100_PEAKS["int8_macs"] * 1e3,
+                nbytes / H100_PEAKS["hbm_bytes"] * 1e3)
 
 
 def make_case(torch, rng, kind: str, b: int, shape) -> Case:
@@ -353,6 +397,8 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
 
     if kind.startswith("plane_"):  # plane_{conv,dense,gemm}-P[-n_thresh]
         return plane_case(torch, rng, kind, b, shape)
+    if kind.split("-")[0] in FORMULATIONS or kind.startswith("int_chain-"):
+        return measured_case(torch, rng, kind, b, shape)
     if kind == "ternary_conv":
         h, w, c, n, pool = shape
         args = ternary_conv_operands(torch, rng, b, h, w, c, n)
@@ -428,6 +474,68 @@ def plane_case(torch, rng, kind: str, b: int, shape) -> Case:
                 lambda: D.plane_gemm_ref(*args), False, args, **work)
 
 
+# kind prefix of make_case -> the KERNELS name, also its wrapper's in
+# qnx_torch.kernels.gemm_formulations; the geometry follows the prefix as
+# BMxBN[xBK|xKC], RxC or NACC
+FORMULATIONS = {"outer": "gemm_outer", "outer_acc": "gemm_outer_acc",
+                "chunk3d": "gemm_chunk3d", "lanered": "gemm_lanered",
+                "multiacc": "xnor_multiacc"}
+
+
+def measured_case(torch, rng, kind: str, m, shape) -> Case:
+    """A :class:`Case` of the measurement path's kernels: a formulation of
+    the popcount GEMM, ``outer-256x128`` or ``multiacc-2`` (shape (K, N),
+    seeded words with zero pad bits, the plain version kernel B's), or
+    ``int_chain-MODE-REPS`` (shape of the elements, the int32 extremes in
+    both operands; no library call computes it)."""
+    from qnx_torch.experiments.gemm_shootout import random_words
+    from qnx_torch.kernels import gemm_formulations as G
+    from qnx_torch.kernels import int_probe as P
+    from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount_ref
+
+    prefix, geometry = kind.split("-", 1)
+    if prefix == "int_chain":
+        mode, reps = geometry.split("-")
+        reps = int(reps)
+        x, y = (rng.integers(I32_MIN, I32_MAX, shape, dtype=np.int32, endpoint=True)
+                for _ in range(2))
+        edge = np.array([I32_MIN, I32_MAX, -1, 0, 1, I32_MAX - 1], np.int32)
+        x.flat[:6], y.flat[:6], y.flat[6:12] = edge, edge[::-1], edge
+        x, y = cuda(torch, x), cuda(torch, y)
+        return Case("int_chain", lambda: P.int_chain(x, y, mode, reps),
+                    lambda: P.int_chain_ref(x, y, mode, reps), False, [x, y], 0, None)
+    name = FORMULATIONS[prefix]
+    g = [int(v) for v in geometry.split("x")]
+    k, n = shape
+    xp = cuda(torch, random_words(rng, m, k))
+    wp = cuda(torch, random_words(rng, n, k, along_rows=True))
+    w = wp.t().contiguous() if prefix == "lanered" else wp
+    fn = getattr(G, name)
+    return Case(name, lambda: fn(xp, w, k, *g),
+                lambda: xnor_gemm_popcount_ref(xp, wp, k), False, [xp, w],
+                m * k * n, (m, k, n))
+
+
+def measured_cases() -> list:
+    """F1-F4 and G at every geometry the shootout sweeps, on ragged M and K
+    (k % 32 != 0, zero pad bits) with N = 1, 10, 33, 128, the MNIST head's
+    256 x 4096 x 10 and the scan shape; H in every mode at every compiled
+    length on a ragged count of elements."""
+    from qnx_torch.kernels import gemm_formulations as G
+    from qnx_torch.kernels.int_probe import MODES, REPS
+
+    kinds = [f"outer-{bm}x{bn}" for bm, bn in G.OUTER_GEOMETRIES]
+    kinds += [f"outer_acc-{bm}x{bn}x{bk}" for bm, bn, bk in G.OUTER_ACC_GEOMETRIES]
+    kinds += [f"chunk3d-{bm}x{bn}x{kc}" for bm, bn, kc in G.CHUNK3D_GEOMETRIES]
+    kinds += [f"lanered-{r}x{c}" for r, c in G.LANERED_GEOMETRIES]
+    kinds += [f"multiacc-{a}" for a in G.NACCS]
+    shapes = [(3, (100, 1)), (37, (153, 10)), (130, (1000, 33)),
+              (257, (4000, 128)), (TIME_BATCH, MLP_HEAD), SCAN]
+    cases = [(kind, m, s) for kind in kinds for m, s in shapes]
+    return cases + [(f"int_chain-{mode}-{reps}", None, (37, 29))
+                    for mode in MODES for reps in REPS]
+
+
 def word_err(torch, got, want) -> float:
     """Max |difference| of the ±1 codes the two word tensors hold."""
     from qnx_torch.ops.packing import unpack_bits
@@ -481,6 +589,8 @@ def phase_build() -> None:
 
 
 def phase_kernels(torch, err: dict) -> None:
+    from qnx_torch.kernels.gemm_formulations import DoesNotFit
+
     rng = np.random.default_rng(10)
     # the VGG's layers at batch 32, ragged batch and odd spatial, any N
     cases = [("conv", CHECK_BATCH, s) for s in CONV_SHAPES]
@@ -508,10 +618,15 @@ def phase_kernels(torch, err: dict) -> None:
                                         (2, (32, 32, 8, 8, True)),
                                         (3, (5, 7, 8, 8, False)))
               for kind in i8]
-    cases += ternary_vgg_cases() + plane_cases()
+    cases += ternary_vgg_cases() + plane_cases() + measured_cases()
     for kind, b, shape in cases:
         case = make_case(torch, rng, kind, b, shape)
-        got, want = case.kern(), case.plain()
+        try:
+            got = case.kern()
+        except DoesNotFit as e:  # a geometry the shootout prints as such
+            log("kernels", f"{case.name} {kind} batch {b} {shape}: does not fit ({e})")
+            continue
+        want = case.plain()
         torch.cuda.synchronize()
         compare(torch, err, case.name, got, want, case.words,
                 f"{kind} batch {b} {shape}")
@@ -812,6 +927,34 @@ def phase_slices(torch, err: dict):
     return models, launches
 
 
+def phase_measure(torch) -> dict:
+    """The measurement path: the three experiments' ``main`` and the
+    roofline on the card with :data:`MEASURE_REPEATS`, every count set to 0
+    just before and read just after.  The shootout holds every candidate
+    against kernel B at its full shapes (B is held against its plain
+    version in phase 3).  Returns the launch counts."""
+    from qnx_torch.bench import roofline
+    from qnx_torch.experiments import gemm_shootout, vpu_probe, xnor_sol_variants
+
+    counted = wrappers()
+    for w in counted.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    shoot = gemm_shootout.main(**MEASURE_REPEATS)
+    sol = xnor_sol_variants.main(**MEASURE_REPEATS)
+    probe = vpu_probe.main(iters=16, repeats=3)
+    roof = roofline.main(**MEASURE_REPEATS)
+    launches = {name: w.launches for name, w in counted.items()}
+    log("measure", f"{len(shoot)} shootout rows ({sum(not r['fits'] for r in shoot)} "
+        f"do not fit, every other equal to kernel B), {len(sol)} scan rows, "
+        f"{len(probe)} probe modes, {len(roof)} roofline rows in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    missing = [name for name in MEASURED if not launches[name]]
+    if missing:
+        raise AssertionError(f"the measurement path launched no {missing}")
+    return launches
+
+
 def time_ms(torch, fn, iters: int, reps: int = 7) -> list[float]:
     """Per-call ms of ``fn`` from CUDA events around ``iters`` calls, ``reps``
     times, after a warm-up."""
@@ -865,24 +1008,34 @@ def phase_times(torch, card: str, models: dict) -> dict:
               for layer, shapes in (("conv", CONV_SHAPES), ("dense", DENSE_SHAPES))
               for s in shapes]
     cases.append(("plane_gemm-2", b, PLANE_HEAD, 1))
+    # the measurement path's kernels: each formulation's default geometry
+    # at the scan shape, H's popc chain at the JAX probe's size
+    cases += [(kind, SCAN[0], SCAN[1], 1) for kind in MEASURED_TIMED]
+    cases.append(("int_chain-pc-96", None, PROBE_SHAPE, 1))
     for kind, m, shape, layers in cases:
         case = make_case(torch, rng, kind, m, shape)
-        lib = int_mm_call(torch, rng, *case.mkn, **case.lib)
+        lib = None if case.mkn is None else int_mm_call(torch, rng, *case.mkn,
+                                                        **case.lib)
         p1, k1 = time_ms(torch, case.plain, 3, 3), time_ms(torch, case.kern, 20, 4)
-        l1, l2 = time_ms(torch, lib, 20, 4), time_ms(torch, lib, 20, 4)
+        if lib:
+            lt = time_ms(torch, lib, 20, 4) + time_ms(torch, lib, 20, 4)
         k2, p2 = time_ms(torch, case.kern, 20, 4), time_ms(torch, case.plain, 3, 3)
-        kt, pt, lt = k1 + k2, p1 + p2, l1 + l2
+        kt, pt = k1 + k2, p1 + p2
         ops_ms, bytes_ms = case.bound(case.kern())
         t = total[case.name]
         t["ms"] += layers * statistics.median(kt)
         t["plain_ms"] += layers * statistics.median(pt)
-        t["library_ms"] += layers * statistics.median(lt)
+        if lib:
+            t["library_ms"] += layers * statistics.median(lt)
+            lib_txt = (f"library torch._int_mm {case.mkn} (int8 GEMM only, no "
+                       f"epilogue or pool) {fmt(lt)}")
+        else:
+            t["library_ms"], lib_txt = None, "no library call computes it"
         t["bound_ms"] += layers * max(ops_ms, bytes_ms)
         t["ops_bound_ms" if ops_ms >= bytes_ms else "bytes_bound_ms"] += (
             layers * max(ops_ms, bytes_ms))
         log("times", f"{card} | {case.name} {kind} batch {m} {shape}: kernel "
-            f"{fmt(kt)}; plain {fmt(pt)}; library torch._int_mm {case.mkn} "
-            f"(int8 GEMM only, no epilogue or pool) {fmt(lt)}; bound "
+            f"{fmt(kt)}; plain {fmt(pt)}; {lib_txt}; bound "
             f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
             f"{bytes_ms:.4f})")
 
@@ -896,9 +1049,9 @@ def phase_times(torch, card: str, models: dict) -> dict:
         log("times", f"{card} | end-to-end {type(model).__name__} {name} "
             f"forward batch {b}: {fmt(fwd)} = {b / med * 1e3:.1f} img/s")
     log("times", f"{card} | per forward at batch {b}, summed over the paths' "
-        f"layer shapes: " + "; ".join(
+        f"layer shapes (the measurement path's kernels at one call): " + "; ".join(
             f"{k} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
-            f"library {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
+            f"library {v['library_ms'] or 0:.4f} ms, bound {v['bound_ms']:.4f} ms"
             for k, v in total.items()))
     return total
 
@@ -1164,6 +1317,8 @@ def main(argv: list[str]) -> int:
     err = dict.fromkeys(KERNELS, 0.0)
     phase_kernels(torch, err)
     models, launches = phase_slices(torch, err)
+    measured = phase_measure(torch)
+    launches.update({name: measured[name] for name in MEASURED})
     total = phase_times(torch, card, models)
     phase_twin(torch, card, models["cifar10_bnn_int8"])
     phase_stages(torch, card, models)

@@ -1,0 +1,221 @@
+"""Per-kernel roofline report on the card (torch port of
+:mod:`qnx.bench.roofline`).
+
+For each hot kernel of the port this measures the marginal time
+(:mod:`qnx_torch.bench.microbench`, CUDA events, L2-warm) and holds it
+against the least time one H100 could take for the same work: the larger of
+its MACs at the int8 tensor-core rate and its bytes (each input read once,
+the output written once) at the device-memory rate, the bound
+``chip_smoke.py`` uses.  Every packed kernel's product fits the int8 tensor
+cores (±1 or level activations against ±1 or ternary weights), so each is
+held to that rate.  A second, labelled column holds the popcount kernels to
+the popc issue rate that ``qnx_torch.experiments.vpu_probe`` measured, the
+ceiling of a kernel that stays on the CUDA cores.
+
+    python -m qnx_torch.bench.roofline          # table on stdout, JSON rows on stderr
+
+The byte counts are the port's real traffic: its convs gather the 3x3
+patches inside the kernel (implicit GEMM), so the JAX count's 9x patch
+materialisation is not in them.
+"""
+from __future__ import annotations
+
+import json
+import sys
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from qnx_torch.bench.microbench import device_label, resolve_device, time_fn_marginal
+
+H100_PEAKS = {
+    # NVIDIA H100 SXM data sheet, dense, at the 700 W power limit: 1,979
+    # int8 TOP/s and 989 bf16 TFLOP/s on the tensor cores, 3.35 TB/s HBM3
+    "int8_macs": 1979e12 / 2,
+    "bf16_macs": 989e12 / 2,
+    "hbm_bytes": 3.35e12,
+    # popc instructions per second of the whole card, measured: the `pc`
+    # mode of qnx_torch.experiments.vpu_probe (kernel H) issued 15.84 popc
+    # per clock per SM at the 1,980 MHz SM clock nvidia-smi read during the
+    # run, x 132 SMs (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+    "popc_ops": 15.84 * 132 * 1.98e9,
+}
+
+
+@dataclass
+class KernelResult:
+    name: str
+    t_measured_s: float
+    macs: int
+    bytes_moved: int
+    peak_key: str
+    ops_per_mac: float = 1.0   # peak-rate operations per MAC
+    popc_per_mac: float = 0.0  # popc instructions per MAC; 0: not a popcount kernel
+
+    @property
+    def t_compute(self) -> float:
+        return self.macs * self.ops_per_mac / H100_PEAKS[self.peak_key]
+
+    @property
+    def t_memory(self) -> float:
+        return self.bytes_moved / H100_PEAKS["hbm_bytes"]
+
+    @property
+    def speed_of_light(self) -> float:
+        return max(self.t_compute, self.t_memory)
+
+    @property
+    def bound(self) -> str:
+        return "compute" if self.t_compute >= self.t_memory else "memory"
+
+    @property
+    def t_popc(self) -> float | None:
+        """The popc ceiling's time, or None for a kernel that issues none."""
+        if not self.popc_per_mac:
+            return None
+        return self.macs * self.popc_per_mac / H100_PEAKS["popc_ops"]
+
+    def row(self) -> dict:
+        t_popc = self.t_popc
+        return {
+            "kernel": self.name,
+            "measured_ms": self.t_measured_s * 1e3,
+            "tmacs": self.macs / self.t_measured_s / 1e12,
+            "sol_ms": self.speed_of_light * 1e3,
+            "sol_fraction": self.speed_of_light / self.t_measured_s,
+            "bound": self.bound,
+            "popc_ceiling_ms": None if t_popc is None else t_popc * 1e3,
+            "popc_fraction": None if t_popc is None else t_popc / self.t_measured_s,
+        }
+
+
+#: (hw, cin, cout, pool, tag) per measured VGG conv layer (width 128)
+CONV_SHAPES = [(32, 128, 128, True, "conv2"),
+               (16, 256, 256, True, "conv4"),
+               (8, 512, 512, True, "conv6")]
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _measure(results: list, name: str, fn, inputs: list, macs: int, peak_key: str,
+             iters, repeats, device, popc_per_mac: float = 0.0) -> None:
+    """Time ``fn()`` and append its :class:`KernelResult`; bytes are the
+    inputs' and the output's."""
+    out = fn()
+    t = time_fn_marginal(fn, iters=iters, repeats=repeats, device=device)
+    results.append(KernelResult(name, t, macs, _nbytes(*inputs, out), peak_key,
+                                popc_per_mac=popc_per_mac))
+
+
+def measure_kernels(batch: int = 1024, iters: int | None = None,
+                    repeats: int = 5, gemm_k: int = 4096, gemm_n: int = 4096,
+                    conv_shapes: list | None = None,
+                    device="cuda") -> list[KernelResult]:
+    """Measure the port's hot kernels at the JAX report's shapes: kernels
+    B and C at ``batch`` x ``gemm_k`` x ``gemm_n``, E, A and A' at
+    ``conv_shapes`` (default :data:`CONV_SHAPES`), beside ``torch._int_mm``
+    on the same int8 products (the library GEMM alone, no gather, epilogue
+    or pool: the counterpart of the JAX report's XLA rows) and a bf16
+    ``torch.matmul`` calibration row at 2 ``batch`` x ``gemm_k`` x
+    ``gemm_n`` (the JAX report's 2048 x 4096 x 4096 at the defaults)."""
+    from qnx_torch.kernels.i8_conv_fused import i8_conv_fused
+    from qnx_torch.kernels.ternary_gemm import ternary_gemm
+    from qnx_torch.kernels.xnor_conv import (pack_conv_ternary_np,
+                                             pack_conv_weights_np,
+                                             padding_correction)
+    from qnx_torch.kernels.xnor_conv_fused import ternary_conv_fused, xnor_conv_fused
+    from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
+    from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
+
+    device = resolve_device(device)
+    rng = np.random.default_rng(0)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    pm1 = lambda shape: np.where(rng.random(shape) < 0.5, 1, -1).astype(np.int8)
+    timing = dict(iters=iters, repeats=repeats, device=device)
+    out: list[KernelResult] = []
+
+    # int8 GEMM (the MLP hidden layer's 4096x4096) and the packed GEMMs on
+    # the same ±1 values
+    m, k, n = batch, gemm_k, gemm_n
+    x8, w8 = pm1((m, k)), pm1((k, n))
+    a8, b8t = dev(x8), dev(np.ascontiguousarray(w8.T))  # B column-major
+    _measure(out, f"int8 GEMM torch._int_mm {m}x{k}x{n} (library)",
+             lambda: torch._int_mm(a8, b8t.t()), [a8, b8t], m * k * n,
+             "int8_macs", **timing)
+    xp, wp = dev(pack_bits_np(x8, -1)), dev(pack_bits_np(w8, 0))
+    _measure(out, f"popcount GEMM B {m}x{k}x{n}",
+             lambda: xnor_gemm_popcount(xp, wp, k), [xp, wp], m * k * n,
+             "int8_macs", popc_per_mac=1 / 32, **timing)
+    wt = np.where(rng.random((k, n)) < 0.3, 0, w8).astype(np.float32)
+    mask, sign, nnz = map(dev, pack_ternary_np(wt, 0))
+    _measure(out, f"ternary two-plane GEMM C {m}x{k}x{n}",
+             lambda: ternary_gemm(xp, mask, sign, nnz), [xp, mask, sign, nnz],
+             m * k * n, "int8_macs", popc_per_mac=1 / 32, **timing)
+
+    # the VGG's convs: the library GEMM alone, then E, A and A' fused
+    for hw, cin, cout, pool, tag in CONV_SHAPES if conv_shapes is None else conv_shapes:
+        shape = f"{tag} {hw}x{hw} {cin}->{cout}"
+        macs = batch * hw * hw * 9 * cin * cout
+        pa, pb = dev(pm1((batch * hw * hw, 9 * cin))), dev(pm1((cout, 9 * cin)))
+        _measure(out, f"int8 conv GEMM [torch._int_mm, GEMM only] {shape}",
+                 lambda: torch._int_mm(pa, pb.t()), [pa, pb], macs, "int8_macs",
+                 **timing)
+        del pa, pb
+        sgn = dev(rng.choice(np.array([-1, 1], np.int32), cout))
+        tau = dev(rng.integers(-20, 20, cout).astype(np.int32))
+        xc = pm1((batch, hw, hw, cin))
+        xi, wc = dev(xc), dev(rng.integers(-1, 2, (3, 3, cin, cout)).astype(np.int8))
+        _measure(out, f"int8 conv+epilogue [E fused] {shape}",
+                 lambda: i8_conv_fused(xi, wc, sgn, tau, encoding="pm1", pool=pool),
+                 [xi, wc, sgn, tau], macs, "int8_macs", **timing)
+        xpb = dev(pack_bits_np(xc, -1))
+        del xi
+        pat = rng.choice(np.array([-1.0, 1.0], np.float32), (3, 3, cin, cout))
+        wpb, kb = pack_conv_weights_np(pat)
+        wpb, corr = dev(wpb), dev(padding_correction(pat, hw, hw))
+        _measure(out, f"xnor conv fused [A] {shape}",
+                 lambda: xnor_conv_fused(xpb, wpb, kb, corr, sgn, tau, pool=pool),
+                 [xpb, wpb, corr, sgn, tau], macs, "int8_macs", popc_per_mac=1 / 32,
+                 **timing)
+        pat = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), (3, 3, cin, cout))
+        tplanes = [dev(a) for a in pack_conv_ternary_np(pat)]
+        corr = dev(padding_correction(pat, hw, hw))
+        _measure(out, f"ternary conv fused [A'] {shape}",
+                 lambda: ternary_conv_fused(xpb, *tplanes, corr, sgn, tau, pool=pool),
+                 [xpb, *tplanes, corr, sgn, tau], macs, "int8_macs",
+                 popc_per_mac=1 / 32, **timing)
+
+    # calibration: a bf16 GEMM against the bf16 tensor-core rate
+    cm, ck, cn = 2 * batch, gemm_k, gemm_n
+    gen = torch.Generator().manual_seed(0)
+    xf = torch.randn(cm, ck, generator=gen).to(device, torch.bfloat16)
+    wf = torch.randn(ck, cn, generator=gen).to(device, torch.bfloat16)
+    _measure(out, f"bf16 GEMM torch.matmul {cm}x{ck}x{cn} (calibration)",
+             lambda: torch.matmul(xf, wf), [xf, wf], cm * ck * cn, "bf16_macs",
+             **timing)
+    return out
+
+
+def main(device="cuda", **kwargs) -> list[dict]:
+    label = device_label(device)
+    rows = [r.row() for r in measure_kernels(device=device, **kwargs)]
+    width = max(len(r["kernel"]) for r in rows)
+    print(f"# {label}; marginal times, L2-warm where the operands fit in 50 MB")
+    print(f"{'kernel':<{width}}  {'ms':>9} {'TMAC/s':>8} {'SoL ms':>9} "
+          f"{'SoL frac':>8}  {'bound':<7} {'popc ms':>9} {'popc frac':>9}")
+    for r in rows:
+        popc = ("" if r["popc_ceiling_ms"] is None else
+                f"{r['popc_ceiling_ms']:>9.4f} {r['popc_fraction']:>9.3f}")
+        print(f"{r['kernel']:<{width}}  {r['measured_ms']:>9.4f} "
+              f"{r['tmacs']:>8.2f} {r['sol_ms']:>9.4f} "
+              f"{r['sol_fraction']:>8.3f}  {r['bound']:<7} {popc}")
+    for r in rows:
+        print(json.dumps({"device": label, **r}), file=sys.stderr)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -18,6 +18,11 @@ EXPECTED = {
     "qnx_torch.kernels.ternary_gemm", "qnx_torch.ops.quant",
     "qnx_torch.kernels.i8_conv_fused", "qnx_torch.nn.int8_engine",
     "qnx_torch.bench.float_baseline", "qnx_torch.kernels.plane_gemm",
+    "qnx_torch.bench.microbench", "qnx_torch.bench.roofline",
+    "qnx_torch.kernels.gemm_formulations", "qnx_torch.kernels.int_probe",
+    "qnx_torch.experiments.gemm_shootout",
+    "qnx_torch.experiments.xnor_sol_variants",
+    "qnx_torch.experiments.vpu_probe",
 }
 
 _PROBE = """

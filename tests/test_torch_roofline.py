@@ -1,0 +1,58 @@
+"""qnx_torch's roofline report (:mod:`qnx_torch.bench.roofline`): the
+``KernelResult`` arithmetic, compute- and memory-bound, with the popc
+column, and ``measure_kernels`` on the CPU route at tiny shapes (structure
+only: CPU times are no roofline)."""
+import numpy as np
+import pytest
+import torch
+
+from qnx_torch.bench.roofline import H100_PEAKS, KernelResult, main, measure_kernels
+
+torch.set_num_threads(2)
+
+TINY = dict(batch=2, iters=2, repeats=1, gemm_k=64, gemm_n=64,
+            conv_shapes=[(8, 32, 32, True, "tiny")], device="cpu")
+
+
+def test_kernel_result_roofline_math():
+    # 1 ms measured, 0.5 ms at the int8 rate: compute-bound, fraction 0.5
+    r = KernelResult("k", 1e-3, int(0.5e-3 * H100_PEAKS["int8_macs"]), 1000,
+                     "int8_macs")
+    assert r.bound == "compute"
+    row = r.row()
+    assert row["sol_fraction"] == pytest.approx(0.5, rel=1e-6)
+    assert row["popc_ceiling_ms"] is None and row["popc_fraction"] is None
+    # memory-bound
+    r = KernelResult("k", 1e-3, 1000, int(0.5e-3 * H100_PEAKS["hbm_bytes"]),
+                     "int8_macs")
+    assert r.bound == "memory"
+    assert r.row()["sol_fraction"] == pytest.approx(0.5, rel=1e-6)
+    # the popc column: one popc per 32 MACs, 0.25 ms at the popc ceiling
+    macs = int(0.25e-3 * H100_PEAKS["popc_ops"] * 32)
+    r = KernelResult("k", 1e-3, macs, 0, "int8_macs", popc_per_mac=1 / 32)
+    assert r.row()["popc_fraction"] == pytest.approx(0.25, rel=1e-6)
+    assert r.row()["sol_fraction"] == pytest.approx(
+        macs / H100_PEAKS["int8_macs"] / 1e-3, rel=1e-6)
+
+
+def test_measure_kernels_smoke_tiny():
+    rows = measure_kernels(**TINY)
+    names = [r.name for r in rows]
+    for part in ("torch._int_mm", "popcount GEMM B", "ternary two-plane GEMM C",
+                 "[E fused]", "xnor conv fused [A]", "ternary conv fused [A']",
+                 "calibration"):
+        assert any(part in n for n in names), part
+    assert len(rows) == 3 + 4 + 1
+    assert all(np.isfinite(r.t_measured_s) for r in rows)
+    assert all(np.isfinite(r.speed_of_light) and r.bytes_moved > 0 for r in rows)
+    conv_a = next(r for r in rows if "[A]" in r.name)
+    # packed input + words + corr + sgn + tau + packed pooled output
+    assert conv_a.bytes_moved == 4 * (2 * 8 * 8 * 1 + 9 * 32 + 8 * 8 * 32 + 2 * 32
+                                      + 2 * 4 * 4 * 1)
+
+
+def test_main_prints_the_table(capsys):
+    rows = main(**TINY)
+    out = capsys.readouterr()
+    assert "not a device measurement" in out.out
+    assert len(out.err.strip().splitlines()) == len(rows)
