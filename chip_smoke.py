@@ -15,9 +15,11 @@ Drives the port's served paths through the hand-written CUDA kernels in
 * ``cifar10-tnn`` through the bit-plane engine (``pack_vgg_bitplane``,
   ``PlaneVGG``): one {0,1} plane and one threshold per channel at its abits
   2, and two planes, three thresholds and the integer head at abits 3, every
-  plane conv, dense layer and the head through kernel D;
+  plane conv, dense layer and the head through kernel D (the convs on the
+  int8 tensor cores, ``expand_mma_conv.cu``);
 * ``cifar10-tnn`` at abits 1, the ternary packed VGG (``pack_vgg``): every
-  hidden conv and dense layer through the ternary branch of kernel A (A'),
+  hidden conv and dense layer through the ternary branch of kernel A (A';
+  the convs on the int8 tensor cores, ``expand_mma_conv.cu``),
 
 each with random weights from seed 0, built on the card by the converters'
 default and served by ``qnx_torch.serve.ServeEngine``; and the measurement
@@ -26,13 +28,15 @@ vpu_probe}`` and ``python -m qnx_torch.bench.roofline``, through the
 popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
-2. build: compile the kernels, with the ptxas register report;
+2. build: compile the kernels, with the ptxas register report and the
+   SASS counts of the tensor-core convs' K loop (IMMA, POPC, LOP3, ...);
 3. kernels: each of the sixteen kernels against its plain PyTorch version
    on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
    cases and any N (8, 48, 1, 10, 33); kernel E in the pm1 encoding and the
-   levels encoding with 1 and 3 thresholds; D with 1 to 5 planes and 1 to
-   31 thresholds, mixed threshold directions and int32-extreme thresholds;
+   levels encoding with 1 and 3 thresholds; D with 1 to 8 planes and 1 to
+   255 thresholds, mixed threshold directions and int32-extreme thresholds;
+   A' and D's convs with C not a multiple of 128 (40, 96, 160);
    F1-F4 and G at every geometry the shootout sweeps on ragged M and K
    with N = 1, 10, 33, 128, the MNIST head and 1024x4096x4096 (a geometry
    that does not fit is logged as such); H in each mode and compiled
@@ -68,16 +72,19 @@ one card: for each DIR (a checkout, such as a parent commit unpacked with
 ``git archive`` into the ignored ``archive_check/``) one process that
 imports that checkout's ``qnx_torch``, builds its kernels and times each
 kind of KINDS (comma-separated :func:`make_case` kinds: ``conv`` for A's
-binary conv, ``plane_conv-P-T`` for D) at the five VGG conv shapes at batch
-256 on the same seeded operands.  Run it as parent, change, change, parent.
+binary conv, ``ternary_conv`` for the A' conv, ``plane_conv-P-T`` for D) at the
+five VGG conv shapes at batch 256 on the same seeded operands.  Run it as
+parent, change, change, parent.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
@@ -138,9 +145,9 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                      "qnx/kernels/ternary_gemm.py:29"),
     "i8_conv3x3_fused": ("qnx_torch/kernels/csrc/i8_conv_fused.cu",
                          "qnx/kernels/i8_conv_fused.py:40"),
-    "ternary_conv3x3_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
+    "ternary_conv3x3_fused": ("qnx_torch/kernels/csrc/expand_mma_conv.cu",
                               "qnx/kernels/xnor_conv_fused.py:54"),
-    "plane_conv3x3_fused": ("qnx_torch/kernels/csrc/plane_fused.cu",
+    "plane_conv3x3_fused": ("qnx_torch/kernels/csrc/expand_mma_conv.cu",
                             "qnx/kernels/plane_gemm.py:32"),
     "plane_dense_fused": ("qnx_torch/kernels/csrc/plane_fused.cu",
                           "qnx/kernels/plane_gemm.py:32"),
@@ -584,8 +591,68 @@ def phase_build() -> None:
     log("build", f"{_build.library_path().name} "
         f"{'built' if fresh else 'reused'} in {dt:.2f} s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling", "arning")):
             log("build", line.strip())
+    for name, (whole, loop, steps) in mma_sass(_build.library_path()).items():
+        per_step = {op: round(c / steps, 2) for op, c in sorted(loop.items())}
+        log("build", f"SASS {name}: K loop ({steps} steps an iteration) per "
+            f"step {per_step}; whole function " + ", ".join(
+                f"{op} {whole[op]}" for op in (*MMA_OPS, "POPC", "LOP3")))
+
+
+# SASS opcodes reported per K step of the tensor-core convs: the MMAs
+# (mma.sync is IMMA, wgmma on integers IGMMA) and the rest
+MMA_OPS = ("IMMA", "HGMMA", "IGMMA")
+SASS_OPS = (*MMA_OPS, "POPC", "LOP3", "SHF", "IMAD", "IADD3", "LDSM", "LDS",
+            "STS", "LDGSTS", "BAR", "WARPGROUP")
+
+
+def mma_sass(library: Path) -> dict:
+    """{kernel instance (D's planes or A', KW): (opcode Counter of the
+    function, of its K loop, K steps an iteration of that loop)} of each
+    expand_mma_conv3x3_kernel
+    instance in the built library, or {} without ``cuobjdump``.  The K loop
+    is the innermost backward branch's range that holds the most MMAs; a
+    step issues 16 * KW IMMA (mma.sync) or KW IGMMA (wgmma) a warp."""
+    from qnx_torch.experiments.vpu_probe import _cuobjdump
+
+    tool = _cuobjdump()
+    if tool is None:
+        return {}
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = (head.group(1) if "expand_mma_conv3x3_kernel" in head.group(1)
+                    else None)
+            if name:
+                funcs[name] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+                       r"([^;]*)", line)
+        if name and ins:
+            target = re.search(r"0x([0-9a-f]+)", ins.group(3))
+            funcs[name].append((int(ins.group(1), 16), ins.group(2).split(".")[0],
+                                int(target.group(1), 16)
+                                if ins.group(2) == "BRA" and target else None))
+    out = {}
+    for name, code in funcs.items():
+        def mmas(lo, hi):
+            return sum(op in MMA_OPS for a, op, _ in code if lo <= a <= hi)
+
+        loops = [(mmas(lo, hi), lo - hi, lo, hi) for hi, op, lo in code
+                 if op == "BRA" and lo is not None and lo < hi]
+        if not loops or not max(loops)[0]:
+            continue
+        mma, _, lo, hi = max(loops)  # the most MMAs, then the shortest range
+        loop = Counter(op for a, op, _ in code if lo <= a <= hi and op in SASS_OPS)
+        *planes, kw = (int(v) for v in re.findall(r"Li(\d+)E", name))
+        label = (f"D P={planes[0] or 'any'}" if planes else "A'") + f" KW={kw}"
+        per_step = 16 * kw if loop["IMMA"] else kw
+        out[label] = (Counter(op for _, op, _ in code), loop, max(1, mma // per_step))
+    return out
 
 
 def phase_kernels(torch, err: dict) -> None:
@@ -637,7 +704,7 @@ def phase_kernels(torch, err: dict) -> None:
 def ternary_vgg_cases() -> list:
     """A' at the ternary VGG's (abits 1) conv and dense shapes at batch 32
     and 256; the conv with ragged batch, odd spatial, C not a multiple of
-    32, N = 8, 10, 33, 48."""
+    32 or of 128 (96, 160: one word a K step), N = 8, 10, 33, 48, 130."""
     cases = [(kind, b, s) for b in (CHECK_BATCH, TIME_BATCH)
              for kind, shapes in (("ternary_conv", CONV_SHAPES),
                                   ("ternary_dense", DENSE_SHAPES))
@@ -645,15 +712,19 @@ def ternary_vgg_cases() -> list:
     return cases + [("ternary_conv", 3, (5, 7, 16, 48, False)),
                     ("ternary_conv", 2, (32, 32, 8, 8, True)),
                     ("ternary_conv", 3, (4, 6, 40, 33, True)),
-                    ("ternary_conv", 3, (6, 4, 64, 10, False))]
+                    ("ternary_conv", 3, (6, 4, 64, 10, False)),
+                    ("ternary_conv", 5, (8, 8, 160, 256, True)),
+                    ("ternary_conv", 3, (7, 9, 96, 130, False)),
+                    ("ternary_conv", 3, (7, 5, 256, 33, False))]
 
 
 def plane_cases() -> list:
     """D at the bit-plane VGGs' shapes at batch 32 and 256: one plane and
     one threshold (``cifar10-tnn``), two planes and three thresholds (abits
-    3) and the abits-3 head; then 1 to 5 planes with 1 to 31 thresholds,
-    ragged batch, odd spatial, C not a multiple of 32, N = 8, 10, 33, 48, K
-    not a multiple of 32."""
+    3) and the abits-3 head; then 1 to 8 planes with 1 to 255 thresholds
+    (levels to 255, the u8 operand's top bit), ragged batch, odd spatial, C
+    not a multiple of 32 or of 128, N = 8, 10, 33, 48, K not a multiple of
+    32."""
     cases = []
     for b in (CHECK_BATCH, TIME_BATCH):
         cases += [(f"plane_conv-{pt}", b, s) for pt in ("1-1", "2-3")
@@ -670,6 +741,12 @@ def plane_cases() -> list:
               ("plane_conv-2-3", 3, (4, 6, 32, 33, True)),
               ("plane_conv-1-1", 2, (32, 32, 8, 8, True)),
               ("plane_conv-4-15", 2, (8, 8, 8, 8, True)),
+              ("plane_conv-7-3", 3, (8, 8, 64, 64, False)),
+              ("plane_conv-8-255", 2, (8, 6, 32, 40, True)),
+              ("plane_conv-8-255", 2, (4, 6, 128, 40, True)),
+              ("plane_conv-2-3", 3, (5, 7, 128, 48, False)),
+              ("plane_conv-2-3", 5, (8, 8, 160, 256, True)),
+              ("plane_conv-1-1", 3, (7, 9, 96, 130, False)),
               ("plane_dense-3-3", CHECK_BATCH, DENSE_SHAPES[0]),
               ("plane_dense-3-7", 3, (100, 48)),
               ("plane_dense-2-3", 37, (96, 33)),
@@ -1139,35 +1216,16 @@ def engine_rate(card: str, label: str, model, rng, image_shape) -> None:
 
 
 def phase_stages(torch, card: str, models: dict) -> None:
-    """Where the time goes at batch 256: each stage of the VGG and mnist-bnn
-    forwards alone on their own activations, peak memory, and the engine."""
+    """Where the time goes at batch 256: each stage of the packed VGGs
+    (binary and ternary), mnist-bnn, int8 and bit-plane forwards alone on
+    their own activations, peak memory, and the engine."""
     from qnx_torch.ops.packing import pack_bits
     from qnx_torch.serve.engine import normalize_u8
 
     b = TIME_BATCH
     rng = np.random.default_rng(13)
-    model = models["cifar10_bnn"]
-    u8 = cuda(torch, rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8))
-    first = model.first
-    with torch.inference_mode():
-        x = normalize_u8(u8)
-        y = first.conv(x)
-        z = first._bn(y)
-        stages = [("normalize_u8", lambda: normalize_u8(u8)),
-                  ("first: cuDNN conv + bias", lambda: first.conv(x)),
-                  ("first: BN", lambda: first._bn(y)),
-                  ("first: sign + pack_bits", lambda: pack_bits(z, axis=-1))]
-        bits = first(x)
-        for i, conv in enumerate(model.convs, 1):
-            stages.append((f"conv_{i} kernel", lambda l=conv, a=bits: l(a)))
-            bits = conv(bits)
-        bits = bits.reshape(b, -1)
-        for j, dense in enumerate(model.denses):
-            stages.append((f"dense_{j} kernel", lambda l=dense, a=bits: l(a)))
-            bits = dense(bits)
-        stages.append(("head: unpack + sgemm + BN", lambda a=bits: model.head(a)))
-    time_stages(torch, card, "cifar10_bnn", model, x, stages)
-    engine_rate(card, "cifar10_bnn", model, rng, (32, 32, 3))
+    for label in ("cifar10_bnn", "cifar10_tnn_a1"):
+        stages_packed(torch, card, label, models[label], rng)
 
     model = models["mnist_bnn"]
     u8 = cuda(torch, rng.integers(0, 256, (b, 28, 28, 1), dtype=np.uint8))
@@ -1193,6 +1251,37 @@ def phase_stages(torch, card: str, models: dict) -> None:
 
     stages_int8(torch, card, models["cifar10_bnn_int8"], rng)
     stages_plane(torch, card, models["cifar10_tnn"], rng)
+
+
+def stages_packed(torch, card: str, label: str, model, rng) -> None:
+    """Each stage of a batch-256 packed VGG (binary ``cifar10-bnn``: kernel
+    A; ternary ``cifar10_tnn_a1``: A'): the float first layer, each conv
+    and dense kernel, the float head; then the engine."""
+    from qnx_torch.ops.packing import pack_bits
+    from qnx_torch.serve.engine import normalize_u8
+
+    b = TIME_BATCH
+    u8 = cuda(torch, rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8))
+    first = model.first
+    with torch.inference_mode():
+        x = normalize_u8(u8)
+        y = first.conv(x)
+        z = first._bn(y)
+        stages = [("normalize_u8", lambda: normalize_u8(u8)),
+                  ("first: cuDNN conv + bias", lambda: first.conv(x)),
+                  ("first: BN", lambda: first._bn(y)),
+                  ("first: sign + pack_bits", lambda: pack_bits(z, axis=-1))]
+        bits = first(x)
+        for i, conv in enumerate(model.convs, 1):
+            stages.append((f"conv_{i} kernel", lambda l=conv, a=bits: l(a)))
+            bits = conv(bits)
+        bits = bits.reshape(b, -1)
+        for j, dense in enumerate(model.denses):
+            stages.append((f"dense_{j} kernel", lambda l=dense, a=bits: l(a)))
+            bits = dense(bits)
+        stages.append(("head: unpack + sgemm + BN", lambda a=bits: model.head(a)))
+    time_stages(torch, card, label, model, x, stages)
+    engine_rate(card, label, model, rng, (32, 32, 3))
 
 
 def stages_int8(torch, card: str, model, rng) -> None:

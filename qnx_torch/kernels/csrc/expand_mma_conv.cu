@@ -1,0 +1,642 @@
+// Packed 3x3 convs on the int8 tensor cores, for Hopper (sm_90a): kernel D's
+// bit-plane conv and the ternary branch of kernel A's conv (A'), both as
+// implicit GEMMs whose packed operands are expanded to int8 on their way
+// from global memory to the tensor cores.
+//
+// Replaces the Pallas kernels qnx/kernels/plane_gemm.py:_plane_gemm_kernel
+// (:32, looped over the planes by plane_conv :90) and the ternary branch of
+// qnx/kernels/xnor_conv_fused.py:_gemm_epi_kernel (:54, reached through
+// ternary_conv_fused :316), with what the JAX layers leave to XLA around
+// them (the patch gather, the plane sum, the 2x2 pool, the thresholds and
+// the repack):
+//
+//   D:  lvl[m,k] = sum_j 2^j b_j[m,k]   (u8, P <= 8 planes)
+//       w[k,n]   = 2 msign - mask       (s8: -1, 0, +1; 2 where msign is
+//                                        outside mask, as the popcount form)
+//       s        = sum_k lvl w          (= sum_j 2^j (2 popc(b_j & msign)
+//                                                     - popc(b_j & mask)))
+//       s        = max of s over the 2x2 window               (pool)
+//       level    = sum_v [sgn * s >= tau[v]]; plane j of the output = bit j
+//   A': x[m,k]   = 2 bit - 1            (s8: +-1; a pad tap reads the zero
+//                                        word, -1, as the JAX patches do)
+//       w[k,n]   = mask ? (sign ? +1 : -1) : 0              (s8)
+//       s        = sum_k x w + (nnz - popc of mask's column) + corr[y,x,n]
+//                (= nnz - 2 popc(mask & (x ^ sign)) + corr, for any nnz)
+//       s        = max of s over the 2x2 window               (pool)
+//       bit      = sgn * s >= tau
+//
+// The accumulator is int32 and exact: |s| <= 9 C 255 * 2.  The compares
+// are int32 and tau is never negated (it may be INT32_MIN).
+//
+// Why the tensor cores: the popcount forms issue an AND (and an XOR) and a
+// POPC per 32 MACs per plane on the CUDA cores, and POPC issues at 16 per
+// clock per SM on an H100 (15.84 measured by vpu_probe): the five VGG convs
+// at batch 256, 1.546e11 MACs, cannot run under 1.17 ms that way, and D
+// pays that once per plane.  Here the planes and the weight planes become
+// int8 MMA operands, so every MAC is one tensor-core MAC whatever P is, and
+// the bound is the int8 rate, 1,979 TOP/s dense at 700 W (0.156 ms for the
+// five convs).  The packed operands stay packed in HBM and L2; the
+// expansion costs ALU work per block-step instead (below).
+//
+// Design: rows (M) are output pixels in quad-major order (i8_conv_fused.cu's
+// pixel_of), so the 2x2 pool is two __shfl_xor_sync; columns (N) are output
+// channels; K = 9 C, tap-major like the (9 Cw, N) weight words.  A block of
+// two warpgroups owns 128 rows x 128 channels; each warpgroup issues
+// wgmma.mma_async m64n128k32 (u8 x s8 for D, s8 x s8 for A') on its 64
+// rows, both operands from shared memory.  A K step is KW words of one tap:
+// KW = 4 (128 channels, 16-byte activation copies) where Cw % 4 == 0, else
+// KW = 1.  Per step:
+//   - cp.async brings the packed words three steps ahead into a ring of
+//     kStages stages (zero-filled outside the image, past the rows and
+//     past N; the weights' 128 columns of one word are contiguous, so the
+//     copies coalesce);
+//   - the wgmma of this step run on its int8 tiles while the block expands
+//     the next step's words, each once, into the other buffer of the
+//     double-buffered A and B tiles, in the canonical no-swizzle K-major
+//     layout (core matrices of 8 rows x 16 bytes; a weight word is already
+//     K-contiguous for its column, so there is no transpose);
+//   - the warps wait for their wgmma, then one __syncthreads.
+// The expansion uses no multiply-spread: the MMA sums over k in any order,
+// so within each 32-channel word the tiles of A and B both hold channel
+// 8q + i at byte q of 32-bit tile word i (i < 8), and tile word i is the
+// word's bits i, 8+i, 16+i, 24+i moved to the bytes' low bits by one
+// funnel shift and one AND (planes: moved to bit j and ORed).
+//
+// The epilogue is latency: a block's two rows a thread wait on its loads
+// while the tensor cores idle.  So the block's sgn, nnz and first
+// kSmemTau thresholds per channel are staged in shared memory with the
+// first copies, and a row's corr (A') is loaded in one batch; with the
+// loads in the epilogue, it took about half the kernel's time.
+//
+// Measured against two other designs (PERF.md §6): mma.sync m16n8k32
+// from swizzled tiles through ldmatrix, and wgmma with A in registers,
+// each warp expanding its own rows straight into its fragments (that puts
+// the expansion between the barrier and the wgmma, and spills at KW = 4).
+//
+// The mainloop takes its operands from an Operands class (the two
+// expanders); kernels E and A's binary conv can take it with operand
+// classes of their own.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kBM = 128;       // output pixels of a block (32 windows)
+constexpr int kBN = 128;       // output channels of a block
+constexpr int kThreads = 256;  // two warpgroups, 64 rows each
+constexpr int kStages = 3;     // packed-word ring
+constexpr int kMaxPlanes = 8;  // plane_gemm.py MAX_PLANES: levels < 2^8
+constexpr int kSmemTau = 15;   // thresholds held in shared memory (more: L1)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kLsb = 0x01010101u;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t rotr(uint32_t x, int s) {
+  return __funnelshift_r(x, x, s);  // wrap: s mod 32
+}
+
+// Copy kBytes from global to shared, or zeros where !valid (src is then
+// not read).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const int n = valid ? kBytes : 0;
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(kBytes), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// Generic-proxy writes to shared memory, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep a register that an in-flight wgmma reads or writes where it is
+// until the wait.
+template <class T>
+__device__ __forceinline__ void hold(T& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile without swizzle: core
+// matrices of 8 rows x 16 bytes, 128 bytes apart along K (the leading
+// offset), sbo bytes apart along N (the stride offset).
+__device__ __forceinline__ uint64_t tile_desc(const void* tile, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// d (64 rows of this warpgroup x 128 channels) += a * b, 32 k, both from
+// shared-memory tiles: u8 x s8 (D) or s8 x s8 (A').
+#define QNX_D8(i)                                                          \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),              \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define QNX_WGMMA_M64N128K32(TYPES)                                          \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32." TYPES " {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n" \
+      : QNX_D8(0), QNX_D8(8), QNX_D8(16), QNX_D8(24), QNX_D8(32), QNX_D8(40), \
+        QNX_D8(48), QNX_D8(56)                                               \
+      : "l"(desc_a), "l"(desc_b), "r"(1))
+template <bool kU8>
+__device__ __forceinline__ void wgmma_k32(int (&d)[64], uint64_t desc_a,
+                                          uint64_t desc_b) {
+  if constexpr (kU8) {
+    QNX_WGMMA_M64N128K32("u8.s8");
+  } else {
+    QNX_WGMMA_M64N128K32("s8.s8");
+  }
+}
+#undef QNX_WGMMA_M64N128K32
+#undef QNX_D8
+
+// The pixel of GEMM row m: window (bi, qy, qx), position p in it
+// (i8_conv_fused.cu; rows < 2^31: the entry points check it).
+struct Pixel {
+  int bi, qy, qx, y, x;
+};
+
+__device__ __forceinline__ Pixel pixel_of(int m, int qh, int qw) {
+  const int quad = m >> 2;
+  const int p = m & 3;
+  Pixel px;
+  px.qx = quad % qw;
+  const int r = quad / qw;
+  px.qy = r % qh;
+  px.bi = r / qh;
+  px.y = 2 * px.qy + (p >> 1);
+  px.x = 2 * px.qx + (p & 1);
+  return px;
+}
+
+// ------------------------------------------------------------ operands
+// Tile word i (i < 8) of a packed word holds its channels 8q + i at byte q.
+// Each expander turns half h of a packed word (16 channels) into its tile
+// words 4h .. 4h+3, 16 bytes of a tile: expand_a an activation row's word
+// (plane j at w[j * stride]), expand_b a weight column's.
+
+// Kernel D, with kP planes (0: as many as the argument says).  A: u8
+// levels sum_j 2^j bit_j.  B: s8 2 msign - mask.
+template <int kP>
+struct PlaneOperands {
+  static constexpr bool kU8 = true;
+  static constexpr bool kTernary = false;
+
+  __device__ static uint4 expand_a(const uint32_t* w, int stride, int planes, int h) {
+    const int p = kP ? kP : planes;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < p; ++j) {
+      // channel 8q + 4h + e moves to bit 8q + e + j
+      const uint32_t x = rotr(w[j * stride], (4 * h - j) & 31);
+      const uint32_t keep = kLsb << j;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] |= rotr(x, e) & keep;
+    }
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  }
+
+  __device__ static uint4 expand_b(uint32_t mask, uint32_t msign, int h) {
+    const uint32_t xm = rotr(mask, 4 * h);
+    const uint32_t xs = rotr(msign, (4 * h - 1) & 31);  // 2 msign
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // bytewise 2 msign - mask in [-1, 2]: offset by 0x80, so no byte
+      // borrows from its neighbour, and back
+      const uint32_t two_s = (rotr(xs, e) & 0x02020202u) | 0x80808080u;
+      v[e] = (two_s - (rotr(xm, e) & kLsb)) ^ 0x80808080u;
+    }
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// Kernel A' (ternary weights).  A: s8 +1 for a set bit, -1 for a clear one.
+// B: s8 mask ? (sign ? +1 : -1) : 0.
+struct TernaryOperands {
+  static constexpr bool kU8 = false;
+  static constexpr bool kTernary = true;
+
+  __device__ static uint4 expand_a(const uint32_t* w, int, int, int h) {
+    const uint32_t x = rotr(w[0], 4 * h);
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // 0xFF - 0xFE per set byte: 0x01 or 0xFF, no borrow across bytes
+      v[e] = (rotr(x, e) & kLsb) * 0xFFFFFF02u + 0xFFFFFFFFu;
+    }
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  }
+
+  __device__ static uint4 expand_b(uint32_t mask, uint32_t sign, int h) {
+    const uint32_t neg = rotr(mask & ~sign, 4 * h);
+    const uint32_t pos = rotr(mask & sign, 4 * h);
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // disjoint bytes: 0xFF, 0x01 or 0
+      v[e] = (rotr(neg, e) & kLsb) * 0xFFu + (rotr(pos, e) & kLsb);
+    }
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+struct ConvArgs {
+  const uint32_t* x;   // (P, B, H, W, Cw) packed words (P = 1 for A')
+  const uint32_t* w0;  // (9 Cw, N) mask
+  const uint32_t* w1;  // (9 Cw, N) msign (D) or sign (A')
+  const int* nnz;      // (N,)      A' only
+  const int* corr;     // (H, W, N) A' only
+  const int* sgn;      // (N,)
+  const int* tau;      // (n_thresh, N)
+  uint32_t* out;       // (P, B, H', W', Nw)
+  int p, b, h, w, cw, n, n_thresh, pool;
+};
+
+template <int KW>
+size_t smem_bytes(int p) {  // tiles (double-buffered), ring, column constants
+  return 2 * (kBM + kBN) * 32 * KW +
+         sizeof(uint32_t) * kStages * (2 + p) * kBM * KW +
+         sizeof(int) * (4 + kSmemTau) * kBN;
+}
+
+// grid (ceil(4 b qh qw / kBM), ceil(n / kBN)), block kThreads, dynamic
+// shared memory smem_bytes<KW>(p).
+template <class Ops, int KW>
+__global__ void __launch_bounds__(kThreads, 2)
+expand_mma_conv3x3_kernel(const ConvArgs a) {
+  constexpr int kKB = 32 * KW;            // k bytes of a step
+  constexpr uint32_t kSbo = 2 * KW * 128;  // bytes between 8-row groups
+  extern __shared__ __align__(128) unsigned char smem[];
+  // tiles [2][128 / 8 row or column groups][2 KW chunks][8][16 bytes]
+  unsigned char* a8 = smem;
+  unsigned char* b8 = a8 + 2 * kBM * kKB;
+  uint32_t* ring_b = reinterpret_cast<uint32_t*>(b8 + 2 * kBN * kKB);
+  //                                               [kStages][2][kBN][KW]
+  uint32_t* ring_a = ring_b + kStages * 2 * kBN * KW;  // [kStages][P][kBM][KW]
+  // the block's column constants: the two halves of the mask's count (A'),
+  // then cols [2 + kSmemTau][kBN]: sgn, nnz (A'), the first thresholds
+  int* count = reinterpret_cast<int*>(ring_a + kStages * a.p * kBM * KW);
+  int* cols = count + 2 * kBN;
+  const int* col_sgn = cols;
+  const int* col_nnz = cols + kBN;
+  const int* col_tau = cols + 2 * kBN;
+
+  const int tid = threadIdx.x;
+  __builtin_assume(tid < kThreads);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // groupID
+  const int t = lane & 3;   // threadID_in_group
+  const int wg = warp >> 2;  // the warpgroup's 64 rows
+  // this thread's accumulator rows: wrow and wrow + 8
+  const int wrow = wg * 64 + (warp & 3) * 16 + g;
+  const int p = a.p;
+  const int qh = a.pool ? a.h / 2 : (a.h + 1) / 2;
+  const int qw = a.pool ? a.w / 2 : (a.w + 1) / 2;
+  const int rows = 4 * a.b * qh * qw;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const size_t plane_words = static_cast<size_t>(a.b) * a.h * a.w * a.cw;
+
+  // this thread's activation row for the copies (a row outside the image
+  // or past the rows reads zeros), and its first word in plane 0
+  const int cr = tid & (kBM - 1);
+  int cy = -4, cx = -4;
+  const uint32_t* xrow = a.x;
+  if (m0 + cr < rows) {
+    const Pixel px = pixel_of(m0 + cr, qh, qw);
+    if (px.y < a.h && px.x < a.w) {
+      cy = px.y;
+      cx = px.x;
+      xrow += (static_cast<size_t>(px.bi * a.h + px.y) * a.w + px.x) * a.cw;
+    }
+  }
+
+  const int steps = 9 * (a.cw / KW);
+  // the next step to copy: its tap, its first word in the tap, its stage;
+  // K step s covers weight rows s * KW .. s * KW + KW - 1
+  int i_step = 0, i_tap = 0, i_c0 = 0, i_stage = 0;
+  auto issue = [&]() {
+    if (i_step < steps) {
+      const int dy = i_tap / 3 - 1;
+      const int dx = i_tap - 3 * (dy + 1) - 1;
+      const int iy = cy + dy;
+      const int ix = cx + dx;
+      const bool av = iy >= 0 && iy < a.h && ix >= 0 && ix < a.w;
+      const uint32_t* src = xrow + (dy * a.w + dx) * a.cw + i_c0;
+      for (int j = tid / kBM; j < p; j += kThreads / kBM) {
+        cp_async<4 * KW>(ring_a + ((i_stage * p + j) * kBM + cr) * KW,
+                         av ? src + j * plane_words : a.x, av);
+      }
+      const size_t krow = static_cast<size_t>(i_step) * KW;
+#pragma unroll
+      for (int i = 0; i < KW; ++i) {
+        const int idx = tid + i * kThreads;  // (plane, column, word)
+        const int col = (idx % (kBN * KW)) / KW;
+        const bool bv = n0 + col < a.n;
+        const uint32_t* wsrc = (idx / (kBN * KW) ? a.w1 : a.w0) +
+                               (krow + idx % KW) * a.n + n0 + col;
+        cp_async<4>(ring_b + i_stage * 2 * kBN * KW + idx, bv ? wsrc : a.w0, bv);
+      }
+      ++i_step;
+      i_stage = i_stage + 1 == kStages ? 0 : i_stage + 1;
+      i_c0 += KW;
+      if (i_c0 == a.cw) {
+        i_c0 = 0;
+        ++i_tap;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the tiles of the step in stage into buffer buf: unit u = tid + i
+  // kThreads is row (column) group u / (16 KW), chunk c = (u / 8) % (2 KW)
+  // (half c & 1 of word c >> 1), row u % 8 of the group; its 16 bytes at
+  // 16 u of each tile
+  auto expand = [&](int stage, int buf) {
+#pragma unroll
+    for (int i = 0; i < KW; ++i) {
+      const int u = tid + i * kThreads;
+      const int c = (u >> 3) % (2 * KW);
+      const int r = (u >> 3) / (2 * KW) * 8 + (u & 7);
+      const uint32_t* wa = ring_a + (stage * p * kBM + r) * KW + (c >> 1);
+      *reinterpret_cast<uint4*>(a8 + buf * kBM * kKB + u * 16) =
+          Ops::expand_a(wa, kBM * KW, p, c & 1);
+      const uint32_t* wb = ring_b + (stage * 2 * kBN + r) * KW + (c >> 1);
+      *reinterpret_cast<uint4*>(b8 + buf * kBN * kKB + u * 16) =
+          Ops::expand_b(wb[0], wb[kBN * KW], c & 1);
+    }
+    fence_proxy_async();
+  };
+
+  int acc[64];  // n8 tile j: channels 8j + 2t, +1 of row wrow, then wrow + 8
+#pragma unroll
+  for (int r = 0; r < 64; ++r) acc[r] = 0;
+
+  issue();
+  issue();
+  issue();
+  if constexpr (Ops::kTernary) {
+    // nnz - (set bits of mask's column), added to s in the epilogue: the
+    // MMA's sum over the mask is count - 2 mismatches, the popcount form's
+    // is nnz - 2 mismatches.  Outside the K loop, while step 0 lands.
+    const int col = tid & (kBN - 1);
+    int bits = 0;
+    if (n0 + col < a.n) {
+#pragma unroll 8
+      for (int k = tid / kBN; k < 9 * a.cw; k += kThreads / kBN) {
+        bits += __popc(__ldg(a.w0 + static_cast<size_t>(k) * a.n + n0 + col));
+      }
+    }
+    count[(tid / kBN) * kBN + col] = bits;
+  }
+  const int smem_tau = a.n_thresh <= kSmemTau ? a.n_thresh : 0;
+  for (int i = tid; i < (2 + smem_tau) * kBN; i += kThreads) {
+    const int col = n0 + i % kBN;
+    const int what = i / kBN;  // sgn, nnz, then the thresholds
+    int v = 0;
+    if (col < a.n) {
+      if (what == 0) {
+        v = __ldg(a.sgn + col);
+      } else if (what >= 2) {
+        v = __ldg(a.tau + static_cast<size_t>(what - 2) * a.n + col);
+      } else if constexpr (Ops::kTernary) {
+        v = __ldg(a.nnz + col);
+      }
+    }
+    cols[i] = v;
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+  expand(0, 0);
+
+  int stage = 0;  // the ring stage that step's expansion read
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<1>();  // this thread's copies of step + 1 have landed
+    // every thread's copies of step + 1 and tiles of step are visible,
+    // and step - 1's wgmma are done with the other buffers
+    __syncthreads();
+    issue();  // step + 3, into the stage that step's expansion read
+    const unsigned char* ta = a8 + (step & 1) * kBM * kKB + wg * 8 * kSbo;
+    const unsigned char* tb = b8 + (step & 1) * kBN * kKB;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < KW; ++kc) {
+      wgmma_k32<Ops::kU8>(acc, tile_desc(ta + kc * 256, kSbo),
+                          tile_desc(tb + kc * 256, kSbo));
+    }
+    wgmma_commit();
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+    if (step + 1 < steps) expand(stage, (step + 1) & 1);  // while they run
+    wgmma_wait_all();
+#pragma unroll
+    for (int r = 0; r < 64; ++r) hold(acc[r]);
+  }
+
+  // epilogue: each of this thread's two rows, one output word (32
+  // channels) at a time
+  const int nw = (a.n + 31) / 32;
+  const int ho = a.pool ? qh : a.h;
+  const int wo = a.pool ? qw : a.w;
+  const size_t out_plane = static_cast<size_t>(a.b) * ho * wo * nw;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = m0 + wrow + 8 * r;
+    const bool in_rows = m < rows;
+    Pixel px{};
+    if (in_rows) px = pixel_of(m, qh, qw);
+    const bool in_img = in_rows && px.y < a.h && px.x < a.w;
+    const bool out = a.pool ? in_rows && (g & 3) == 0 : in_img;
+    size_t pos = 0;
+    if (out) {
+      pos = a.pool ? (static_cast<size_t>(px.bi) * qh + px.qy) * qw + px.qx
+                   : (static_cast<size_t>(px.bi) * a.h + px.y) * a.w + px.x;
+    }
+    // A': the row's corr over the block's channels, all loads in flight
+    int corr[4][4][2] = {};
+    if constexpr (Ops::kTernary) {
+      const int* row_corr = a.corr + (static_cast<size_t>(px.y) * a.w + px.x) * a.n;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = n0 + 32 * q + ni * 8 + 2 * t + j;
+            if (in_img && col < a.n) corr[q][ni][j] = __ldg(row_corr + col);
+          }
+    }
+    // threshold v of channel col at tau[v * tau_stride + col - tau_col0]
+    const int* tau = smem_tau ? col_tau : a.tau;
+    const int tau_stride = smem_tau ? kBN : a.n;
+    const int tau_col0 = smem_tau ? n0 : 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // output word q of the block's 128 channels
+      const int col0 = n0 + 32 * q;
+      if (col0 >= a.n) break;  // uniform: no channel of this word is real
+      // s[ni][j]: channel col0 + 8 ni + 2t + j; u = sgn * s; code: the level
+      // (D) or bit (A') of each of this thread's 8 channels
+      int u[4][2], code[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 32 * q + ni * 8 + 2 * t + j;  // the block's channel
+          int s = acc[(4 * q + ni) * 4 + 2 * r + j];
+          if constexpr (Ops::kTernary) {
+            if (in_img && n0 + c < a.n) {
+              s += col_nnz[c] - count[c] - count[kBN + c] + corr[q][ni][j];
+            }
+          }
+          if (a.pool) {  // the window's four rows are lanes g, g^1, g^2, g^3
+            s = max(s, __shfl_xor_sync(kFull, s, 4));
+            s = max(s, __shfl_xor_sync(kFull, s, 8));
+          }
+          u[ni][j] = col_sgn[c] * s;
+          code[ni][j] = 0;
+        }
+      }
+      if (out) {
+        for (int v = 0; v < a.n_thresh; ++v) {  // 8 loads in flight a level
+          const int* tau_v = tau + static_cast<size_t>(v) * tau_stride - tau_col0;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int col = col0 + ni * 8 + 2 * t + j;
+              if (col < a.n) code[ni][j] += u[ni][j] >= tau_v[col];
+            }
+          }
+        }
+      }
+      // bit j of the codes packed over the 32 channels: each lane holds 8
+      // of them, the 4 lanes of a group OR theirs together
+      const size_t at = pos * nw + col0 / 32;
+      for (int plane = 0; plane < p; ++plane) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            word |= static_cast<uint32_t>((code[ni][j] >> plane) & 1)
+                    << (ni * 8 + 2 * t + j);
+          }
+        }
+        word |= __shfl_xor_sync(kFull, word, 1);
+        word |= __shfl_xor_sync(kFull, word, 2);
+        if (out && t == 0) a.out[plane * out_plane + at] = word;
+      }
+    }
+  }
+}
+
+template <class Ops, int KW>
+int launch(const ConvArgs& a, cudaStream_t stream) {
+  const long long qh = a.pool ? a.h / 2 : (a.h + 1) / 2;
+  const long long qw = a.pool ? a.w / 2 : (a.w + 1) / 2;
+  const long long rows = 4LL * a.b * qh * qw;
+  if (rows >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = expand_mma_conv3x3_kernel<Ops, KW>;
+  // once per instance: room for the most planes, and the SM's shared memory
+  // split towards shared
+  static const cudaError_t configured = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<KW>(kMaxPlanes)));
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    }
+    return e;
+  }();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
+                  (a.n + kBN - 1) / kBN);
+  kernel<<<grid, kThreads, smem_bytes<KW>(a.p), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// KW = 4 words a step where the 16-byte activation copies are aligned
+template <class Ops>
+int dispatch(const ConvArgs& a, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (a.cw % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0) {
+    return launch<Ops, 4>(a, s);
+  }
+  return launch<Ops, 1>(a, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Plain C entry points, bound with ctypes by qnx_torch/kernels/_build.py.
+// Each launches on the given stream, does not synchronise, and returns
+// cudaGetLastError() so a refused launch is reported at once.
+
+// Kernel D's conv: planes (P, B, H, W, Cw), mask / msign (9 Cw, N), sgn
+// (N,), tau (n_thresh, N) -> planes (P, B, H', W', ceil(N/32)).
+int qnx_plane_conv3x3_fused(const void* xp, const void* mask, const void* msign,
+                            const void* sgn, const void* tau, void* out, int p,
+                            int b, int h, int w, int cw, int n, int n_thresh,
+                            int pool, void* stream) {
+  const ConvArgs a{static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(mask),
+                   static_cast<const uint32_t*>(msign), nullptr, nullptr,
+                   static_cast<const int*>(sgn), static_cast<const int*>(tau),
+                   static_cast<uint32_t*>(out), p, b, h, w, cw, n, n_thresh, pool};
+  // the served paths' one and two planes get an unrolled expander
+  if (p == 1) return dispatch<PlaneOperands<1>>(a, stream);
+  if (p == 2) return dispatch<PlaneOperands<2>>(a, stream);
+  return dispatch<PlaneOperands<0>>(a, stream);
+}
+
+// Kernel A's ternary conv: bits (B, H, W, Cw), mask / sign (9 Cw, N), nnz
+// (N,), corr (H, W, N), sgn and tau (N,) -> words (B, H', W', ceil(N/32)).
+int qnx_ternary_conv3x3_fused(const void* xp, const void* mask, const void* sign,
+                              const void* nnz, const void* corr, const void* sgn,
+                              const void* tau, void* out, int b, int h, int w,
+                              int cw, int n, int pool, void* stream) {
+  const ConvArgs a{static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(mask),
+                   static_cast<const uint32_t*>(sign), static_cast<const int*>(nnz),
+                   static_cast<const int*>(corr), static_cast<const int*>(sgn),
+                   static_cast<const int*>(tau), static_cast<uint32_t*>(out), 1, b, h,
+                   w, cw, n, 1, pool};
+  return dispatch<TernaryOperands>(a, stream);
+}
+
+}  // extern "C"

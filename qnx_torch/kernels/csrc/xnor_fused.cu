@@ -3,14 +3,15 @@
 //
 // Replaces the Pallas kernel qnx/kernels/xnor_conv_fused.py:_gemm_epi_kernel:
 // its binary branch, reached there through xnor_gemm_fused (dense) and
-// xnor_conv_fused (conv), and its ternary branch, reached through
-// ternary_gemm_fused (dense) and ternary_conv_fused (conv).  Each kernel also does what the JAX path leaves to XLA
-// around that kernel: the 3x3 patch gather (implicit GEMM, no 9x patch
-// tensor), the whole 2x2 max pool, and the repack of the +-1 codes into int32
-// words (pack_bits_mxu).
+// xnor_conv_fused (conv), and its ternary branch reached through
+// ternary_gemm_fused (dense).  The ternary conv (ternary_conv_fused) runs on
+// the int8 tensor cores in expand_mma_conv.cu.  Each kernel also does what
+// the JAX path leaves to XLA around that kernel: the 3x3 patch gather
+// (implicit GEMM, no 9x patch tensor), the whole 2x2 max pool, and the
+// repack of the +-1 codes into int32 words (pack_bits_mxu).
 //
 //   s    = k - 2 * sum_words popc(x ^ w)        (+-1 dot product)
-//   s    = nnz[n] - 2 * sum_words popc(m & (x ^ sgnw))   (ternary weights)
+//   s    = nnz[n] - 2 * sum_words popc(m & (x ^ sgnw))   (ternary dense)
 //   s   += corr[h, w, n]                        (conv: zero-pad correction)
 //   s    = max over the 2x2 window              (conv with pool)
 //   bit  = sgn[n] * s >= tau[n]                 (folded BN + sign, int32)
@@ -44,8 +45,8 @@
 // register reuse is the only blocking (the dense kernels keep 4 rows per
 // thread on one weight word, popcount_rows.cuh; the conv kernel keeps a 4x4
 // input window per word and updates the four outputs of a 2x2 quad from it,
-// 36 popc per 16 activation and 9 weight loads).  Shared-memory tiles, TMA
-// and the b1 tensor-core MMA are later work.
+// 36 popc per 16 activation and 9 weight loads).  The int8 tensor cores
+// (expand_mma_conv.cu's mainloop) are the next step for these too.
 #include <cuda_runtime.h>
 
 #include "popcount_rows.cuh"
@@ -96,16 +97,11 @@ dense_fused_kernel(const unsigned* __restrict__ xp,
 // block (32, kWarpsPerBlock).  kRagged (N % 32 != 0) compiles the lane
 // masking in; without it every lane is live and the 9 weight loads of each
 // input word carry no predicate (with it, the conv layers of cifar10-bnn
-// took 12% longer on an H100 SXM at 700 W).  Binary: wp is the packed sign
-// plane, sp and nnz are unused and the popcount base is k.  Ternary: wp is
-// the mask plane, sp the sign plane (loaded beside it, tap by tap), the
-// base is nnz[col], and each tap adds popc(mask & (x ^ sign)).
-template <bool kRagged, bool kTernary>
+// took 12% longer on an H100 SXM at 700 W).
+template <bool kRagged>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 xnor_conv3x3_fused_kernel(const unsigned* __restrict__ xp,
                           const unsigned* __restrict__ wp,
-                          const unsigned* __restrict__ sp,
-                          const int* __restrict__ nnz,
                           const int* __restrict__ corr,
                           const int* __restrict__ sgn,
                           const int* __restrict__ tau,
@@ -148,33 +144,23 @@ xnor_conv3x3_fused_kernel(const unsigned* __restrict__ xp,
       for (int dx = 0; dx < 3; ++dx) {
         const size_t at = (static_cast<size_t>(dy * 3 + dx) * cw + c) * n + col;
         const unsigned wv = live ? __ldg(wp + at) : 0u;
-        if constexpr (kTernary) {
-          const unsigned sv = live ? __ldg(sp + at) : 0u;
-          acc[0] += __popc(wv & (win[dy][dx] ^ sv));
-          acc[1] += __popc(wv & (win[dy][dx + 1] ^ sv));
-          acc[2] += __popc(wv & (win[dy + 1][dx] ^ sv));
-          acc[3] += __popc(wv & (win[dy + 1][dx + 1] ^ sv));
-        } else {
-          acc[0] += __popc(win[dy][dx] ^ wv);
-          acc[1] += __popc(win[dy][dx + 1] ^ wv);
-          acc[2] += __popc(win[dy + 1][dx] ^ wv);
-          acc[3] += __popc(win[dy + 1][dx + 1] ^ wv);
-        }
+        acc[0] += __popc(win[dy][dx] ^ wv);
+        acc[1] += __popc(win[dy][dx + 1] ^ wv);
+        acc[2] += __popc(win[dy + 1][dx] ^ wv);
+        acc[3] += __popc(win[dy + 1][dx + 1] ^ wv);
       }
     }
   }
 
   const int sg = live ? __ldg(sgn + col) : 0;
   const int t = live ? __ldg(tau + col) : 0;
-  int base = k;
-  if constexpr (kTernary) base = live ? __ldg(nnz + col) : 0;
   const int nw = (n + kWarp - 1) / kWarp;
   int s[4];
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     const int y = y0 + (p >> 1);
     const int x = x0 + (p & 1);
-    s[p] = base - 2 * acc[p];
+    s[p] = k - 2 * acc[p];
     if (live && y < h && x < w) {
       s[p] += __ldg(corr + (static_cast<size_t>(y) * w + x) * n + col);
     }
@@ -201,27 +187,6 @@ xnor_conv3x3_fused_kernel(const unsigned* __restrict__ xp,
       }
     }
   }
-}
-
-template <bool kTernary>
-int launch_conv3x3(const void* xp, const void* wp, const void* sp,
-                   const void* nnz, const void* corr, const void* sgn,
-                   const void* tau, void* out, int b, int h, int w, int cw,
-                   int n, int k, int pool, void* stream) {
-  const dim3 block(kWarp, kWarpsPerBlock);
-  const long long quads =
-      static_cast<long long>(b) * ((h + 1) / 2) * ((w + 1) / 2);
-  const dim3 grid(static_cast<unsigned>((quads + kWarpsPerBlock - 1) / kWarpsPerBlock),
-                  (n + kWarp - 1) / kWarp);
-  auto kernel = n % kWarp ? xnor_conv3x3_fused_kernel<true, kTernary>
-                          : xnor_conv3x3_fused_kernel<false, kTernary>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(xp), static_cast<const unsigned*>(wp),
-      static_cast<const unsigned*>(sp), static_cast<const int*>(nnz),
-      static_cast<const int*>(corr), static_cast<const int*>(sgn),
-      static_cast<const int*>(tau), static_cast<int*>(out), b, h, w, cw, n, k,
-      pool);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -259,16 +224,19 @@ int qnx_xnor_conv3x3_fused(const void* xp, const void* wp, const void* corr,
                            const void* sgn, const void* tau, void* out, int b,
                            int h, int w, int cw, int n, int k, int pool,
                            void* stream) {
-  return launch_conv3x3<false>(xp, wp, nullptr, nullptr, corr, sgn, tau, out,
-                               b, h, w, cw, n, k, pool, stream);
-}
-
-int qnx_ternary_conv3x3_fused(const void* xp, const void* mask, const void* sign,
-                              const void* nnz, const void* corr, const void* sgn,
-                              const void* tau, void* out, int b, int h, int w,
-                              int cw, int n, int pool, void* stream) {
-  return launch_conv3x3<true>(xp, mask, sign, nnz, corr, sgn, tau, out, b, h,
-                              w, cw, n, 0, pool, stream);
+  const dim3 block(kWarp, kWarpsPerBlock);
+  const long long quads =
+      static_cast<long long>(b) * ((h + 1) / 2) * ((w + 1) / 2);
+  const dim3 grid(static_cast<unsigned>((quads + kWarpsPerBlock - 1) / kWarpsPerBlock),
+                  (n + kWarp - 1) / kWarp);
+  auto kernel = n % kWarp ? xnor_conv3x3_fused_kernel<true>
+                          : xnor_conv3x3_fused_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(xp), static_cast<const unsigned*>(wp),
+      static_cast<const int*>(corr), static_cast<const int*>(sgn),
+      static_cast<const int*>(tau), static_cast<int*>(out), b, h, w, cw, n, k,
+      pool);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* qnx_cuda_error_string(int code) {

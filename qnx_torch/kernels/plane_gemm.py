@@ -23,7 +23,10 @@ writes as many planes as it reads.
 
 The JAX layers run one Pallas GEMM per plane and leave the plane sum, the
 thresholds, the pool and the plane packing to XLA.  Here one CUDA kernel
-(``csrc/plane_fused.cu``) does all of it per layer, with three entries:
+launch does all of it per layer, with three entries: the conv on the int8
+tensor cores (``csrc/expand_mma_conv.cu``: the planes expand to u8 levels
+and the weight planes to s8 inside the kernel, one product whatever P), the
+dense layer and the head by popcount (``csrc/plane_fused.cu``):
 
 * :func:`plane_conv_fused`: (P, B, H, W, Cw) planes -> (P, B, H', W', Nw);
 * :func:`plane_dense_fused`: (P, M, Kw) planes -> (P, M, Nw);
