@@ -29,14 +29,18 @@ popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
 2. build: compile the kernels, with the ptxas register report and the
-   SASS counts of the tensor-core convs' K loop (IMMA, POPC, LOP3, ...);
+   SASS counts per K step of the tensor-core convs' K loops (A, A', D and
+   E: IGMMA, POPC, LOP3, LDGSTS, ...); A's and E's must issue IGMMA and no
+   POPC or IMMA there;
 3. kernels: each of the sixteen kernels against its plain PyTorch version
    on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
-   cases and any N (8, 48, 1, 10, 33); kernel E in the pm1 encoding and the
-   levels encoding with 1 and 3 thresholds; D with 1 to 8 planes and 1 to
-   255 thresholds, mixed threshold directions and int32-extreme thresholds;
-   A' and D's convs with C not a multiple of 128 (40, 96, 160);
+   cases and any N (8, 48, 1, 10, 33, 130); kernel E in the pm1 encoding
+   and the levels encoding with 1, 3 and 20 thresholds (more than the 15
+   it stages in shared memory), C not a multiple of 16 or 128 (6, 8, 20,
+   40, 96); D with 1 to 8 planes and 1 to 255 thresholds, mixed threshold
+   directions and int32-extreme thresholds; A, A' and D's convs with C not
+   a multiple of 128 (40, 96, 160);
    F1-F4 and G at every geometry the shootout sweeps on ragged M and K
    with N = 1, 10, 33, 128, the MNIST head and 1024x4096x4096 (a geometry
    that does not fit is logged as such); H in each mode and compiled
@@ -56,8 +60,10 @@ popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
 6. times: each kernel against its plain version and against one library
    call (``torch._int_mm`` on the same product, unpacked to int8) at batch
    256 (the packed GEMMs and the formulations at 1024x4096x4096, H at the
-   JAX probe's 4096x1024), each path's forward, and the int8 VGG against
-   the strict-f32 float twin at batch 256 and 1024, with CUDA events;
+   JAX probe's 4096x1024; kernel E on K-major weights made beforehand, as
+   ``I8Conv`` holds them, so its row is the kernel alone), each path's
+   forward, and the int8 VGG against the strict-f32 float twin at batch
+   256 and 1024, with CUDA events;
 7. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches.
@@ -72,9 +78,11 @@ one card: for each DIR (a checkout, such as a parent commit unpacked with
 ``git archive`` into the ignored ``archive_check/``) one process that
 imports that checkout's ``qnx_torch``, builds its kernels and times each
 kind of KINDS (comma-separated :func:`make_case` kinds: ``conv`` for A's
-binary conv, ``ternary_conv`` for the A' conv, ``plane_conv-P-T`` for D) at the
-five VGG conv shapes at batch 256 on the same seeded operands.  Run it as
-parent, change, change, parent.
+binary conv, ``ternary_conv`` for the A' conv, ``plane_conv-P-T`` for D,
+``i8conv-pm1`` and ``i8conv-levels3`` for E in the pm1 encoding and in
+levels with 3 thresholds) at the five VGG conv shapes at batch 256 on the
+same seeded operands (E's K-major weights made beforehand where the
+checkout's wrapper takes them).  Run it as parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -128,12 +136,13 @@ PROBE_SHAPE = (4096, 1024)  # vpu_probe's BLOCK (256, 1024) x GRID 16
 MEASURE_REPEATS = dict(iters=8, repeats=3)
 # the int8 VGG against its f32 twin at these batches; 1024 is bench.py's
 TWIN_BATCHES = (256, 1024)
-# E's encodings: (JAX act, thresholds): pm1, and levels with 1 and 3
+# E's encodings: (JAX act, thresholds): pm1, and levels with 1, 3 and 20
+# (more than the kernel's 15 in shared memory)
 I8_ENCODINGS = {"pm1": ("pm1", 1), "levels1": ("levels", 1),
-                "levels3": ("levels", 3)}
+                "levels3": ("levels", 3), "levels20": ("levels", 20)}
 
 KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
-    "xnor_conv3x3_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
+    "xnor_conv3x3_fused": ("qnx_torch/kernels/csrc/expand_mma_conv.cu",
                            "qnx/kernels/xnor_conv_fused.py:54"),
     "xnor_dense_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
                          "qnx/kernels/xnor_conv_fused.py:54"),
@@ -419,8 +428,15 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
         h, w, c, n, pool = shape
         args = i8_operands(torch, rng, b, h, w, c, n, encoding, n_thresh)
         kw = dict(encoding=encoding, pool=pool)
-        return Case("i8_conv3x3_fused", lambda: E.i8_conv_fused(*args, **kw),
-                    lambda: E.i8_conv_fused_ref(*args, **kw), False, args,
+        # the K-major weights made beforehand, as I8Conv holds them, so the
+        # kernel is timed alone (a checkout from before them reads w8)
+        x8, w8, sgn, tau = args
+        kern_kw, inputs = dict(kw), args
+        if hasattr(E, "k_major"):
+            kern_kw["wk"] = E.k_major(w8)
+            inputs = [x8, kern_kw["wk"], sgn, tau]
+        return Case("i8_conv3x3_fused", lambda: E.i8_conv_fused(*args, **kern_kw),
+                    lambda: E.i8_conv_fused_ref(*args, **kw), False, inputs,
                     b * h * w * 9 * c * n, (b * h * w, 9 * c, n))
     if kind == "conv":
         h, w, c, n, pool = shape
@@ -543,6 +559,29 @@ def measured_cases() -> list:
                     for mode in MODES for reps in REPS]
 
 
+def tile_bytes(name: str, b: int, shape) -> int | None:
+    """Bytes the blocks of conv kernel ``name`` copy from L2 into shared
+    memory at batch ``b`` and ``shape`` (H, W, C, N, pool), from the
+    kernels' tiling: E (``i8_conv_fused.cu``) 128 rows x 128 channels, K
+    steps of 128 channels of a tap moving 256 x 128 bytes, ceil(Cp / 128) a
+    tap (Cp = C rounded up to 16); A and A'
+    (``expand_mma_conv.cu``) 128 x 128, K steps of one to four words of a
+    tap moving 128 activation rows and 128 weight columns of each plane,
+    4 bytes a word.  None for another kernel."""
+    weight_planes = {"xnor_conv3x3_fused": 1, "ternary_conv3x3_fused": 2,
+                     "i8_conv3x3_fused": 0}.get(name)
+    if weight_planes is None:
+        return None
+    h, w, c, n, pool = shape
+    qh, qw = (h // 2, w // 2) if pool else (-(-h // 2), -(-w // 2))
+    row_blocks = -(-4 * b * qh * qw // 128)
+    if name == "i8_conv3x3_fused":
+        steps = 9 * -(-(-(-c // 16) * 16) // 128)
+        return row_blocks * -(-n // 128) * steps * 256 * 128
+    words = 9 * -(-c // 32)
+    return row_blocks * -(-n // 128) * words * 4 * 128 * (1 + weight_planes)
+
+
 def word_err(torch, got, want) -> float:
     """Max |difference| of the ±1 codes the two word tensors hold."""
     from qnx_torch.ops.packing import unpack_bits
@@ -591,13 +630,19 @@ def phase_build() -> None:
     log("build", f"{_build.library_path().name} "
         f"{'built' if fresh else 'reused'} in {dt:.2f} s")
     for line in _build.build_log().splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling", "arning")):
+        if any(w in line for w in ("registers", "spill", "Compiling", "arning",
+                                   "Performance")):
             log("build", line.strip())
     for name, (whole, loop, steps) in mma_sass(_build.library_path()).items():
         per_step = {op: round(c / steps, 2) for op, c in sorted(loop.items())}
         log("build", f"SASS {name}: K loop ({steps} steps an iteration) per "
             f"step {per_step}; whole function " + ", ".join(
                 f"{op} {whole[op]}" for op in (*MMA_OPS, "POPC", "LOP3")))
+        # A's and E's K loops: wgmma, no popcount, no mma.sync
+        if name.split()[0] in ("A", "E") and (
+                not loop["IGMMA"] or loop["POPC"] or loop["IMMA"]):
+            raise AssertionError(f"SASS {name}: the K loop is not a wgmma loop "
+                                 f"({dict(loop)})")
 
 
 # SASS opcodes reported per K step of the tensor-core convs: the MMAs
@@ -607,13 +652,19 @@ SASS_OPS = (*MMA_OPS, "POPC", "LOP3", "SHF", "IMAD", "IADD3", "LDSM", "LDS",
             "STS", "LDGSTS", "BAR", "WARPGROUP")
 
 
+# the wgmma k32 a warp issues per K step of kernel E (i8_conv_fused.cu's
+# kKC = 128 channels)
+E_K32_PER_STEP = 4
+
+
 def mma_sass(library: Path) -> dict:
-    """{kernel instance (D's planes or A', KW): (opcode Counter of the
-    function, of its K loop, K steps an iteration of that loop)} of each
-    expand_mma_conv3x3_kernel
-    instance in the built library, or {} without ``cuobjdump``.  The K loop
-    is the innermost backward branch's range that holds the most MMAs; a
-    step issues 16 * KW IMMA (mma.sync) or KW IGMMA (wgmma) a warp."""
+    """{kernel instance (A, A' or D's planes and KW; E's copy width):
+    (opcode Counter of the function, of its K loop, K steps an
+    iteration of that loop)} of each expand_mma_conv3x3_kernel and
+    i8_conv3x3_kernel instance in the built library, or {} without
+    ``cuobjdump``.  The K loop is the innermost backward branch's range that
+    holds the most MMAs; a step issues KW IGMMA (wgmma) a warp, E's
+    E_K32_PER_STEP, or 16 times as many IMMA (mma.sync)."""
     from qnx_torch.experiments.vpu_probe import _cuobjdump
 
     tool = _cuobjdump()
@@ -625,8 +676,8 @@ def mma_sass(library: Path) -> dict:
     for line in sass.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            name = (head.group(1) if "expand_mma_conv3x3_kernel" in head.group(1)
-                    else None)
+            name = (head.group(1) if any(k in head.group(1) for k in (
+                "expand_mma_conv3x3_kernel", "i8_conv3x3_kernel")) else None)
             if name:
                 funcs[name] = []
             continue
@@ -648,9 +699,14 @@ def mma_sass(library: Path) -> dict:
             continue
         mma, _, lo, hi = max(loops)  # the most MMAs, then the shortest range
         loop = Counter(op for a, op, _ in code if lo <= a <= hi and op in SASS_OPS)
-        *planes, kw = (int(v) for v in re.findall(r"Li(\d+)E", name))
-        label = (f"D P={planes[0] or 'any'}" if planes else "A'") + f" KW={kw}"
-        per_step = 16 * kw if loop["IMMA"] else kw
+        *first, last = (int(v) for v in re.findall(r"Li(\d+)E", name))
+        if "i8_conv3x3_kernel" in name:
+            label, k32 = f"E copies of {last} B", E_K32_PER_STEP
+        else:
+            ops = ("D P=" + str(first[0] or "any") if "PlaneOperands" in name
+                   else "A'" if "TernaryOperands" in name else "A")
+            label, k32 = f"{ops} KW={last}", last
+        per_step = 16 * k32 if loop["IMMA"] else k32
         out[label] = (Counter(op for _, op, _ in code), loop, max(1, mma // per_step))
     return out
 
@@ -674,16 +730,30 @@ def phase_kernels(torch, err: dict) -> None:
     kinds = ("ternary_dense", "popcount", "ternary")
     cases += [(kind, SCAN[0], SCAN[1]) for kind in kinds]
     cases += [(kind, 3, (100, n)) for kind in kinds for n in (10, 1, 33)]
+    # A's conv at batch 256, C not a multiple of 32 or of 128 (40, 96, 160:
+    # one word a K step), N = 10, 33, 130
+    cases += [("conv", TIME_BATCH, s) for s in CONV_SHAPES]
+    cases += [("conv", 3, (4, 6, 40, 33, True)), ("conv", 2, (6, 6, 40, 10, False)),
+              ("conv", 3, (6, 4, 64, 10, False)), ("conv", 5, (8, 8, 160, 256, True)),
+              ("conv", 3, (7, 9, 96, 130, False)), ("conv", 3, (7, 5, 256, 33, False))]
     # kernel E at the int8 VGGs' conv shapes at batch 32 and 256, ragged
-    # batch, odd spatial (with and without the pool), C = N = 8, each in
-    # the pm1 encoding and in levels with 1 and 3 thresholds
+    # batch, odd spatial (with and without the pool), C = N = 8, C not a
+    # multiple of 16 or of 128 (6: byte copies, 8, 20, 40: 4-byte copies,
+    # 96), N = 10, 33, 130, 300 (three 128-channel blocks), each in the pm1
+    # encoding and in levels with 1, 3 and 20 thresholds
     i8 = [f"i8conv-{e}" for e in I8_ENCODINGS]
     cases += [(kind, b, s) for b in (CHECK_BATCH, TIME_BATCH)
               for s in CONV_SHAPES for kind in i8]
     cases += [(kind, b, s) for b, s in ((3, (5, 7, 16, 48, False)),
                                         (3, (7, 5, 16, 48, True)),
                                         (2, (32, 32, 8, 8, True)),
-                                        (3, (5, 7, 8, 8, False)))
+                                        (3, (5, 7, 8, 8, False)),
+                                        (3, (5, 7, 40, 33, False)),
+                                        (3, (6, 4, 40, 130, True)),
+                                        (3, (7, 9, 96, 130, True)),
+                                        (2, (4, 6, 96, 33, False)),
+                                        (3, (5, 7, 6, 10, True)),
+                                        (2, (4, 4, 20, 300, False)))
               for kind in i8]
     cases += ternary_vgg_cases() + plane_cases() + measured_cases()
     for kind, b, shape in cases:
@@ -1115,6 +1185,13 @@ def phase_times(torch, card: str, models: dict) -> dict:
             f"{fmt(kt)}; plain {fmt(pt)}; {lib_txt}; bound "
             f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
             f"{bytes_ms:.4f})")
+        l2 = tile_bytes(case.name, m, shape) if layers else None
+        if l2:
+            log("times", f"{case.name} {kind} batch {m} {shape}: its blocks copy "
+                f"{l2 / 1e6:.1f} MB from L2 for {case.macs / 1e9:.2f} GMAC "
+                f"({case.macs / l2:.0f} MAC a byte), "
+                f"{l2 / 1e9 / statistics.median(kt):.2f} TB/s at the "
+                f"kernel's median")
 
     for name, model in models.items():
         shape = (b, 32, 32, 3) if name.startswith("cifar") else (b, 28, 28, 1)

@@ -121,7 +121,7 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
     or pool: the counterpart of the JAX report's XLA rows) and a bf16
     ``torch.matmul`` calibration row at 2 ``batch`` x ``gemm_k`` x
     ``gemm_n`` (the JAX report's 2048 x 4096 x 4096 at the defaults)."""
-    from qnx_torch.kernels.i8_conv_fused import i8_conv_fused
+    from qnx_torch.kernels.i8_conv_fused import i8_conv_fused, k_major
     from qnx_torch.kernels.ternary_gemm import ternary_gemm
     from qnx_torch.kernels.xnor_conv import (pack_conv_ternary_np,
                                              pack_conv_weights_np,
@@ -168,9 +168,11 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
         tau = dev(rng.integers(-20, 20, cout).astype(np.int32))
         xc = pm1((batch, hw, hw, cin))
         xi, wc = dev(xc), dev(rng.integers(-1, 2, (3, 3, cin, cout)).astype(np.int8))
+        wk = k_major(wc)  # as I8Conv holds them
         _measure(out, f"int8 conv+epilogue [E fused] {shape}",
-                 lambda: i8_conv_fused(xi, wc, sgn, tau, encoding="pm1", pool=pool),
-                 [xi, wc, sgn, tau], macs, "int8_macs", **timing)
+                 lambda: i8_conv_fused(xi, wc, sgn, tau, encoding="pm1", pool=pool,
+                                       wk=wk),
+                 [xi, wk, sgn, tau], macs, "int8_macs", **timing)
         xpb = dev(pack_bits_np(xc, -1))
         del xi
         pat = rng.choice(np.array([-1.0, 1.0], np.float32), (3, 3, cin, cout))
@@ -178,15 +180,13 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
         wpb, corr = dev(wpb), dev(padding_correction(pat, hw, hw))
         _measure(out, f"xnor conv fused [A] {shape}",
                  lambda: xnor_conv_fused(xpb, wpb, kb, corr, sgn, tau, pool=pool),
-                 [xpb, wpb, corr, sgn, tau], macs, "int8_macs", popc_per_mac=1 / 32,
-                 **timing)
+                 [xpb, wpb, corr, sgn, tau], macs, "int8_macs", **timing)
         pat = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), (3, 3, cin, cout))
         tplanes = [dev(a) for a in pack_conv_ternary_np(pat)]
         corr = dev(padding_correction(pat, hw, hw))
         _measure(out, f"ternary conv fused [A'] {shape}",
                  lambda: ternary_conv_fused(xpb, *tplanes, corr, sgn, tau, pool=pool),
-                 [xpb, *tplanes, corr, sgn, tau], macs, "int8_macs",
-                 popc_per_mac=1 / 32, **timing)
+                 [xpb, *tplanes, corr, sgn, tau], macs, "int8_macs", **timing)
 
     # calibration: a bf16 GEMM against the bf16 tensor-core rate
     cm, ck, cn = 2 * batch, gemm_k, gemm_n

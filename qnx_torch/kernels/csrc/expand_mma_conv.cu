@@ -1,14 +1,15 @@
 // Packed 3x3 convs on the int8 tensor cores, for Hopper (sm_90a): kernel D's
-// bit-plane conv and the ternary branch of kernel A's conv (A'), both as
+// bit-plane conv and kernel A's conv, binary (A) and ternary (A'), all as
 // implicit GEMMs whose packed operands are expanded to int8 on their way
 // from global memory to the tensor cores.
 //
 // Replaces the Pallas kernels qnx/kernels/plane_gemm.py:_plane_gemm_kernel
-// (:32, looped over the planes by plane_conv :90) and the ternary branch of
-// qnx/kernels/xnor_conv_fused.py:_gemm_epi_kernel (:54, reached through
-// ternary_conv_fused :316), with what the JAX layers leave to XLA around
-// them (the patch gather, the plane sum, the 2x2 pool, the thresholds and
-// the repack):
+// (:32, looped over the planes by plane_conv :90) and
+// qnx/kernels/xnor_conv_fused.py:_gemm_epi_kernel (:54): its binary branch
+// reached through xnor_conv_fused (:283) and its ternary branch reached
+// through ternary_conv_fused (:316); with what the JAX layers leave to XLA
+// around them (the patch gather, the plane sum, the 2x2 pool, the
+// thresholds and the repack):
 //
 //   D:  lvl[m,k] = sum_j 2^j b_j[m,k]   (u8, P <= 8 planes)
 //       w[k,n]   = 2 msign - mask       (s8: -1, 0, +1; 2 where msign is
@@ -17,12 +18,19 @@
 //                                                     - popc(b_j & mask)))
 //       s        = max of s over the 2x2 window               (pool)
 //       level    = sum_v [sgn * s >= tau[v]]; plane j of the output = bit j
-//   A': x[m,k]   = 2 bit - 1            (s8: +-1; a pad tap reads the zero
+//   A:  x[m,k]   = 2 bit - 1            (s8: +-1; a pad tap reads the zero
 //                                        word, -1, as the JAX patches do)
+//       w[k,n]   = 2 bit - 1            (s8: +-1, one weight plane)
+//       s        = sum_k x w + (k - 288 Cw) + corr[y,x,n]
+//                (= k - 2 popc(x ^ w) + corr: over the 32 9 Cw bit positions,
+//                 pad bits included, each adds 1 - 2 [x != w] to the +-1
+//                 product and -2 [x != w] to the popcount form, whatever
+//                 the pad bits hold)
+//   A': x[m,k]   = 2 bit - 1            (as A)
 //       w[k,n]   = mask ? (sign ? +1 : -1) : 0              (s8)
 //       s        = sum_k x w + (nnz - popc of mask's column) + corr[y,x,n]
 //                (= nnz - 2 popc(mask & (x ^ sign)) + corr, for any nnz)
-//       s        = max of s over the 2x2 window               (pool)
+//   A, A': s     = max of s over the 2x2 window               (pool)
 //       bit      = sgn * s >= tau
 //
 // The accumulator is int32 and exact: |s| <= 9 C 255 * 2.  The compares
@@ -35,21 +43,22 @@
 // pays that once per plane.  Here the planes and the weight planes become
 // int8 MMA operands, so every MAC is one tensor-core MAC whatever P is, and
 // the bound is the int8 rate, 1,979 TOP/s dense at 700 W (0.156 ms for the
-// five convs).  The packed operands stay packed in HBM and L2; the
-// expansion costs ALU work per block-step instead (below).
+// five convs).  The packed operands stay packed in HBM and L2, 8x fewer
+// bytes from L2 per MAC than kernel E's int8 codes; the expansion costs
+// ALU work per block-step instead (below).
 //
-// Design: rows (M) are output pixels in quad-major order (i8_conv_fused.cu's
+// Design: rows (M) are output pixels in quad-major order (wgmma_conv.cuh's
 // pixel_of), so the 2x2 pool is two __shfl_xor_sync; columns (N) are output
 // channels; K = 9 C, tap-major like the (9 Cw, N) weight words.  A block of
 // two warpgroups owns 128 rows x 128 channels; each warpgroup issues
-// wgmma.mma_async m64n128k32 (u8 x s8 for D, s8 x s8 for A') on its 64
-// rows, both operands from shared memory.  A K step is KW words of one tap:
-// KW = 4 (128 channels, 16-byte activation copies) where Cw % 4 == 0, else
-// KW = 1.  Per step:
+// wgmma.mma_async m64n128k32 (u8 x s8 for D, s8 x s8 for A and A') on its
+// 64 rows, both operands from shared memory.  A K step is KW words of one
+// tap: KW = 4 (128 channels, 16-byte activation copies) where Cw % 4 == 0,
+// else KW = 1.  Per step:
 //   - cp.async brings the packed words three steps ahead into a ring of
 //     kStages stages (zero-filled outside the image, past the rows and
 //     past N; the weights' 128 columns of one word are contiguous, so the
-//     copies coalesce);
+//     copies coalesce; A copies one weight plane, D and A' two);
 //   - the wgmma of this step run on its int8 tiles while the block expands
 //     the next step's words, each once, into the other buffer of the
 //     double-buffered A and B tiles, in the canonical no-swizzle K-major
@@ -65,7 +74,7 @@
 // The epilogue is latency: a block's two rows a thread wait on its loads
 // while the tensor cores idle.  So the block's sgn, nnz and first
 // kSmemTau thresholds per channel are staged in shared memory with the
-// first copies, and a row's corr (A') is loaded in one batch; with the
+// first copies, and a row's corr (A, A') is loaded in one batch; with the
 // loads in the epilogue, it took about half the kernel's time.
 //
 // Measured against two other designs (PERF.md §6): mma.sync m16n8k32
@@ -73,14 +82,15 @@
 // each warp expanding its own rows straight into its fragments (that puts
 // the expansion between the barrier and the wgmma, and spills at KW = 4).
 //
-// The mainloop takes its operands from an Operands class (the two
-// expanders); kernels E and A's binary conv can take it with operand
-// classes of their own.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// The mainloop takes its operands from an Operands class (the expanders
+// and what the epilogue adds); kernel E, whose int8 codes need no
+// expansion, has a mainloop of its own on the same helpers
+// (i8_conv_fused.cu).
+#include "wgmma_conv.cuh"
 
 namespace {
+
+using namespace qnx;
 
 constexpr int kBM = 128;       // output pixels of a block (32 windows)
 constexpr int kBN = 128;       // output channels of a block
@@ -88,120 +98,10 @@ constexpr int kThreads = 256;  // two warpgroups, 64 rows each
 constexpr int kStages = 3;     // packed-word ring
 constexpr int kMaxPlanes = 8;  // plane_gemm.py MAX_PLANES: levels < 2^8
 constexpr int kSmemTau = 15;   // thresholds held in shared memory (more: L1)
-constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kLsb = 0x01010101u;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int s) {
   return __funnelshift_r(x, x, s);  // wrap: s mod 32
-}
-
-// Copy kBytes from global to shared, or zeros where !valid (src is then
-// not read).
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  const int n = valid ? kBytes : 0;
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "n"(kBytes), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
-
-// Generic-proxy writes to shared memory, made visible to wgmma's reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep a register that an in-flight wgmma reads or writes where it is
-// until the wait.
-template <class T>
-__device__ __forceinline__ void hold(T& r) {
-  asm volatile("" : "+r"(r) :: "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile without swizzle: core
-// matrices of 8 rows x 16 bytes, 128 bytes apart along K (the leading
-// offset), sbo bytes apart along N (the stride offset).
-__device__ __forceinline__ uint64_t tile_desc(const void* tile, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-// d (64 rows of this warpgroup x 128 channels) += a * b, 32 k, both from
-// shared-memory tiles: u8 x s8 (D) or s8 x s8 (A').
-#define QNX_D8(i)                                                          \
-  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),              \
-      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-#define QNX_WGMMA_M64N128K32(TYPES)                                          \
-  asm volatile(                                                              \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32." TYPES " {"              \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n" \
-      : QNX_D8(0), QNX_D8(8), QNX_D8(16), QNX_D8(24), QNX_D8(32), QNX_D8(40), \
-        QNX_D8(48), QNX_D8(56)                                               \
-      : "l"(desc_a), "l"(desc_b), "r"(1))
-template <bool kU8>
-__device__ __forceinline__ void wgmma_k32(int (&d)[64], uint64_t desc_a,
-                                          uint64_t desc_b) {
-  if constexpr (kU8) {
-    QNX_WGMMA_M64N128K32("u8.s8");
-  } else {
-    QNX_WGMMA_M64N128K32("s8.s8");
-  }
-}
-#undef QNX_WGMMA_M64N128K32
-#undef QNX_D8
-
-// The pixel of GEMM row m: window (bi, qy, qx), position p in it
-// (i8_conv_fused.cu; rows < 2^31: the entry points check it).
-struct Pixel {
-  int bi, qy, qx, y, x;
-};
-
-__device__ __forceinline__ Pixel pixel_of(int m, int qh, int qw) {
-  const int quad = m >> 2;
-  const int p = m & 3;
-  Pixel px;
-  px.qx = quad % qw;
-  const int r = quad / qw;
-  px.qy = r % qh;
-  px.bi = r / qh;
-  px.y = 2 * px.qy + (p >> 1);
-  px.x = 2 * px.qx + (p & 1);
-  return px;
 }
 
 // ------------------------------------------------------------ operands
@@ -210,12 +110,21 @@ __device__ __forceinline__ Pixel pixel_of(int m, int qh, int qw) {
 // words 4h .. 4h+3, 16 bytes of a tile: expand_a an activation row's word
 // (plane j at w[j * stride]), expand_b a weight column's.
 
+// Each class also says what the mainloop does around its expanders: kU8,
+// the A operand's type; kWPlanes, the weight planes a K step copies;
+// kCorr, whether the epilogue adds corr and a column constant (A and A':
+// the +-1 product of the zero-word-padded patches is not the popcount
+// form's s); kCount, whether that constant is A''s nnz - (set bits of the
+// mask's column), else A's k - 288 Cw.
+
 // Kernel D, with kP planes (0: as many as the argument says).  A: u8
 // levels sum_j 2^j bit_j.  B: s8 2 msign - mask.
 template <int kP>
 struct PlaneOperands {
   static constexpr bool kU8 = true;
-  static constexpr bool kTernary = false;
+  static constexpr int kWPlanes = 2;
+  static constexpr bool kCorr = false;
+  static constexpr bool kCount = false;
 
   __device__ static uint4 expand_a(const uint32_t* w, int stride, int planes, int h) {
     const int p = kP ? kP : planes;
@@ -246,21 +155,45 @@ struct PlaneOperands {
   }
 };
 
-// Kernel A' (ternary weights).  A: s8 +1 for a set bit, -1 for a clear one.
-// B: s8 mask ? (sign ? +1 : -1) : 0.
-struct TernaryOperands {
+// s8 +1 for a set bit, -1 for a clear one: A's and A''s activations, A's
+// weights.
+__device__ __forceinline__ uint4 expand_pm1(uint32_t word, int h) {
+  const uint32_t x = rotr(word, 4 * h);
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    // 0xFF - 0xFE per set byte: 0x01 or 0xFF, no borrow across bytes
+    v[e] = (rotr(x, e) & kLsb) * 0xFFFFFF02u + 0xFFFFFFFFu;
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// Kernel A's binary conv.  A and B: s8 +-1 (expand_pm1), one weight plane.
+struct BinaryOperands {
   static constexpr bool kU8 = false;
-  static constexpr bool kTernary = true;
+  static constexpr int kWPlanes = 1;
+  static constexpr bool kCorr = true;
+  static constexpr bool kCount = false;
 
   __device__ static uint4 expand_a(const uint32_t* w, int, int, int h) {
-    const uint32_t x = rotr(w[0], 4 * h);
-    uint32_t v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      // 0xFF - 0xFE per set byte: 0x01 or 0xFF, no borrow across bytes
-      v[e] = (rotr(x, e) & kLsb) * 0xFFFFFF02u + 0xFFFFFFFFu;
-    }
-    return make_uint4(v[0], v[1], v[2], v[3]);
+    return expand_pm1(w[0], h);
+  }
+
+  __device__ static uint4 expand_b(uint32_t sign, uint32_t, int h) {
+    return expand_pm1(sign, h);
+  }
+};
+
+// Kernel A' (ternary weights).  A: s8 +-1 (expand_pm1).  B: s8 mask ?
+// (sign ? +1 : -1) : 0.
+struct TernaryOperands {
+  static constexpr bool kU8 = false;
+  static constexpr int kWPlanes = 2;
+  static constexpr bool kCorr = true;
+  static constexpr bool kCount = true;
+
+  __device__ static uint4 expand_a(const uint32_t* w, int, int, int h) {
+    return expand_pm1(w[0], h);
   }
 
   __device__ static uint4 expand_b(uint32_t mask, uint32_t sign, int h) {
@@ -276,29 +209,32 @@ struct TernaryOperands {
 };
 
 struct ConvArgs {
-  const uint32_t* x;   // (P, B, H, W, Cw) packed words (P = 1 for A')
-  const uint32_t* w0;  // (9 Cw, N) mask
-  const uint32_t* w1;  // (9 Cw, N) msign (D) or sign (A')
+  const uint32_t* x;   // (P, B, H, W, Cw) packed words (P = 1 for A, A')
+  const uint32_t* w0;  // (9 Cw, N) mask (D, A') or sign (A)
+  const uint32_t* w1;  // (9 Cw, N) msign (D) or sign (A'); A: unused
   const int* nnz;      // (N,)      A' only
-  const int* corr;     // (H, W, N) A' only
+  const int* corr;     // (H, W, N) A and A'
   const int* sgn;      // (N,)
   const int* tau;      // (n_thresh, N)
   uint32_t* out;       // (P, B, H', W', Nw)
   int p, b, h, w, cw, n, n_thresh, pool;
+  int k;               // A: the true reduction length 9 C
 };
 
-template <int KW>
-size_t smem_bytes(int p) {  // tiles (double-buffered), ring, column constants
+// tiles (double-buffered), ring, column constants
+template <int KW, int WP>
+size_t smem_bytes(int p) {
   return 2 * (kBM + kBN) * 32 * KW +
-         sizeof(uint32_t) * kStages * (2 + p) * kBM * KW +
+         sizeof(uint32_t) * kStages * (WP + p) * kBM * KW +
          sizeof(int) * (4 + kSmemTau) * kBN;
 }
 
 // grid (ceil(4 b qh qw / kBM), ceil(n / kBN)), block kThreads, dynamic
-// shared memory smem_bytes<KW>(p).
+// shared memory smem_bytes<KW, Ops::kWPlanes>(p).
 template <class Ops, int KW>
 __global__ void __launch_bounds__(kThreads, 2)
 expand_mma_conv3x3_kernel(const ConvArgs a) {
+  constexpr int kWP = Ops::kWPlanes;
   constexpr int kKB = 32 * KW;            // k bytes of a step
   constexpr uint32_t kSbo = 2 * KW * 128;  // bytes between 8-row groups
   extern __shared__ __align__(128) unsigned char smem[];
@@ -306,8 +242,8 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
   unsigned char* a8 = smem;
   unsigned char* b8 = a8 + 2 * kBM * kKB;
   uint32_t* ring_b = reinterpret_cast<uint32_t*>(b8 + 2 * kBN * kKB);
-  //                                               [kStages][2][kBN][KW]
-  uint32_t* ring_a = ring_b + kStages * 2 * kBN * KW;  // [kStages][P][kBM][KW]
+  //                                             [kStages][kWP][kBN][KW]
+  uint32_t* ring_a = ring_b + kStages * kWP * kBN * KW;  // [kStages][P][kBM][KW]
   // the block's column constants: the two halves of the mask's count (A'),
   // then cols [2 + kSmemTau][kBN]: sgn, nnz (A'), the first thresholds
   int* count = reinterpret_cast<int*>(ring_a + kStages * a.p * kBM * KW);
@@ -326,8 +262,8 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
   // this thread's accumulator rows: wrow and wrow + 8
   const int wrow = wg * 64 + (warp & 3) * 16 + g;
   const int p = a.p;
-  const int qh = a.pool ? a.h / 2 : (a.h + 1) / 2;
-  const int qw = a.pool ? a.w / 2 : (a.w + 1) / 2;
+  const int qh = windows(a.h, a.pool);
+  const int qw = windows(a.w, a.pool);
   const int rows = 4 * a.b * qh * qw;
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
@@ -364,14 +300,17 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
                          av ? src + j * plane_words : a.x, av);
       }
       const size_t krow = static_cast<size_t>(i_step) * KW;
+      constexpr int kWords = kWP * kBN * KW;
 #pragma unroll
-      for (int i = 0; i < KW; ++i) {
+      for (int i = 0; i < (kWords + kThreads - 1) / kThreads; ++i) {
         const int idx = tid + i * kThreads;  // (plane, column, word)
-        const int col = (idx % (kBN * KW)) / KW;
-        const bool bv = n0 + col < a.n;
-        const uint32_t* wsrc = (idx / (kBN * KW) ? a.w1 : a.w0) +
-                               (krow + idx % KW) * a.n + n0 + col;
-        cp_async<4>(ring_b + i_stage * 2 * kBN * KW + idx, bv ? wsrc : a.w0, bv);
+        if (kWords % kThreads == 0 || idx < kWords) {
+          const int col = (idx % (kBN * KW)) / KW;
+          const bool bv = n0 + col < a.n;
+          const uint32_t* wsrc = (idx / (kBN * KW) ? a.w1 : a.w0) +
+                                 (krow + idx % KW) * a.n + n0 + col;
+          cp_async<4>(ring_b + i_stage * kWords + idx, bv ? wsrc : a.w0, bv);
+        }
       }
       ++i_step;
       i_stage = i_stage + 1 == kStages ? 0 : i_stage + 1;
@@ -397,9 +336,9 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
       const uint32_t* wa = ring_a + (stage * p * kBM + r) * KW + (c >> 1);
       *reinterpret_cast<uint4*>(a8 + buf * kBM * kKB + u * 16) =
           Ops::expand_a(wa, kBM * KW, p, c & 1);
-      const uint32_t* wb = ring_b + (stage * 2 * kBN + r) * KW + (c >> 1);
+      const uint32_t* wb = ring_b + (stage * kWP * kBN + r) * KW + (c >> 1);
       *reinterpret_cast<uint4*>(b8 + buf * kBN * kKB + u * 16) =
-          Ops::expand_b(wb[0], wb[kBN * KW], c & 1);
+          Ops::expand_b(wb[0], wb[(kWP - 1) * kBN * KW], c & 1);
     }
     fence_proxy_async();
   };
@@ -411,7 +350,7 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
   issue();
   issue();
   issue();
-  if constexpr (Ops::kTernary) {
+  if constexpr (Ops::kCount) {
     // nnz - (set bits of mask's column), added to s in the epilogue: the
     // MMA's sum over the mask is count - 2 mismatches, the popcount form's
     // is nnz - 2 mismatches.  Outside the K loop, while step 0 lands.
@@ -435,7 +374,7 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
         v = __ldg(a.sgn + col);
       } else if (what >= 2) {
         v = __ldg(a.tau + static_cast<size_t>(what - 2) * a.n + col);
-      } else if constexpr (Ops::kTernary) {
+      } else if constexpr (Ops::kCount) {
         v = __ldg(a.nnz + col);
       }
     }
@@ -463,13 +402,15 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
     wgmma_commit();
     stage = stage + 1 == kStages ? 0 : stage + 1;
     if (step + 1 < steps) expand(stage, (step + 1) & 1);  // while they run
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int r = 0; r < 64; ++r) hold(acc[r]);
   }
 
   // epilogue: each of this thread's two rows, one output word (32
-  // channels) at a time
+  // channels) at a time.  A: s += k - 288 Cw (the pad bits' +-1 products,
+  // whatever they hold) + corr
+  const int binary_const = a.k - 288 * a.cw;
   const int nw = (a.n + 31) / 32;
   const int ho = a.pool ? qh : a.h;
   const int wo = a.pool ? qw : a.w;
@@ -487,9 +428,9 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
       pos = a.pool ? (static_cast<size_t>(px.bi) * qh + px.qy) * qw + px.qx
                    : (static_cast<size_t>(px.bi) * a.h + px.y) * a.w + px.x;
     }
-    // A': the row's corr over the block's channels, all loads in flight
+    // A and A': the row's corr over the block's channels, all loads in flight
     int corr[4][4][2] = {};
-    if constexpr (Ops::kTernary) {
+    if constexpr (Ops::kCorr) {
       const int* row_corr = a.corr + (static_cast<size_t>(px.y) * a.w + px.x) * a.n;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -510,7 +451,7 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
       const int col0 = n0 + 32 * q;
       if (col0 >= a.n) break;  // uniform: no channel of this word is real
       // s[ni][j]: channel col0 + 8 ni + 2t + j; u = sgn * s; code: the level
-      // (D) or bit (A') of each of this thread's 8 channels
+      // (D) or bit (A, A') of each of this thread's 8 channels
       int u[4][2], code[4][2];
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
@@ -518,9 +459,11 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
         for (int j = 0; j < 2; ++j) {
           const int c = 32 * q + ni * 8 + 2 * t + j;  // the block's channel
           int s = acc[(4 * q + ni) * 4 + 2 * r + j];
-          if constexpr (Ops::kTernary) {
+          if constexpr (Ops::kCorr) {
             if (in_img && n0 + c < a.n) {
-              s += col_nnz[c] - count[c] - count[kBN + c] + corr[q][ni][j];
+              s += corr[q][ni][j] +
+                   (Ops::kCount ? col_nnz[c] - count[c] - count[kBN + c]
+                                : binary_const);
             }
           }
           if (a.pool) {  // the window's four rows are lanes g, g^1, g^2, g^3
@@ -567,9 +510,7 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
 
 template <class Ops, int KW>
 int launch(const ConvArgs& a, cudaStream_t stream) {
-  const long long qh = a.pool ? a.h / 2 : (a.h + 1) / 2;
-  const long long qw = a.pool ? a.w / 2 : (a.w + 1) / 2;
-  const long long rows = 4LL * a.b * qh * qw;
+  const long long rows = 4LL * a.b * windows(a.h, a.pool) * windows(a.w, a.pool);
   if (rows >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = expand_mma_conv3x3_kernel<Ops, KW>;
   // once per instance: room for the most planes, and the SM's shared memory
@@ -577,7 +518,7 @@ int launch(const ConvArgs& a, cudaStream_t stream) {
   static const cudaError_t configured = [&] {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<KW>(kMaxPlanes)));
+        static_cast<int>(smem_bytes<KW, Ops::kWPlanes>(kMaxPlanes)));
     if (e == cudaSuccess) {
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -587,7 +528,7 @@ int launch(const ConvArgs& a, cudaStream_t stream) {
   if (configured != cudaSuccess) return static_cast<int>(configured);
   const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
                   (a.n + kBN - 1) / kBN);
-  kernel<<<grid, kThreads, smem_bytes<KW>(a.p), stream>>>(a);
+  kernel<<<grid, kThreads, smem_bytes<KW, Ops::kWPlanes>(a.p), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -618,7 +559,7 @@ int qnx_plane_conv3x3_fused(const void* xp, const void* mask, const void* msign,
   const ConvArgs a{static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(mask),
                    static_cast<const uint32_t*>(msign), nullptr, nullptr,
                    static_cast<const int*>(sgn), static_cast<const int*>(tau),
-                   static_cast<uint32_t*>(out), p, b, h, w, cw, n, n_thresh, pool};
+                   static_cast<uint32_t*>(out), p, b, h, w, cw, n, n_thresh, pool, 0};
   // the served paths' one and two planes get an unrolled expander
   if (p == 1) return dispatch<PlaneOperands<1>>(a, stream);
   if (p == 2) return dispatch<PlaneOperands<2>>(a, stream);
@@ -635,8 +576,21 @@ int qnx_ternary_conv3x3_fused(const void* xp, const void* mask, const void* sign
                    static_cast<const uint32_t*>(sign), static_cast<const int*>(nnz),
                    static_cast<const int*>(corr), static_cast<const int*>(sgn),
                    static_cast<const int*>(tau), static_cast<uint32_t*>(out), 1, b, h,
-                   w, cw, n, 1, pool};
+                   w, cw, n, 1, pool, 0};
   return dispatch<TernaryOperands>(a, stream);
+}
+
+// Kernel A's binary conv: bits (B, H, W, Cw), sign words (9 Cw, N), corr
+// (H, W, N), sgn and tau (N,), k = 9 C -> words (B, H', W', ceil(N/32)).
+int qnx_xnor_conv3x3_fused(const void* xp, const void* wp, const void* corr,
+                           const void* sgn, const void* tau, void* out, int b,
+                           int h, int w, int cw, int n, int k, int pool,
+                           void* stream) {
+  const ConvArgs a{static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(wp),
+                   nullptr, nullptr, static_cast<const int*>(corr),
+                   static_cast<const int*>(sgn), static_cast<const int*>(tau),
+                   static_cast<uint32_t*>(out), 1, b, h, w, cw, n, 1, pool, k};
+  return dispatch<BinaryOperands>(a, stream);
 }
 
 }  // extern "C"

@@ -8,10 +8,12 @@ port of :mod:`qnx.kernels.i8_conv_fused`, kernel E.
           ('VALID': an odd H or W floors)
 
 :func:`i8_conv_fused` launches the CUDA kernel of ``csrc/i8_conv_fused.cu``
-for a CUDA tensor and runs its plain version, :func:`i8_conv_fused_ref`,
-only for a tensor on the CPU; ``i8_conv_fused.launches`` counts kernel
-launches.  The plain version is the unfused ``qnx.nn.int8_engine.I8Conv``:
-conv, threshold, then the pool of the codes.
+(an implicit GEMM on the int8 tensor cores, ``wgmma``) for a CUDA tensor
+and runs its plain version, :func:`i8_conv_fused_ref`, only for a tensor on
+the CPU; ``i8_conv_fused.launches`` counts kernel launches.  The plain
+version is the unfused ``qnx.nn.int8_engine.I8Conv``: conv, threshold, then
+the pool of the codes.  The kernel reads the weights K-major
+(:func:`k_major`), which ``I8Conv`` makes once.
 
 The encoding is an argument, never inferred from ``tau``'s shape: the JAX
 ``I8Conv(fused=True)`` passes ``levels = tau.shape[0]``, and its kernel takes
@@ -32,6 +34,9 @@ from . import _build
 ENCODINGS = ("pm1", "levels")
 # |s| <= 9 * C * 128 * 128 must stay below 2^31 for int8 operands
 MAX_CHANNELS = (2**31 - 1) // (9 * 128 * 128)
+# each tap's channels of the K-major weights are zero-padded to a multiple
+# of this, so every tap starts 16-byte aligned for the kernel's copies
+K_ALIGN = 16
 
 
 def _unported(act: str) -> NotImplementedError:
@@ -125,6 +130,18 @@ def pool_codes(code: torch.Tensor, sgn: torch.Tensor) -> torch.Tensor:
     return torch.where(flip, -p, p)
 
 
+def k_major(w8: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, N) int8 weights -> the same weights K-major, (N, 9 Cp)
+    with K contiguous per output channel: tap-major, each tap's C channels
+    zero-padded to Cp = ceil(C / K_ALIGN) K_ALIGN.  Column n, tap t holds
+    ``w8.reshape(9, C, N)[t, :, n]`` then zeros."""
+    c, n = w8.shape[2], w8.shape[3]
+    cp = -(-c // K_ALIGN) * K_ALIGN
+    wk = w8.new_zeros(n, 9, cp)
+    wk[:, :, :c] = w8.reshape(9, c, n).permute(2, 0, 1)
+    return wk.reshape(n, 9 * cp)
+
+
 def i8_conv_fused_ref(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
                       tau: torch.Tensor, *, encoding: str,
                       pool: bool = False) -> torch.Tensor:
@@ -135,8 +152,8 @@ def i8_conv_fused_ref(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
 
 
 def i8_conv_fused(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
-                  tau: torch.Tensor, *, encoding: str,
-                  pool: bool = False) -> torch.Tensor:
+                  tau: torch.Tensor, *, encoding: str, pool: bool = False,
+                  wk: torch.Tensor | None = None) -> torch.Tensor:
     """Fused int8 3x3 'SAME' stride-1 conv + threshold (+2x2 max pool).
 
     Args:
@@ -147,6 +164,10 @@ def i8_conv_fused(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
            thresholds (``encoding="levels"``, L >= 1).
       encoding: "pm1" (codes ±1) or "levels" (codes 0..L).
       pool: 2x2/2 max pool of the codes (window min where sgn < 0).
+      wk:  ``k_major(w8)``, the weights as the kernel reads them.  Without
+           it the wrapper makes that copy itself (a torch transpose of the
+           weights at every call) before it launches the kernel; the CPU's
+           plain version reads ``w8`` either way.
 
     Returns:
       (B, H', W', N) int8 codes; H' = H // 2, W' = W // 2 with pool.
@@ -160,14 +181,22 @@ def i8_conv_fused(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
                          "overflow the int32 accumulator")
     n = w8.shape[3]
     n_thresh = _n_thresholds(encoding, n, sgn, tau)
+    kshape = (n, 9 * (-(-c // K_ALIGN) * K_ALIGN))
+    if wk is not None and tuple(wk.shape) != kshape:
+        raise ValueError(f"i8_conv_fused: wk {tuple(wk.shape)} must be {kshape}, "
+                         "k_major(w8)")
     if not _build.check_operands("i8_conv_fused", x8,
-                                 {"xp": torch.int8, "w8": torch.int8},
-                                 w8=w8, sgn=sgn, tau=tau):
+                                 {"xp": torch.int8, "w8": torch.int8,
+                                  "wk": torch.int8},
+                                 w8=w8, sgn=sgn, tau=tau,
+                                 **({} if wk is None else {"wk": wk})):
         return i8_conv_fused_ref(x8, w8, sgn, tau, encoding=encoding, pool=pool)
+    if wk is None:
+        wk = k_major(w8)
     ho, wo = (h // 2, w // 2) if pool else (h, w)
     out = torch.empty((b, ho, wo, n), dtype=torch.int8, device=x8.device)
     if out.numel():
-        _build.launch("qnx_i8_conv3x3_fused", x8.device, x8, w8, sgn, tau, out,
+        _build.launch("qnx_i8_conv3x3_fused", x8.device, x8, wk, sgn, tau, out,
                       b, h, w, c, n, n_thresh, int(encoding == "levels"),
                       int(pool))
         i8_conv_fused.launches += 1

@@ -12,9 +12,9 @@ Unlike the JAX wrappers, which return int8 codes for XLA to pool and repack,
 these return the packed output words, ``pack_bits`` of the codes along the
 channel axis, (..., ceil(N/32)) with the pad bits of the last word 0: the
 CUDA kernels gather the conv patches, pool and repack themselves.  Any N is
-allowed.  The ternary conv runs on the int8 tensor cores
+allowed.  The convs, binary and ternary, run on the int8 tensor cores
 (``csrc/expand_mma_conv.cu``: bits and weight planes expand to s8 inside
-the kernel), the others by popcount (``csrc/xnor_fused.cu``).
+the kernel), the dense layers by popcount (``csrc/xnor_fused.cu``).
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
 version (``*_ref``) only for a tensor on the CPU.  ``launches`` on each

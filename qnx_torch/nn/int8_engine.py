@@ -10,8 +10,10 @@ give the same bits.  An int8 zero is a true zero in both encodings, so the
 convs' zero pads need no correction.
 
 * every hidden conv runs kernel E (:func:`qnx_torch.kernels.i8_conv_fused.
-  i8_conv_fused`: conv, threshold and pool in one CUDA kernel); the JAX
-  layer's ``fused`` flag has no counterpart, the port has one route;
+  i8_conv_fused`: conv, threshold and pool in one CUDA kernel), with its
+  weights also held K-major (``wk``, :func:`~qnx_torch.kernels.
+  i8_conv_fused.k_major`) as the kernel reads them; the JAX layer's
+  ``fused`` flag has no counterpart, the port has one route;
 * the dense layers are plain int8 products, as XLA's are in JAX:
   ``torch._int_mm`` on CUDA, an int32 matmul on the CPU (:func:`_dot_i8`),
   with the (K, N) weights held column-major (:func:`_column_major`);
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from qnx_torch.kernels.i8_conv_fused import (_unported, act_epilogue,
-                                             i8_conv_fused)
+                                             i8_conv_fused, k_major)
 from qnx_torch.nn.inference import (FloatConvBits, FloatDenseBits, _affine,
                                     _BatchNorm, _ieee_f32, _levels_from_float,
                                     _maxpool2)
@@ -125,11 +127,14 @@ class I8FirstDense(FloatDenseBits):
 
 class I8Conv(nn.Module):
     """Hidden int8 conv: 3x3 conv + integer threshold (+2x2 pool of the
-    codes), in one launch of kernel E."""
+    codes), in one launch of kernel E.  ``w8`` keeps the JAX converter's
+    layout; ``wk`` is the same weights K-major, made once here, which the
+    kernel reads."""
 
     def __init__(self, w8, sgn, tau, act: str = "pm1", pool: bool = False):
         super().__init__()
         self.register_buffer("w8", w8)    # (3, 3, C, N) int8
+        self.register_buffer("wk", k_major(w8))  # (N, 9 Cp) int8
         self.register_buffer("sgn", sgn)  # (N,) int32
         self.register_buffer("tau", tau)  # (N,) or (L, N) int32
         self.act = _check_act(act)
@@ -137,7 +142,7 @@ class I8Conv(nn.Module):
 
     def forward(self, x8: torch.Tensor) -> torch.Tensor:
         return i8_conv_fused(x8, self.w8, self.sgn, self.tau,
-                             encoding=self.act, pool=self.pool)
+                             encoding=self.act, pool=self.pool, wk=self.wk)
 
 
 class I8Dense(nn.Module):

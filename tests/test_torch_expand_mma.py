@@ -1,16 +1,17 @@
-"""The tensor-core formulation of kernel D's conv and the A' conv
+"""The tensor-core formulation of kernel D's conv and the A and A' convs
 (``qnx_torch/kernels/csrc/expand_mma_conv.cu``) against the JAX package.
 
 The CUDA kernels expand packed operands to int8 and take one int8 product:
 D's P {0,1} planes become u8 levels and its (mask, msign) planes s8
-``2 msign - mask``; the A' conv's bits become s8 +-1 and its (mask, sign)
-planes s8 ``mask (2 sign - 1)``, and A' adds ``nnz - popc(mask's column)``
-and corr.
+``2 msign - mask``; the A and A' convs' bits become s8 +-1, A's one
+weight plane s8 +-1 and A''s (mask, sign) planes s8 ``mask (2 sign -
+1)``; A adds ``k - 288 Cw`` and corr, A' ``nnz - popc(mask's column)`` and
+corr.
 Here that formulation runs in plain torch (exact int64 products over the
 expanded patches, padded with the zero word's expansion) and must equal
 ``qnx.kernels.plane_gemm.plane_conv`` / ``plane_gemm`` and
-``qnx.kernels.xnor_conv_fused.ternary_conv_fused`` (Pallas in interpret
-mode) on the same numpy inputs.  A numpy uint32 mirror of the kernel's
+``qnx.kernels.xnor_conv_fused.xnor_conv_fused`` / ``ternary_conv_fused``
+(Pallas in interpret mode) on the same numpy inputs.  A numpy uint32 mirror of the kernel's
 expanders is checked exhaustively against the plain expansion, in the
 kernel's channel order within a word (tile word i byte q is channel
 8q + i).  The kernels themselves are held against the wrappers' unchanged
@@ -29,6 +30,7 @@ from qnx_torch.kernels import plane_gemm as PG
 from qnx_torch.kernels import xnor_conv_fused as F
 from qnx_torch.kernels.xnor_conv import (extract_packed_patches,
                                          pack_conv_ternary_np,
+                                         pack_conv_weights_np,
                                          padding_correction)
 from qnx_torch.ops.packing import WORD, pack_bits, pack_bits_np, pack_ternary_np
 
@@ -68,6 +70,12 @@ def pm1_s8(bits: torch.Tensor) -> torch.Tensor:
     return (2 * _bits(bits) - 1).to(torch.int8)
 
 
+def binary_weights_s8(sign: torch.Tensor) -> torch.Tensor:
+    """(Kw, N) sign words -> (32 Kw, N) int8 +1 for a set bit, -1 for a
+    clear one."""
+    return pm1_s8(sign.T).T
+
+
 def ternary_weights_s8(mask: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
     """(Kw, N) planes -> (32 Kw, N) int8 mask ? (sign ? +1 : -1) : 0."""
     return (_bits(mask.T) * (2 * _bits(sign.T) - 1)).T.to(torch.int8)
@@ -89,6 +97,25 @@ def plane_conv_mma(planes: torch.Tensor, mask: torch.Tensor,
     return s.to(torch.int32).reshape(b, h, w, -1)
 
 
+def _pool_threshold_pack(s, corr, sgn, tau, pool):
+    """+ corr, the pool of s, the threshold, the packed words."""
+    b, h, w = s.shape[:3]
+    s = s + corr
+    if pool:
+        s = s.reshape(b, h // 2, 2, w // 2, 2, -1).amax(dim=(2, 4))
+    return pack_bits((sgn * s >= tau).to(torch.int8), axis=-1)
+
+
+def binary_conv_mma(xp, wp, k, corr, sgn, tau, pool):
+    """A's binary conv as one product: the zero-word-padded patches expanded
+    to s8 +-1, times the s8 +-1 sign plane, + (k - 288 Cw) + corr; the pool
+    of s, the threshold, the packed words."""
+    b, h, w, cw = xp.shape
+    patches = extract_packed_patches(xp, 3, 3).reshape(b * h * w, 9 * cw)
+    s = _dot(pm1_s8(patches), binary_weights_s8(wp)) + (k - 288 * cw)
+    return _pool_threshold_pack(s.reshape(b, h, w, -1), corr, sgn, tau, pool)
+
+
 def ternary_conv_mma(xp, mask, sign, nnz, corr, sgn, tau, pool):
     """The A' conv as one product: the zero-word-padded patches expanded to
     s8 +-1, times the s8 ternary weights, + (nnz - popc of mask's column)
@@ -97,10 +124,7 @@ def ternary_conv_mma(xp, mask, sign, nnz, corr, sgn, tau, pool):
     patches = extract_packed_patches(xp, 3, 3).reshape(b * h * w, 9 * cw)
     count = _bits(mask.T).sum(dim=-1)
     s = _dot(pm1_s8(patches), ternary_weights_s8(mask, sign)) + (nnz - count)
-    s = s.reshape(b, h, w, -1) + corr
-    if pool:
-        s = s.reshape(b, h // 2, 2, w // 2, 2, -1).amax(dim=(2, 4))
-    return pack_bits((sgn * s >= tau).to(torch.int8), axis=-1)
+    return _pool_threshold_pack(s.reshape(b, h, w, -1), corr, sgn, tau, pool)
 
 
 # ------------------------------------------------ numpy mirror of the device
@@ -137,6 +161,11 @@ def expand_a_pm1(word, h):
     x = rotr(word, 4 * h)
     return [(rotr(x, e) & LSB) * U32(0xFFFFFF02) + U32(0xFFFFFFFF)
             for e in range(4)]
+
+
+def expand_b_binary(sign, h):
+    """BinaryOperands::expand_b: the sign word's bits as +-1 (expand_pm1)."""
+    return expand_a_pm1(sign, h)
 
 
 def expand_b_ternary(mask, sign, h):
@@ -215,6 +244,10 @@ def test_weight_and_pm1_expander_mirrors_exhaustive():
             xt = torch.tensor(np.array([x], U32).view(np.int32)).reshape(1)
             np.testing.assert_array_equal(tile_bytes(expand_a_pm1, x),
                                           _natural(pm1_s8, xt)[TILE_CHANNEL])
+            # A's weight plane, one column word
+            np.testing.assert_array_equal(
+                tile_bytes(expand_b_binary, x),
+                _natural(binary_weights_s8, xt.reshape(1, 1))[TILE_CHANNEL])
     # the zero word: D's pad is level 0, the A' conv's pad is -1
     assert (tile_bytes(_expand_planes, U32(0), U32(0)) == 0).all()
     assert (tile_bytes(expand_a_pm1, U32(0)).view(np.int8) == -1).all()
@@ -327,3 +360,65 @@ def test_ternary_conv_product_matches_jax(shape, nnz_shift):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(F.ternary_conv_fused(*targs, pool=pool).numpy(),
                                   want)
+
+
+BINARY_CASES = [  # (b, h, w, c, n, pool)
+    (2, 4, 4, 8, 10, True),      # C = 8: 24 pad bits a word
+    (1, 5, 7, 16, 33, False),    # odd spatial, N past a word
+    (2, 6, 6, 40, 33, True),     # two words, the second ragged
+    (1, 3, 5, 40, 10, False),
+    (2, 4, 6, 96, 10, True),     # three full words
+    (1, 5, 3, 96, 33, False),
+]
+
+
+def _with_pad_bits(rng, words, c):
+    """The words with random bits in the pad bits past C of each tap's last
+    word (channel c % 32 onwards), as pack_bits leaves them 0."""
+    if c % 32 == 0:
+        return words
+    cw = -(-c // 32)
+    pad = np.uint32(0xFFFFFFFF) << np.uint32(c % 32)
+    out = words.view(np.uint32).copy()
+    noise = rng.integers(0, 2**32, out.shape, dtype=np.uint64).astype(np.uint32) & pad
+    if words.ndim == 2:  # (9 Cw, N) weights: row tap * Cw + Cw - 1
+        rows = np.arange(cw - 1, out.shape[0], cw)
+        out[rows] |= noise[rows]
+    else:  # (..., Cw) activations
+        out[..., cw - 1] |= noise[..., cw - 1]
+    return out.view(np.int32)
+
+
+@pytest.mark.parametrize("pad_bits", [False, True], ids=["zero-pad", "random-pad"])
+@pytest.mark.parametrize("shape", BINARY_CASES, ids=[str(s) for s in BINARY_CASES])
+def test_binary_conv_product_matches_jax(shape, pad_bits):
+    """s8 x s8 over the expanded patches (pads -1) + (k - 288 Cw) + corr,
+    the pool of s and the threshold equal the JAX popcount kernel's packed
+    codes (interpret mode), and so does the wrapper's plain version; for
+    nonzero pad bits in the weight and activation words too, where the
+    popcount form counts them (k - 288 Cw holds for any pad bits)."""
+    b, h, w, c, n, pool = shape
+    rng = np.random.default_rng(b * 100 + c + n + pool)
+    x = np.where(rng.random((b, h, w, c)) < 0.5, 1.0, -1.0).astype(np.float32)
+    wgt = np.where(rng.random((3, 3, c, n)) < 0.5, 1.0, -1.0).astype(np.float32)
+    wp, k = pack_conv_weights_np(wgt)
+    xp = pack_bits_np(x, -1)
+    if pad_bits:
+        xp, wp = _with_pad_bits(rng, xp, c), _with_pad_bits(rng, wp, c)
+        assert c % 32 == 0 or ((xp != pack_bits_np(x, -1)).any()
+                               and (wp != pack_conv_weights_np(wgt)[0]).any())
+    sgn = rng.choice(np.array([1, -1], np.int32), n)
+    lim = 2 * int(np.sqrt(k)) + 1
+    tau = rng.integers(-lim, lim, n).astype(np.int32)
+    tau[0], tau[1] = I32.min, I32.max
+    corr = padding_correction(wgt, h, w)
+    code = jax_fused.xnor_conv_fused(jnp.asarray(xp), jnp.asarray(wp), k,
+                                     *(jnp.asarray(a) for a in (corr, sgn, tau)),
+                                     pool=pool)
+    want = np.asarray(pack_bits_mxu(code, axis=-1))
+    targs = [torch.from_numpy(np.ascontiguousarray(a)) for a in (xp, wp)]
+    rest = [torch.from_numpy(np.ascontiguousarray(a)) for a in (corr, sgn, tau)]
+    got = binary_conv_mma(*targs, k, *rest, pool=pool)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        F.xnor_conv_fused(*targs, k, *rest, pool=pool).numpy(), want)

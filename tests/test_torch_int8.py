@@ -200,6 +200,67 @@ def test_kernel_e_cpu_tensors_never_count_launches_and_bad_operands_raise():
             K.i8_conv_fused(x, wgt, sgn, tau, encoding=act)
 
 
+# (encoding, thresholds, pool, (b, h, w, c, n)): C = 8, 40 (not a multiple
+# of the 16-channel tap alignment), 96, pool on and off
+KMAJOR_CASES = [(enc, nt, pool, (2, 6, 4, c, n)) for enc, nt in (("pm1", 1), ("levels", 3))
+                for pool in (False, True) for c, n in ((8, 10), (40, 33), (96, 24))]
+
+
+@pytest.mark.parametrize("c", [8, 16, 40, 96])
+def test_i8conv_holds_its_weights_k_major(c):
+    """I8Conv's wk is w8.reshape(9C, N).T with each tap's C channels
+    zero-padded to a multiple of 16: (N, 9 Cp), K contiguous per channel."""
+    _, wgt, sgn, tau = _conv_case(c, 1, 2, 2, c, 12, "pm1", 1)
+    layer = TE.I8Conv(*(torch.from_numpy(a) for a in (wgt, sgn, tau)))
+    cp = -(-c // 16) * 16
+    assert layer.wk.shape == (12, 9 * cp) and layer.wk.dtype == torch.int8
+    assert layer.wk.is_contiguous()
+    np.testing.assert_array_equal(layer.w8.numpy(), wgt)  # the JAX layout
+    wk = layer.wk.numpy().reshape(12, 9, cp)
+    np.testing.assert_array_equal(wk[:, :, :c].reshape(12, 9 * c),
+                                  wgt.reshape(9 * c, 12).T)
+    assert (wk[:, :, c:] == 0).all()
+    if c % 16 == 0:
+        np.testing.assert_array_equal(layer.wk.numpy(), wgt.reshape(9 * c, 12).T)
+    np.testing.assert_array_equal(K.k_major(torch.from_numpy(wgt)).numpy(),
+                                  layer.wk.numpy())
+
+
+@pytest.mark.parametrize("encoding,n_thresh,pool,shape", KMAJOR_CASES,
+                         ids=[f"{e}{t}-pool{p}-{s}" for e, t, p, s in KMAJOR_CASES])
+def test_kernel_e_k_major_weights_match_jax(encoding, n_thresh, pool, shape):
+    """The K-major weights give the kernel's K order the conv's s (patches
+    zero-padded per tap, times wk^T), and the wrapper with and without the
+    keyword gives the codes of the JAX unfused I8Conv and of the JAX kernel
+    (interpret mode), mixed sgn."""
+    b, h, w, c, n = shape
+    x, wgt, sgn, tau = _conv_case(sum(shape) + pool + 7, *shape, encoding, n_thresh)
+    assert (sgn == 1).any() and (sgn == -1).any()
+    args = [torch.from_numpy(a) for a in (x, wgt, sgn, tau)]
+    wk = K.k_major(args[1])
+    cp = wk.shape[1] // 9
+    xpad = np.zeros((b, h + 2, w + 2, cp), np.int64)
+    xpad[:, 1:h + 1, 1:w + 1, :c] = x
+    patches = np.concatenate([xpad[:, dy:dy + h, dx:dx + w]
+                              for dy in range(3) for dx in range(3)], axis=-1)
+    s = patches.reshape(-1, 9 * cp) @ wk.numpy().astype(np.int64).T
+    np.testing.assert_array_equal(s.reshape(b, h, w, n),
+                                  K.conv3x3_s_ref(*args[:2]).numpy())
+    want = np.asarray(JE.I8Conv(w8=jnp.asarray(wgt), sgn=jnp.asarray(sgn),
+                                tau=jnp.asarray(tau), act=encoding,
+                                pool=pool)(jnp.asarray(x)))
+    fused = jax_i8_conv_fused(*(jnp.asarray(a) for a in (x, wgt, sgn, tau)),
+                              levels=n_thresh, pool=pool, interpret=True)
+    np.testing.assert_array_equal(np.asarray(fused), want)
+    kw = dict(encoding=encoding, pool=pool)
+    np.testing.assert_array_equal(K.i8_conv_fused(*args, **kw, wk=wk).numpy(), want)
+    np.testing.assert_array_equal(K.i8_conv_fused(*args, **kw).numpy(), want)
+    with pytest.raises(ValueError, match="wk"):
+        K.i8_conv_fused(*args, **kw, wk=wk[:, :-16])
+    with pytest.raises(TypeError, match="wk"):
+        K.i8_conv_fused(*args, **kw, wk=wk.int())
+
+
 # ------------------------------------------------------------ layers
 
 

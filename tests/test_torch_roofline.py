@@ -46,6 +46,11 @@ def test_measure_kernels_smoke_tiny():
     assert all(np.isfinite(r.t_measured_s) for r in rows)
     assert all(np.isfinite(r.speed_of_light) and r.bytes_moved > 0 for r in rows)
     conv_a = next(r for r in rows if "[A]" in r.name)
+    # A's and A''s convs run on the int8 tensor cores: no popc ceiling; B
+    # and C are popcount kernels
+    for part in ("[A]", "[A']", "[E fused]"):
+        assert next(r for r in rows if part in r.name).t_popc is None, part
+    assert next(r for r in rows if "GEMM B" in r.name).t_popc is not None
     # packed input + words + corr + sgn + tau + packed pooled output
     assert conv_a.bytes_moved == 4 * (2 * 8 * 8 * 1 + 9 * 32 + 8 * 8 * 32 + 2 * 32
                                       + 2 * 4 * 4 * 1)
