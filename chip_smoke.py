@@ -28,14 +28,17 @@ vpu_probe}`` and ``python -m qnx_torch.bench.roofline``, through the
 popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
-2. build: compile the kernels, with the ptxas register report and the
-   SASS counts per K step of the tensor-core convs' K loops (A, A', D and
-   E: IGMMA, POPC, LOP3, LDGSTS, ...); A's and E's must issue IGMMA and no
-   POPC or IMMA there;
+2. build: compile the kernels, with the ptxas register and spill report
+   and the SASS counts per K step of the tensor-core kernels' K loops (the
+   A, A', D and E convs and the A, A' and D dense layers: IGMMA, POPC,
+   LOP3, LDGSTS, ...); each must issue IGMMA and no POPC or IMMA there;
 3. kernels: each of the sixteen kernels against its plain PyTorch version
    on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
-   cases and any N (8, 48, 1, 10, 33, 130); kernel E in the pm1 encoding
+   cases and any N (8, 48, 1, 10, 33, 130); the A, A' and D dense layers
+   also at M = 1, 17, 100, 300, Kw % 4 != 0, N = 1, 10, 33, 130 and each
+   split of a tile's K the wrappers pick (1, 2, 4 and 8 blocks, all
+   required); kernel E in the pm1 encoding
    and the levels encoding with 1, 3 and 20 thresholds (more than the 15
    it stages in shared memory), C not a multiple of 16 or 128 (6, 8, 20,
    40, 96); D with 1 to 8 planes and 1 to 255 thresholds, mixed threshold
@@ -63,7 +66,8 @@ popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
    JAX probe's 4096x1024; kernel E on K-major weights made beforehand, as
    ``I8Conv`` holds them, so its row is the kernel alone), each path's
    forward, and the int8 VGG against the strict-f32 float twin at batch
-   256 and 1024, with CUDA events;
+   256 and 1024, with CUDA events; the dense kernels and their library
+   calls also as CUDA graph replays, which leave out the host's launch;
 7. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches.
@@ -73,16 +77,19 @@ the kernels, the card's ``name, power.limit``, and the result object.
 
     python3 chip_smoke.py --ab KINDS DIR [DIR ...]
 
-times conv kernels in several checkouts of the repo instead, in turns on
-one card: for each DIR (a checkout, such as a parent commit unpacked with
+times kernels in several checkouts of the repo instead, in turns on one
+card: for each DIR (a checkout, such as a parent commit unpacked with
 ``git archive`` into the ignored ``archive_check/``) one process that
 imports that checkout's ``qnx_torch``, builds its kernels and times each
 kind of KINDS (comma-separated :func:`make_case` kinds: ``conv`` for A's
 binary conv, ``ternary_conv`` for the A' conv, ``plane_conv-P-T`` for D,
 ``i8conv-pm1`` and ``i8conv-levels3`` for E in the pm1 encoding and in
-levels with 3 thresholds) at the five VGG conv shapes at batch 256 on the
-same seeded operands (E's K-major weights made beforehand where the
-checkout's wrapper takes them).  Run it as parent, change, change, parent.
+levels with 3 thresholds, at the five VGG conv shapes; ``dense``,
+``ternary_dense`` and ``plane_dense-P-T`` for the A, A' and D dense
+layers, at the VGG's two dense shapes and the MLPs' hidden shape) at batch
+256 on the same seeded operands (E's K-major weights made beforehand where
+the checkout's wrapper takes them), per call and as CUDA graph replays.
+Run it as parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -144,9 +151,9 @@ I8_ENCODINGS = {"pm1": ("pm1", 1), "levels1": ("levels", 1),
 KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "xnor_conv3x3_fused": ("qnx_torch/kernels/csrc/expand_mma_conv.cu",
                            "qnx/kernels/xnor_conv_fused.py:54"),
-    "xnor_dense_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
+    "xnor_dense_fused": ("qnx_torch/kernels/csrc/expand_mma_dense.cu",
                          "qnx/kernels/xnor_conv_fused.py:54"),
-    "ternary_dense_fused": ("qnx_torch/kernels/csrc/xnor_fused.cu",
+    "ternary_dense_fused": ("qnx_torch/kernels/csrc/expand_mma_dense.cu",
                             "qnx/kernels/xnor_conv_fused.py:54"),
     "xnor_gemm_popcount": ("qnx_torch/kernels/csrc/popcount_gemm.cu",
                            "qnx/kernels/xnor_gemm.py:73"),
@@ -158,7 +165,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                               "qnx/kernels/xnor_conv_fused.py:54"),
     "plane_conv3x3_fused": ("qnx_torch/kernels/csrc/expand_mma_conv.cu",
                             "qnx/kernels/plane_gemm.py:32"),
-    "plane_dense_fused": ("qnx_torch/kernels/csrc/plane_fused.cu",
+    "plane_dense_fused": ("qnx_torch/kernels/csrc/expand_mma_dense.cu",
                           "qnx/kernels/plane_gemm.py:32"),
     "plane_gemm": ("qnx_torch/kernels/csrc/plane_fused.cu",
                    "qnx/kernels/plane_gemm.py:32"),
@@ -559,19 +566,27 @@ def measured_cases() -> list:
                     for mode in MODES for reps in REPS]
 
 
-def tile_bytes(name: str, b: int, shape) -> int | None:
-    """Bytes the blocks of conv kernel ``name`` copy from L2 into shared
-    memory at batch ``b`` and ``shape`` (H, W, C, N, pool), from the
-    kernels' tiling: E (``i8_conv_fused.cu``) 128 rows x 128 channels, K
-    steps of 128 channels of a tap moving 256 x 128 bytes, ceil(Cp / 128) a
-    tap (Cp = C rounded up to 16); A and A'
-    (``expand_mma_conv.cu``) 128 x 128, K steps of one to four words of a
-    tap moving 128 activation rows and 128 weight columns of each plane,
-    4 bytes a word.  None for another kernel."""
+def tile_bytes(name: str, b: int, shape, planes: int = 1) -> int | None:
+    """Bytes the blocks of kernel ``name`` copy from L2 into shared memory
+    at batch ``b`` and ``shape`` (H, W, C, N, pool) of a conv or (K, N) of a
+    dense layer, from the kernels' tiling: E (``i8_conv_fused.cu``) 128
+    rows x 128 channels, K steps of 128 channels of a tap moving 256 x 128
+    bytes, ceil(Cp / 128) a tap (Cp = C rounded up to 16); A, A' and D
+    (``expand_mma_conv.cu``, ``expand_mma_dense.cu``) 128 x 128, K steps
+    of one to four words (of a tap) moving 128 activation rows of each of
+    ``planes`` planes and 128 weight columns of each weight plane, 4 bytes
+    a word (the dense kernel's split K moves each tile's K once over the
+    blocks of its cluster).  None for another kernel."""
     weight_planes = {"xnor_conv3x3_fused": 1, "ternary_conv3x3_fused": 2,
-                     "i8_conv3x3_fused": 0}.get(name)
+                     "plane_conv3x3_fused": 2, "i8_conv3x3_fused": 0,
+                     "xnor_dense_fused": 1, "ternary_dense_fused": 2,
+                     "plane_dense_fused": 2}.get(name)
     if weight_planes is None:
         return None
+    if name in DENSE_NAMES:
+        k, n = shape
+        tiles = -(-b // 128) * -(-n // 128)
+        return tiles * -(-k // 32) * 4 * 128 * (planes + weight_planes)
     h, w, c, n, pool = shape
     qh, qw = (h // 2, w // 2) if pool else (-(-h // 2), -(-w // 2))
     row_blocks = -(-4 * b * qh * qw // 128)
@@ -579,7 +594,7 @@ def tile_bytes(name: str, b: int, shape) -> int | None:
         steps = 9 * -(-(-(-c // 16) * 16) // 128)
         return row_blocks * -(-n // 128) * steps * 256 * 128
     words = 9 * -(-c // 32)
-    return row_blocks * -(-n // 128) * words * 4 * 128 * (1 + weight_planes)
+    return row_blocks * -(-n // 128) * words * 4 * 128 * (planes + weight_planes)
 
 
 def word_err(torch, got, want) -> float:
@@ -638,9 +653,8 @@ def phase_build() -> None:
         log("build", f"SASS {name}: K loop ({steps} steps an iteration) per "
             f"step {per_step}; whole function " + ", ".join(
                 f"{op} {whole[op]}" for op in (*MMA_OPS, "POPC", "LOP3")))
-        # A's and E's K loops: wgmma, no popcount, no mma.sync
-        if name.split()[0] in ("A", "E") and (
-                not loop["IGMMA"] or loop["POPC"] or loop["IMMA"]):
+        # every instance's K loop: wgmma, no popcount, no mma.sync
+        if not loop["IGMMA"] or loop["POPC"] or loop["IMMA"]:
             raise AssertionError(f"SASS {name}: the K loop is not a wgmma loop "
                                  f"({dict(loop)})")
 
@@ -658,11 +672,11 @@ E_K32_PER_STEP = 4
 
 
 def mma_sass(library: Path) -> dict:
-    """{kernel instance (A, A' or D's planes and KW; E's copy width):
-    (opcode Counter of the function, of its K loop, K steps an
-    iteration of that loop)} of each expand_mma_conv3x3_kernel and
-    i8_conv3x3_kernel instance in the built library, or {} without
-    ``cuobjdump``.  The K loop is the innermost backward branch's range that
+    """{kernel instance (A, A' or D's planes, conv or dense, and KW; E's
+    copy width): (opcode Counter of the function, of its K loop, K steps an
+    iteration of that loop)} of each expand_mma_conv3x3_kernel,
+    expand_mma_dense_kernel and i8_conv3x3_kernel instance in the built
+    library, or {} without ``cuobjdump``.  The K loop is the innermost backward branch's range that
     holds the most MMAs; a step issues KW IGMMA (wgmma) a warp, E's
     E_K32_PER_STEP, or 16 times as many IMMA (mma.sync)."""
     from qnx_torch.experiments.vpu_probe import _cuobjdump
@@ -677,7 +691,8 @@ def mma_sass(library: Path) -> dict:
         head = re.search(r"Function : (\S+)", line)
         if head:
             name = (head.group(1) if any(k in head.group(1) for k in (
-                "expand_mma_conv3x3_kernel", "i8_conv3x3_kernel")) else None)
+                "expand_mma_conv3x3_kernel", "expand_mma_dense_kernel",
+                "i8_conv3x3_kernel")) else None)
             if name:
                 funcs[name] = []
             continue
@@ -705,7 +720,8 @@ def mma_sass(library: Path) -> dict:
         else:
             ops = ("D P=" + str(first[0] or "any") if "PlaneOperands" in name
                    else "A'" if "TernaryOperands" in name else "A")
-            label, k32 = f"{ops} KW={last}", last
+            layer = "dense" if "expand_mma_dense_kernel" in name else "conv"
+            label, k32 = f"{ops} {layer} KW={last}", last
         per_step = 16 * k32 if loop["IMMA"] else k32
         out[label] = (Counter(op for _, op, _ in code), loop, max(1, mma // per_step))
     return out
@@ -717,7 +733,7 @@ def phase_kernels(torch, err: dict) -> None:
     rng = np.random.default_rng(10)
     # the VGG's layers at batch 32, ragged batch and odd spatial, any N
     cases = [("conv", CHECK_BATCH, s) for s in CONV_SHAPES]
-    cases += [("dense", CHECK_BATCH, s) for s in DENSE_SHAPES]
+    cases += [("dense", b, s) for b in (CHECK_BATCH, TIME_BATCH) for s in DENSE_SHAPES]
     cases += [("conv", 3, CONV_SHAPES[0]), ("conv", 3, (5, 7, 32, 64, False)),
               ("dense", 3, DENSE_SHAPES[0])]
     cases += [("conv", 2, (32, 32, 8, 8, True)), ("conv", 3, (5, 7, 16, 48, False)),
@@ -755,7 +771,8 @@ def phase_kernels(torch, err: dict) -> None:
                                         (3, (5, 7, 6, 10, True)),
                                         (2, (4, 4, 20, 300, False)))
               for kind in i8]
-    cases += ternary_vgg_cases() + plane_cases() + measured_cases()
+    cases += ternary_vgg_cases() + plane_cases() + dense_cases() + measured_cases()
+    splits_seen = set()
     for kind, b, shape in cases:
         case = make_case(torch, rng, kind, b, shape)
         try:
@@ -767,8 +784,53 @@ def phase_kernels(torch, err: dict) -> None:
         torch.cuda.synchronize()
         compare(torch, err, case.name, got, want, case.words,
                 f"{kind} batch {b} {shape}")
+        split = dense_split(torch, case.name, b, shape)
+        splits_seen.add(split)
         log("kernels", f"{case.name} {kind} batch {b} {shape}: out "
-            f"{tuple(got.shape)}, equal, max_abs_err {err[case.name]}")
+            f"{tuple(got.shape)}, equal, max_abs_err {err[case.name]}"
+            + (f", K split over {split} blocks" if split else ""))
+    if splits_seen - {None} != {1, 2, 4, 8}:
+        raise AssertionError(f"the dense cases reached the splits "
+                             f"{sorted(splits_seen - {None})}, not 1, 2, 4 and 8")
+
+
+DENSE_NAMES = ("xnor_dense_fused", "ternary_dense_fused", "plane_dense_fused")
+
+
+def dense_split(torch, name: str, m: int, shape) -> int | None:
+    """The blocks a tile's K is split over in the dense kernel
+    (``expand_mma_dense.cu``) for a call of ``name`` at batch ``m`` and
+    shape (K, N), as its wrapper picks them on this card; None for another
+    kernel."""
+    from qnx_torch.kernels.xnor_conv_fused import dense_splits
+
+    if name not in DENSE_NAMES:
+        return None
+    k, n = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dense_splits(m, n, -(-k // 32), sms)
+
+
+def dense_cases() -> list:
+    """The dense kernels of A, A' and D beside their served shapes: M = 1,
+    17, 100, 300; K of one K step or less (100), of 13 words (392: one word
+    a step, a ragged split), 1024 and 8192; N = 1, 10, 33, 130, 1024, 4096;
+    so that the wrappers pick each split, 1, 2, 4 and 8 blocks a tile; D
+    with 1 to 8 planes and 1 to 255 thresholds (16 and more from L1)."""
+    shapes = [(m, s) for m in (1, 17, 100, 300)
+              for s in ((100, 10), (392, 33), (1024, 130), (8192, 1))]
+    shapes += [(300, (1024, 1024)), (300, MLP_HIDDEN), (17, (4096, 4096))]
+    cases = [(kind, m, s) for kind in ("dense", "ternary_dense") for m, s in shapes]
+    return cases + [("plane_dense-1-1", 1, (392, 33)),
+                    ("plane_dense-2-3", 17, (1024, 130)),
+                    ("plane_dense-3-7", 100, (8192, 1)),
+                    ("plane_dense-4-15", 300, (1024, 1024)),
+                    ("plane_dense-5-31", 300, (392, 10)),
+                    ("plane_dense-6-63", 17, MLP_HIDDEN),
+                    ("plane_dense-7-127", 100, (100, 130)),
+                    ("plane_dense-8-255", 300, MLP_HIDDEN),
+                    ("plane_dense-8-255", 1, (1024, 33)),
+                    ("plane_dense-2-1", TIME_BATCH, MLP_HIDDEN)]
 
 
 def ternary_vgg_cases() -> list:
@@ -1135,7 +1197,8 @@ def phase_times(torch, card: str, models: dict) -> dict:
     two bit-plane VGGs, one plane and two), the scan shape aside."""
     rng = np.random.default_rng(11)
     total = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                        ops_bound_ms=0.0, bytes_bound_ms=0.0) for name in KERNELS}
+                        ops_bound_ms=0.0, bytes_bound_ms=0.0, graph_ms=0.0,
+                        library_graph_ms=0.0) for name in KERNELS}
     b = TIME_BATCH
     # (kind, batch, shape, layers of this shape in the served paths)
     cases = [("conv", b, s, 1) for s in CONV_SHAPES]
@@ -1181,11 +1244,21 @@ def phase_times(torch, card: str, models: dict) -> dict:
         t["bound_ms"] += layers * max(ops_ms, bytes_ms)
         t["ops_bound_ms" if ops_ms >= bytes_ms else "bytes_bound_ms"] += (
             layers * max(ops_ms, bytes_ms))
+        graph_txt = ""
+        if case.name in DENSE_NAMES:  # calls shorter than a host launch
+            g = graph_ms(case.kern, lib)
+            t["graph_ms"] += layers * g["kernel"]["median"]
+            t["library_graph_ms"] += layers * g["library"]["median"]
+            graph_txt = ("; CUDA graph replays: " + "; ".join(
+                f"{what} {fmt_graph(g[what])}" for what in ("kernel", "library"))
+                + f"; factor {g['kernel']['median'] / g['library']['median']:.3f}"
+                + f"; K split over {dense_split(torch, case.name, m, shape)} blocks")
         log("times", f"{card} | {case.name} {kind} batch {m} {shape}: kernel "
             f"{fmt(kt)}; plain {fmt(pt)}; {lib_txt}; bound "
             f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
-            f"{bytes_ms:.4f})")
-        l2 = tile_bytes(case.name, m, shape) if layers else None
+            f"{bytes_ms:.4f}){graph_txt}")
+        planes = int(kind.split("-")[1]) if kind.startswith("plane_") else 1
+        l2 = tile_bytes(case.name, m, shape, planes) if layers else None
         if l2:
             log("times", f"{case.name} {kind} batch {m} {shape}: its blocks copy "
                 f"{l2 / 1e6:.1f} MB from L2 for {case.macs / 1e9:.2f} GMAC "
@@ -1206,8 +1279,30 @@ def phase_times(torch, card: str, models: dict) -> dict:
         f"layer shapes (the measurement path's kernels at one call): " + "; ".join(
             f"{k} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
             f"library {v['library_ms'] or 0:.4f} ms, bound {v['bound_ms']:.4f} ms"
+            + (f", graph replays kernel {v['graph_ms']:.4f} ms, library "
+               f"{v['library_graph_ms']:.4f} ms" if k in DENSE_NAMES else "")
             for k, v in total.items()))
     return total
+
+
+def graph_ms(kern: Callable, lib: Callable, iters: int = 20, repeats: int = 7) -> dict:
+    """The marginal device time of a call of ``kern`` and of ``lib`` as CUDA
+    graph replays (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`
+    with ``graph=True``: no host launch in the timed chain), interleaved;
+    ``{"kernel"|"library": summary}`` in ms."""
+    from qnx_torch.bench.microbench import time_fns_marginal_interleaved
+
+    out = time_fns_marginal_interleaved(
+        {"kernel": (kern, ()), "library": (lib, ())}, iters=iters,
+        repeats=repeats, graph=True)
+    return {what: dict(r, t=r["t"] * 1e3, median=r["median"] * 1e3,
+                       samples=[v * 1e3 for v in r["samples"]])
+            for what, r in out.items()}
+
+
+def fmt_graph(r: dict) -> str:
+    return (f"median {r['median']:.4f} ms (min-based {r['t']:.4f}, spread "
+            f"{r['spread']:.3f}, n={len(r['samples'])})")
 
 
 def phase_twin(torch, card: str, model) -> None:
@@ -1428,22 +1523,42 @@ def stages_plane(torch, card: str, model, rng) -> None:
     engine_rate(card, "cifar10_tnn", model, rng, (32, 32, 3))
 
 
+def ab_shapes(kind: str) -> list:
+    """The shapes ``--ab`` times a kind at: the dense kinds (``dense``,
+    ``ternary_dense``, ``plane_dense-P-T``) at the VGG's dense layers and
+    the MLPs' hidden layer, the conv kinds at the five VGG convs."""
+    if kind.split("-")[0] in ("dense", "ternary_dense", "plane_dense"):
+        return [*DENSE_SHAPES, MLP_HIDDEN]
+    return CONV_SHAPES
+
+
 def ab_child(kinds: str, root: str) -> int:
-    """One run of ``--ab``: time each kind of ``kinds`` at CONV_SHAPES at
-    batch TIME_BATCH with the ``qnx_torch`` of checkout ``root``; print the
-    medians as JSON."""
+    """One run of ``--ab``: time each kind of ``kinds`` at its
+    :func:`ab_shapes` at batch TIME_BATCH with the ``qnx_torch`` of
+    checkout ``root``, per call (CUDA events around 20 calls, median of 7)
+    and as CUDA graph replays (the marginal median of 7), after one call
+    held against the plain version; print them as JSON."""
     root = Path(root).resolve()
     sys.path.insert(0, str(root))
     import torch
     import qnx_torch
+    from qnx_torch.bench.microbench import time_fns_marginal_interleaved
 
     if not Path(qnx_torch.__file__).resolve().is_relative_to(root):
         raise AssertionError(f"imported {qnx_torch.__file__}, not {root}'s")
     rng = np.random.default_rng(0)
-    ms = {kind: [statistics.median(time_ms(
-        torch, make_case(torch, rng, kind, TIME_BATCH, s).kern, 20))
-        for s in CONV_SHAPES] for kind in kinds.split(",")}
-    print(json.dumps(ms))
+    out = {}
+    for kind in kinds.split(","):
+        row = out.setdefault(kind, {"ms": [], "graph_ms": [], "equal": True})
+        for shape in ab_shapes(kind):
+            case = make_case(torch, rng, kind, TIME_BATCH, shape)
+            kern = case.kern
+            row["equal"] &= bool(torch.equal(kern(), case.plain()))
+            row["ms"].append(statistics.median(time_ms(torch, kern, 20)))
+            g = time_fns_marginal_interleaved({"kernel": (kern, ())}, iters=20,
+                                              repeats=7, graph=True)
+            row["graph_ms"].append(g["kernel"]["median"] * 1e3)
+    print(json.dumps(out))
     return 0
 
 
@@ -1452,17 +1567,27 @@ def ab(kinds: str, roots: list[str]) -> int:
     its own; one line per run and kind."""
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
+    failed = 0
     for i, root in enumerate(roots):
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                                "--ab-child", kinds, root], capture_output=True,
                               text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{root}: exit {proc.returncode}\n{proc.stderr}")
-        for kind, ms in json.loads(proc.stdout.strip().splitlines()[-1]).items():
-            print(f"{card} | run {i} {root}: {kind} conv_1..conv_5 at batch "
-                  f"{TIME_BATCH}: " + ", ".join(f"{t:.4f}" for t in ms)
-                  + f" ms; sum {sum(ms):.4f} ms", flush=True)
-    return 0
+        if proc.returncode != 0:  # the other checkouts still run
+            failed += 1
+            print(f"{card} | run {i} {root}: exit {proc.returncode}\n"
+                  f"{proc.stderr[-3000:]}", flush=True)
+            continue
+        for kind, row in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            shapes = ab_shapes(kind)
+            print(f"{card} | run {i} {root}: {kind} at batch {TIME_BATCH}, "
+                  f"shapes {shapes}: per call " + ", ".join(
+                      f"{t:.4f}" for t in row["ms"]) + f" ms, sum "
+                  f"{sum(row['ms']):.4f} ms; graph replays " + ", ".join(
+                      f"{t:.4f}" for t in row["graph_ms"]) + f" ms, sum "
+                  f"{sum(row['graph_ms']):.4f} ms; "
+                  + ("equal to the plain version" if row["equal"] else
+                     "DIFFERS from the plain version"), flush=True)
+    return 1 if failed else 0
 
 
 def main(argv: list[str]) -> int:

@@ -10,7 +10,11 @@ the output written once) at the device-memory rate, the bound
 cores (±1 or level activations against ±1 or ternary weights), so each is
 held to that rate.  A second, labelled column holds the popcount kernels to
 the popc issue rate that ``qnx_torch.experiments.vpu_probe`` measured, the
-ceiling of a kernel that stays on the CUDA cores.
+ceiling of a kernel that stays on the CUDA cores.  The fused dense
+kernels of A, A' and D (on the int8 tensor cores since they were
+redesigned) run in a few microseconds at the served batch of 256, less than
+a host launch through their Python wrappers, so they and their library
+call are timed as CUDA graph replays.
 
     python -m qnx_torch.bench.roofline          # table on stdout, JSON rows on stderr
 
@@ -94,6 +98,9 @@ class KernelResult:
 CONV_SHAPES = [(32, 128, 128, True, "conv2"),
                (16, 256, 256, True, "conv4"),
                (8, 512, 512, True, "conv6")]
+#: (K, N, tag) per measured dense layer, at the engine's batch DENSE_BATCH
+DENSE_SHAPES = [(4096, 4096, "MNIST hidden"), (8192, 1024, "VGG dense_0")]
+DENSE_BATCH = 256
 
 
 def _nbytes(*tensors) -> int:
@@ -101,11 +108,13 @@ def _nbytes(*tensors) -> int:
 
 
 def _measure(results: list, name: str, fn, inputs: list, macs: int, peak_key: str,
-             iters, repeats, device, popc_per_mac: float = 0.0) -> None:
-    """Time ``fn()`` and append its :class:`KernelResult`; bytes are the
-    inputs' and the output's."""
+             iters, repeats, device, popc_per_mac: float = 0.0,
+             graph: bool = False) -> None:
+    """Time ``fn()`` (``graph``: as CUDA graph replays) and append its
+    :class:`KernelResult`; bytes are the inputs' and the output's."""
     out = fn()
-    t = time_fn_marginal(fn, iters=iters, repeats=repeats, device=device)
+    t = time_fn_marginal(fn, iters=iters, repeats=repeats, device=device,
+                         graph=graph)
     results.append(KernelResult(name, t, macs, _nbytes(*inputs, out), peak_key,
                                 popc_per_mac=popc_per_mac))
 
@@ -113,6 +122,8 @@ def _measure(results: list, name: str, fn, inputs: list, macs: int, peak_key: st
 def measure_kernels(batch: int = 1024, iters: int | None = None,
                     repeats: int = 5, gemm_k: int = 4096, gemm_n: int = 4096,
                     conv_shapes: list | None = None,
+                    dense_shapes: list | None = None,
+                    dense_batch: int = DENSE_BATCH,
                     device="cuda") -> list[KernelResult]:
     """Measure the port's hot kernels at the JAX report's shapes: kernels
     B and C at ``batch`` x ``gemm_k`` x ``gemm_n``, E, A and A' at
@@ -120,13 +131,20 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
     on the same int8 products (the library GEMM alone, no gather, epilogue
     or pool: the counterpart of the JAX report's XLA rows) and a bf16
     ``torch.matmul`` calibration row at 2 ``batch`` x ``gemm_k`` x
-    ``gemm_n`` (the JAX report's 2048 x 4096 x 4096 at the defaults)."""
+    ``gemm_n`` (the JAX report's 2048 x 4096 x 4096 at the defaults); and
+    the fused dense kernels of A, A' and D (two planes, three thresholds)
+    at ``dense_batch`` x ``dense_shapes`` (default :data:`DENSE_SHAPES`)
+    beside ``torch._int_mm``, all four as CUDA graph replays."""
     from qnx_torch.kernels.i8_conv_fused import i8_conv_fused, k_major
+    from qnx_torch.kernels.plane_gemm import plane_dense_fused
     from qnx_torch.kernels.ternary_gemm import ternary_gemm
     from qnx_torch.kernels.xnor_conv import (pack_conv_ternary_np,
                                              pack_conv_weights_np,
                                              padding_correction)
-    from qnx_torch.kernels.xnor_conv_fused import ternary_conv_fused, xnor_conv_fused
+    from qnx_torch.kernels.xnor_conv_fused import (ternary_conv_fused,
+                                                   ternary_gemm_fused,
+                                                   xnor_conv_fused,
+                                                   xnor_gemm_fused)
     from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
     from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
 
@@ -187,6 +205,36 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
         _measure(out, f"ternary conv fused [A'] {shape}",
                  lambda: ternary_conv_fused(xpb, *tplanes, corr, sgn, tau, pool=pool),
                  [xpb, *tplanes, corr, sgn, tau], macs, "int8_macs", **timing)
+
+    # the fused dense layers on the int8 tensor cores and the library GEMM
+    # on the same int8 product, as graph replays
+    graphed = dict(timing, graph=True)
+    m = dense_batch
+    for k, n, tag in DENSE_SHAPES if dense_shapes is None else dense_shapes:
+        shape, macs = f"{tag} {m}x{k}x{n}", m * k * n
+        x8, w8 = pm1((m, k)), pm1((k, n))
+        a8, b8t = dev(x8), dev(np.ascontiguousarray(w8.T))
+        _measure(out, f"int8 GEMM torch._int_mm {shape} (library)",
+                 lambda: torch._int_mm(a8, b8t.t()), [a8, b8t], macs, "int8_macs",
+                 **graphed)
+        sgn = dev(rng.choice(np.array([-1, 1], np.int32), n))
+        tau = dev(rng.integers(-20, 20, n).astype(np.int32))
+        xp, wp = dev(pack_bits_np(x8, -1)), dev(pack_bits_np(w8, 0))
+        _measure(out, f"xnor dense fused [A] {shape}",
+                 lambda: xnor_gemm_fused(xp, wp, k, sgn, tau),
+                 [xp, wp, sgn, tau], macs, "int8_macs", **graphed)
+        wt = np.where(rng.random((k, n)) < 0.5, 0, w8).astype(np.float32)
+        tplanes = [dev(a) for a in pack_ternary_np(wt, 0)]
+        _measure(out, f"ternary dense fused [A'] {shape}",
+                 lambda: ternary_gemm_fused(xp, *tplanes, sgn, tau),
+                 [xp, *tplanes, sgn, tau], macs, "int8_macs", **graphed)
+        lvl = rng.integers(0, 4, (m, k))
+        planes = dev(np.stack([pack_bits_np((lvl >> j) & 1, -1) for j in range(2)]))
+        mask, msign = tplanes[0], tplanes[0] & tplanes[1]
+        taus = dev(np.sort(rng.integers(-60, 60, (3, n)), axis=0).astype(np.int32))
+        _measure(out, f"plane dense fused [D] P=2 {shape}",
+                 lambda: plane_dense_fused(planes, mask, msign, sgn, taus),
+                 [planes, mask, msign, sgn, taus], macs, "int8_macs", **graphed)
 
     # calibration: a bf16 GEMM against the bf16 tensor-core rate
     cm, ck, cn = 2 * batch, gemm_k, gemm_n

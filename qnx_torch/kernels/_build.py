@@ -29,15 +29,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each C entry point in csrc/*.cu
 _SIGNATURES = {
-    "qnx_xnor_dense_fused": [_P] * 5 + [_I] * 4 + [_P],
-    "qnx_ternary_dense_fused": [_P] * 7 + [_I] * 3 + [_P],
+    "qnx_xnor_dense_fused": [_P] * 5 + [_I] * 5 + [_P],
+    "qnx_ternary_dense_fused": [_P] * 7 + [_I] * 4 + [_P],
     "qnx_xnor_conv3x3_fused": [_P] * 6 + [_I] * 7 + [_P],
     "qnx_xnor_gemm_popcount": [_P] * 3 + [_I] * 4 + [_P],
     "qnx_ternary_gemm": [_P] * 5 + [_I] * 3 + [_P],
     "qnx_i8_conv3x3_fused": [_P] * 5 + [_I] * 8 + [_P],
     "qnx_ternary_conv3x3_fused": [_P] * 8 + [_I] * 6 + [_P],
     "qnx_plane_conv3x3_fused": [_P] * 6 + [_I] * 8 + [_P],
-    "qnx_plane_dense_fused": [_P] * 6 + [_I] * 5 + [_P],
+    "qnx_plane_dense_fused": [_P] * 6 + [_I] * 6 + [_P],
     "qnx_plane_gemm": [_P] * 4 + [_I] * 4 + [_P],
     "qnx_gemm_outer": [_P] * 3 + [_I] * 6 + [_P],
     "qnx_gemm_outer_acc": [_P] * 3 + [_I] * 7 + [_P],

@@ -23,10 +23,11 @@ writes as many planes as it reads.
 
 The JAX layers run one Pallas GEMM per plane and leave the plane sum, the
 thresholds, the pool and the plane packing to XLA.  Here one CUDA kernel
-launch does all of it per layer, with three entries: the conv on the int8
-tensor cores (``csrc/expand_mma_conv.cu``: the planes expand to u8 levels
-and the weight planes to s8 inside the kernel, one product whatever P), the
-dense layer and the head by popcount (``csrc/plane_fused.cu``):
+launch does all of it per layer, with three entries: the conv and the dense
+layer on the int8 tensor cores (``csrc/expand_mma_conv.cu``,
+``csrc/expand_mma_dense.cu``: the planes expand to u8 levels and the weight
+planes to s8 inside the kernel, one product whatever P), the head by
+popcount (``csrc/plane_fused.cu``):
 
 * :func:`plane_conv_fused`: (P, B, H, W, Cw) planes -> (P, B, H', W', Nw);
 * :func:`plane_dense_fused`: (P, M, Kw) planes -> (P, M, Nw);
@@ -47,6 +48,7 @@ from qnx_torch.ops.reference import bitplane_gemm_ref
 from . import _build
 from .i8_conv_fused import multi_threshold, pool_codes
 from .xnor_conv import extract_packed_patches
+from .xnor_conv_fused import card_splits
 
 # |s| <= K * (2^P - 1) must stay in int32, and the level in P bits
 MAX_PLANES = 8
@@ -233,7 +235,8 @@ def plane_dense_fused(planes: torch.Tensor, mask: torch.Tensor,
                       device=planes.device)
     if out.numel():
         _build.launch("qnx_plane_dense_fused", planes.device, planes, mask,
-                      msign, sgn, tau, out, p, m, kw, n, tau.shape[0])
+                      msign, sgn, tau, out, p, m, kw, n, tau.shape[0],
+                      card_splits(planes.device, m, n, kw))
         plane_dense_fused.launches += 1
     return out
 

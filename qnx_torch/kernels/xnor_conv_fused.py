@@ -1,4 +1,4 @@
-"""Fused packed popcount dense and 3x3 conv with the integer threshold
+"""Fused packed binary and ternary dense and 3x3 conv with the integer threshold
 epilogue (torch port of :mod:`qnx.kernels.xnor_conv_fused`: the binary and
 the ternary branch, dense and conv).
 
@@ -12,9 +12,10 @@ Unlike the JAX wrappers, which return int8 codes for XLA to pool and repack,
 these return the packed output words, ``pack_bits`` of the codes along the
 channel axis, (..., ceil(N/32)) with the pad bits of the last word 0: the
 CUDA kernels gather the conv patches, pool and repack themselves.  Any N is
-allowed.  The convs, binary and ternary, run on the int8 tensor cores
-(``csrc/expand_mma_conv.cu``: bits and weight planes expand to s8 inside
-the kernel), the dense layers by popcount (``csrc/xnor_fused.cu``).
+allowed.  All four run on the int8 tensor cores, the bits and weight planes
+expanded to s8 inside the kernel: the convs in ``csrc/expand_mma_conv.cu``,
+the dense layers in ``csrc/expand_mma_dense.cu``, whose K is split over the
+blocks of a cluster (:func:`dense_splits`).
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
 version (``*_ref``) only for a tensor on the CPU.  ``launches`` on each
@@ -22,6 +23,8 @@ wrapper counts kernel launches, so a run can show that it went through the
 kernels.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -46,6 +49,39 @@ def _threshold_pack(s: torch.Tensor, sgn: torch.Tensor,
 # ---------------------------------------------------------------------------
 # dense: (M, Kw) x (Kw, N) -> (M, ceil(N/32)) packed words
 # ---------------------------------------------------------------------------
+
+# csrc/expand_mma_dense.cu: a tile's rows and channels, the most blocks of
+# a cluster, and the fewest K steps a split leaves each block
+DENSE_TILE = 128
+MAX_SPLITS = 8
+MIN_SPLIT_STEPS = 2
+
+
+def dense_splits(m: int, n: int, kw: int, sms: int) -> int:
+    """The blocks of a cluster that share one output tile of the dense
+    kernels (``csrc/expand_mma_dense.cu``), each summing its share of the K
+    steps: the largest power of two up to :data:`MAX_SPLITS` that keeps the
+    blocks within one wave of the card's ``sms`` and leaves each block at
+    least :data:`MIN_SPLIT_STEPS` of the K steps (4 words a step where Kw %
+    4 == 0, else 1)."""
+    tiles = -(-m // DENSE_TILE) * -(-n // DENSE_TILE)
+    steps = kw // 4 if kw % 4 == 0 else kw
+    splits = 1
+    while (splits < MAX_SPLITS and 2 * splits * tiles <= sms
+           and 2 * splits * MIN_SPLIT_STEPS <= steps):
+        splits *= 2
+    return splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_splits(device: torch.device, m: int, n: int, kw: int) -> int:
+    """:func:`dense_splits` on the card that holds the operands."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return dense_splits(m, n, kw, _sms(index))
 
 def xnor_gemm_fused_ref(xp: torch.Tensor, wp: torch.Tensor, k: int,
                         sgn: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
@@ -75,7 +111,7 @@ def xnor_gemm_fused(xp: torch.Tensor, wp: torch.Tensor, k: int,
     out = torch.empty((m, packed_len(n)), dtype=torch.int32, device=xp.device)
     if out.numel():
         _build.launch("qnx_xnor_dense_fused", xp.device, xp, wp, sgn, tau, out,
-                      m, kw, n, k)
+                      m, kw, n, k, card_splits(xp.device, m, n, kw))
         xnor_gemm_fused.launches += 1
     return out
 
@@ -111,7 +147,7 @@ def ternary_gemm_fused(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
     out = torch.empty((m, packed_len(n)), dtype=torch.int32, device=xp.device)
     if out.numel():
         _build.launch("qnx_ternary_dense_fused", xp.device, xp, mask, sign, nnz,
-                      sgn, tau, out, m, kw, n)
+                      sgn, tau, out, m, kw, n, card_splits(xp.device, m, n, kw))
         ternary_gemm_fused.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 """qnx_torch's roofline report (:mod:`qnx_torch.bench.roofline`): the
 ``KernelResult`` arithmetic, compute- and memory-bound, with the popc
 column, and ``measure_kernels`` on the CPU route at tiny shapes (structure
-only: CPU times are no roofline)."""
+only: CPU times are no roofline), the fused dense rows included."""
 import numpy as np
 import pytest
 import torch
@@ -11,7 +11,8 @@ from qnx_torch.bench.roofline import H100_PEAKS, KernelResult, main, measure_ker
 torch.set_num_threads(2)
 
 TINY = dict(batch=2, iters=2, repeats=1, gemm_k=64, gemm_n=64,
-            conv_shapes=[(8, 32, 32, True, "tiny")], device="cpu")
+            conv_shapes=[(8, 32, 32, True, "tiny")],
+            dense_shapes=[(96, 40, "tiny dense")], dense_batch=3, device="cpu")
 
 
 def test_kernel_result_roofline_math():
@@ -42,7 +43,7 @@ def test_measure_kernels_smoke_tiny():
                  "[E fused]", "xnor conv fused [A]", "ternary conv fused [A']",
                  "calibration"):
         assert any(part in n for n in names), part
-    assert len(rows) == 3 + 4 + 1
+    assert len(rows) == 3 + 4 + 4 + 1
     assert all(np.isfinite(r.t_measured_s) for r in rows)
     assert all(np.isfinite(r.speed_of_light) and r.bytes_moved > 0 for r in rows)
     conv_a = next(r for r in rows if "[A]" in r.name)
@@ -61,3 +62,21 @@ def test_main_prints_the_table(capsys):
     out = capsys.readouterr()
     assert "not a device measurement" in out.out
     assert len(out.err.strip().splitlines()) == len(rows)
+
+
+def test_measure_kernels_dense_rows():
+    """The fused dense kernels of A, A' and D beside ``torch._int_mm`` at
+    the dense shape: on the int8 tensor cores, so no popc ceiling; their
+    MACs and bytes (packed inputs, thresholds, packed output words)."""
+    rows = measure_kernels(**TINY)
+    dense = [r for r in rows if "tiny dense" in r.name]
+    assert [r.name.split(" 3x")[0] for r in dense] == [
+        "int8 GEMM torch._int_mm tiny dense", "xnor dense fused [A] tiny dense",
+        "ternary dense fused [A'] tiny dense",
+        "plane dense fused [D] P=2 tiny dense"]
+    assert all(r.macs == 3 * 96 * 40 and r.t_popc is None for r in dense)
+    kw, nw = 3, 2  # 96 bits in 3 words, 40 channels in 2 words
+    a = dense[1]
+    assert a.bytes_moved == 4 * (3 * kw + kw * 40 + 2 * 40 + 3 * nw)
+    d = dense[3]
+    assert d.bytes_moved == 4 * (2 * 3 * kw + 2 * kw * 40 + 40 + 3 * 40 + 2 * 3 * nw)
