@@ -15,8 +15,9 @@ Drives the port's served paths through the hand-written CUDA kernels in
 * ``cifar10-tnn`` through the bit-plane engine (``pack_vgg_bitplane``,
   ``PlaneVGG``): one {0,1} plane and one threshold per channel at its abits
   2, and two planes, three thresholds and the integer head at abits 3, every
-  plane conv, dense layer and the head through kernel D (the convs on the
-  int8 tensor cores, ``expand_mma_conv.cu``);
+  plane conv and dense layer through kernel D (on the int8 tensor cores,
+  ``expand_mma_conv.cu``, ``expand_mma_dense.cu``) and the head through
+  ``popcount_head.cu`` (as the MLPs' heads: a warp a row, the affine fused);
 * ``cifar10-tnn`` at abits 1, the ternary packed VGG (``pack_vgg``): every
   hidden conv and dense layer through the ternary branch of kernel A (A';
   the convs on the int8 tensor cores, ``expand_mma_conv.cu``),
@@ -25,17 +26,22 @@ each with random weights from seed 0, built on the card by the converters'
 default and served by ``qnx_torch.serve.ServeEngine``; and the measurement
 path, ``python -m qnx_torch.experiments.{gemm_shootout, xnor_sol_variants,
 vpu_probe}`` and ``python -m qnx_torch.bench.roofline``, through the
-popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
+popcount-GEMM formulations F1-F4 and G, kernels B and C at wide N and the
+integer probe H.  Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
 2. build: compile the kernels, with the ptxas register and spill report
    and the SASS counts per K step of the tensor-core kernels' K loops (the
    A, A', D and E convs and the A, A' and D dense layers: IGMMA, POPC,
    LOP3, LDGSTS, ...); each must issue IGMMA and no POPC or IMMA there;
-3. kernels: each of the sixteen kernels against its plain PyTorch version
+3. kernels: each of the eighteen kernels against its plain PyTorch version
    on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
-   cases and any N (8, 48, 1, 10, 33, 130); the A, A' and D dense layers
+   cases and any N (8, 48, 1, 10, 33, 130); the three integer heads' int32
+   s and logits (exactly equal) at the MLPs' and the abits-3 VGG's head
+   shapes, D's head with 1, 2, 3 and 8 planes, and on the ragged shapes of
+   F1-F4 (M = 1, 3, 37, 130, 257; K % 32 != 0; N = 1, 10, 33, 128), nnz off
+   the mask's count, msign bits outside the mask; the A, A' and D dense layers
    also at M = 1, 17, 100, 300, Kw % 4 != 0, N = 1, 10, 33, 130 and each
    split of a tile's K the wrappers pick (1, 2, 4 and 8 blocks, all
    required); kernel E in the pm1 encoding
@@ -51,7 +57,7 @@ popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
    int32 s and int8 codes must be equal;
 4. slice: for each path, 600 uint8 requests through the engine; every
    request answered, each layer's words or codes and each integer head's
-   int32 s equal to the plain path's, logits equal to the plain path's and
+   int32 s and logits equal to the plain path's, the logits also
    to the JAX package's committed golden logits, and each kernel's launch
    count equal to layers x batches (counts set to 0 just before each path
    and read just after);
@@ -59,15 +65,16 @@ popcount-GEMM formulations F1-F4 and G and the integer probe H.  Phases:
    0 just before and read just after: the shootout at its four full shapes
    with every candidate equal to kernel B, the accumulator scan, the probe's
    six modes with the SM clock and SASS counts, the roofline table; each of
-   F1-F4, G and H must have launched;
+   F1-F4, G, H and B and C (at wide N) must have launched;
 6. times: each kernel against its plain version and against one library
    call (``torch._int_mm`` on the same product, unpacked to int8) at batch
    256 (the packed GEMMs and the formulations at 1024x4096x4096, H at the
    JAX probe's 4096x1024; kernel E on K-major weights made beforehand, as
    ``I8Conv`` holds them, so its row is the kernel alone), each path's
    forward, and the int8 VGG against the strict-f32 float twin at batch
-   256 and 1024, with CUDA events; the dense kernels and their library
-   calls also as CUDA graph replays, which leave out the host's launch;
+   256 and 1024, with CUDA events; the dense kernels, the integer heads
+   and their library calls also as CUDA graph replays, which leave out the
+   host's launch;
 7. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches.
@@ -86,10 +93,15 @@ binary conv, ``ternary_conv`` for the A' conv, ``plane_conv-P-T`` for D,
 ``i8conv-pm1`` and ``i8conv-levels3`` for E in the pm1 encoding and in
 levels with 3 thresholds, at the five VGG conv shapes; ``dense``,
 ``ternary_dense`` and ``plane_dense-P-T`` for the A, A' and D dense
-layers, at the VGG's two dense shapes and the MLPs' hidden shape) at batch
-256 on the same seeded operands (E's K-major weights made beforehand where
-the checkout's wrapper takes them), per call and as CUDA graph replays.
-Run it as parent, change, change, parent.
+layers, at the VGG's two dense shapes and the MLPs' hidden shape; ``head``,
+``ternary_head`` and ``plane_head-P`` for the integer heads' modules,
+``PackedDenseLogits``, ``TernaryDenseLogits`` and ``PlaneDenseLogits`` with
+P planes, their int32 s and their logits, at the MLPs' and the abits-3
+VGG's head shapes; ``forward-PATH`` for the whole forward of the path
+``mnist_bnn``, ``mnist_tnn`` or ``cifar10_tnn_a3``) at batch 256 on the
+same seeded operands (E's K-major weights made beforehand where the
+checkout's wrapper takes them), per call and (but for a forward) as CUDA
+graph replays.  Run it as parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -159,6 +171,12 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                            "qnx/kernels/xnor_gemm.py:73"),
     "ternary_gemm": ("qnx_torch/kernels/csrc/popcount_gemm.cu",
                      "qnx/kernels/ternary_gemm.py:29"),
+    "xnor_head": ("qnx_torch/kernels/csrc/popcount_head.cu",
+                  "qnx/kernels/xnor_gemm.py:73"),
+    "ternary_head": ("qnx_torch/kernels/csrc/popcount_head.cu",
+                     "qnx/kernels/ternary_gemm.py:29"),
+    "plane_head": ("qnx_torch/kernels/csrc/popcount_head.cu",
+                   "qnx/kernels/plane_gemm.py:32"),
     "i8_conv3x3_fused": ("qnx_torch/kernels/csrc/i8_conv_fused.cu",
                          "qnx/kernels/i8_conv_fused.py:40"),
     "ternary_conv3x3_fused": ("qnx_torch/kernels/csrc/expand_mma_conv.cu",
@@ -167,8 +185,6 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                             "qnx/kernels/plane_gemm.py:32"),
     "plane_dense_fused": ("qnx_torch/kernels/csrc/expand_mma_dense.cu",
                           "qnx/kernels/plane_gemm.py:32"),
-    "plane_gemm": ("qnx_torch/kernels/csrc/plane_fused.cu",
-                   "qnx/kernels/plane_gemm.py:32"),
     "gemm_outer": ("qnx_torch/kernels/csrc/gemm_formulations.cu",
                    "experiments/gemm_shootout.py:36"),
     "gemm_outer_acc": ("qnx_torch/kernels/csrc/gemm_formulations.cu",
@@ -182,10 +198,14 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "int_chain": ("qnx_torch/kernels/csrc/int_probe.cu",
                   "experiments/vpu_probe.py:50"),
 }
-# the kernels that the measurement path (phase 5) runs; the others run on
-# the slices (phase 4)
-MEASURED = ("gemm_outer", "gemm_outer_acc", "gemm_chunk3d", "gemm_lanered",
-            "xnor_multiacc", "int_chain")
+# the kernels that the measurement path (phase 5) runs (B and C at wide N);
+# the others run on the slices (phase 4)
+MEASURED = ("xnor_gemm_popcount", "ternary_gemm", "gemm_outer",
+            "gemm_outer_acc", "gemm_chunk3d", "gemm_lanered", "xnor_multiacc",
+            "int_chain")
+# the integer heads' kernel entries (popcount_head.cu), by make_case kind
+HEADS = {"head": "xnor_head", "ternary_head": "ternary_head",
+         "plane_head": "plane_head"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -208,19 +228,21 @@ def wrappers() -> dict:
     from qnx_torch.kernels import xnor_conv_fused as F
     from qnx_torch.kernels.i8_conv_fused import i8_conv_fused
     from qnx_torch.kernels.int_probe import int_chain
-    from qnx_torch.kernels.ternary_gemm import ternary_gemm
-    from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
+    from qnx_torch.kernels.ternary_gemm import ternary_gemm, ternary_head
+    from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount, xnor_head
 
     return {"xnor_conv3x3_fused": F.xnor_conv_fused,
             "xnor_dense_fused": F.xnor_gemm_fused,
             "ternary_dense_fused": F.ternary_gemm_fused,
             "xnor_gemm_popcount": xnor_gemm_popcount,
             "ternary_gemm": ternary_gemm,
+            "xnor_head": xnor_head,
+            "ternary_head": ternary_head,
+            "plane_head": D.plane_head,
             "i8_conv3x3_fused": i8_conv_fused,
             "ternary_conv3x3_fused": F.ternary_conv_fused,
             "plane_conv3x3_fused": D.plane_conv_fused,
             "plane_dense_fused": D.plane_dense_fused,
-            "plane_gemm": D.plane_gemm,
             "gemm_outer": G.gemm_outer,
             "gemm_outer_acc": G.gemm_outer_acc,
             "gemm_chunk3d": G.gemm_chunk3d,
@@ -418,7 +440,9 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
     from qnx_torch.kernels import xnor_conv_fused as F
     from qnx_torch.kernels import xnor_gemm as X
 
-    if kind.startswith("plane_"):  # plane_{conv,dense,gemm}-P[-n_thresh]
+    if kind.split("-")[0] in HEADS:
+        return head_case(torch, rng, kind, b, shape)
+    if kind.startswith("plane_"):  # plane_{conv,dense}-P-n_thresh
         return plane_case(torch, rng, kind, b, shape)
     if kind.split("-")[0] in FORMULATIONS or kind.startswith("int_chain-"):
         return measured_case(torch, rng, kind, b, shape)
@@ -479,13 +503,13 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
 
 def plane_case(torch, rng, kind: str, b: int, shape) -> Case:
     """A :class:`Case` of kernel D: ``plane_conv-P-T`` (shape (H, W, C, N,
-    pool)), ``plane_dense-P-T`` or ``plane_gemm-P`` (shape (K, N)) with P
-    planes and T thresholds.  The library call is one ``_int_mm`` on the
-    planes' levels."""
+    pool)) or ``plane_dense-P-T`` (shape (K, N)) with P planes and T
+    thresholds.  The library call is one ``_int_mm`` on the planes'
+    levels."""
     from qnx_torch.kernels import plane_gemm as D
 
-    name, p, *rest = kind.split("-")
-    p, n_thresh = int(p), int(rest[0]) if rest else 0
+    name, p, n_thresh = kind.split("-")
+    p, n_thresh = int(p), int(n_thresh)
     lib = dict(levels=p, weights="ternary")
     if name == "plane_conv":
         h, w, c, n, pool = shape
@@ -496,12 +520,65 @@ def plane_case(torch, rng, kind: str, b: int, shape) -> Case:
                     b * h * w * 9 * c * n, (b * h * w, 9 * c, n), lib)
     k, n = shape
     args = plane_operands(torch, rng, p, n_thresh, (b,), k, n, conv=False)
-    work = dict(macs=b * k * n, mkn=(b, k, n), lib=lib)
-    if name == "plane_dense":
-        return Case("plane_dense_fused", lambda: D.plane_dense_fused(*args),
-                    lambda: D.plane_dense_fused_ref(*args), True, args, **work)
-    return Case("plane_gemm", lambda: D.plane_gemm(*args),
-                lambda: D.plane_gemm_ref(*args), False, args, **work)
+    return Case("plane_dense_fused", lambda: D.plane_dense_fused(*args),
+                lambda: D.plane_dense_fused_ref(*args), True, args,
+                b * k * n, (b, k, n), lib)
+
+
+def head_case(torch, rng, kind: str, b: int, shape) -> Case:
+    """A :class:`Case` of an integer logit head through its module as the
+    checkout defines it: ``head`` (``PackedDenseLogits``),
+    ``ternary_head[-nnz]`` (``TernaryDenseLogits``; ``-nnz``: nnz off the
+    mask's count) or ``plane_head-P[-outside]`` (``PlaneDenseLogits`` over P
+    planes; ``-outside``: msign bits outside the mask), at shape (K, N) or
+    (K, N, "s" | "logits"): the module's int32 s (``scores``) or its forward,
+    the logits (the default).  ``-fn`` calls the wrapper instead
+    (``xnor_head``, ``ternary_head``, ``plane_head``; ``plane_gemm`` for D's
+    s), which makes the K-major weights per call.  The plain version is the
+    GEMM's plain version and the float64 affine.  The library call is one
+    ``_int_mm`` on the same product, N padded to 16 (s only)."""
+    from qnx_torch.kernels import plane_gemm as D
+    from qnx_torch.kernels import ternary_gemm as T
+    from qnx_torch.kernels import xnor_gemm as X
+    from qnx_torch.nn import inference as I
+
+    k, n, *out = shape
+    name, *opts = kind.split("-")
+    affine = getattr(X, "affine", None) or I._affine  # a checkout from before
+    a = cuda(torch, rng.uniform(-0.1, 0.1, n).astype(np.float32))
+    c = cuda(torch, rng.uniform(-2, 2, n).astype(np.float32))
+    work = dict(macs=b * k * n, mkn=(b, k, n))
+    if name == "head":
+        x, wp, k, _, _ = dense_operands(torch, rng, b, k, n)
+        head = I.PackedDenseLogits(wp, a, c, k)
+        s_ref, weights = (lambda: X.xnor_gemm_popcount_ref(x, wp, k)), [wp]
+        fn = lambda *ac: X.xnor_head(x, wp, k, *ac)
+    elif name == "ternary_head":
+        x, mask, sign, nnz, _, _ = ternary_operands(torch, rng, b, k, n)
+        if "nnz" in opts:
+            nnz = nnz + cuda(torch, rng.integers(-5, 6, n).astype(np.int32))
+        head = I.TernaryDenseLogits(mask, sign, nnz, a, c)
+        s_ref = lambda: T.ternary_gemm_ref(x, mask, sign, nnz)
+        fn = lambda *ac: T.ternary_head(x, mask, sign, nnz, *ac)
+        weights, work["lib"] = [mask, sign, nnz], dict(weights="ternary")
+    else:
+        p = int(opts[0])
+        x, mask, msign = plane_operands(torch, rng, p, 0, (b,), k, n, conv=False)
+        if "outside" in opts:
+            noise = rng.integers(I32_MIN, I32_MAX, tuple(mask.shape), dtype=np.int32,
+                                 endpoint=True)
+            msign = msign | (cuda(torch, noise) & ~mask)
+        head = I.PlaneDenseLogits(mask, msign, a, c)
+        s_ref, weights = (lambda: D.plane_gemm_ref(x, mask, msign)), [mask, msign]
+        work["lib"] = dict(levels=p, weights="ternary")
+        fn = lambda *ac: (D.plane_head(x, mask, msign, *ac) if ac
+                          else D.plane_gemm(x, mask, msign))
+    if "fn" not in opts:
+        fn = lambda *ac: head(x) if ac else head.scores(x)
+    if out == ["s"]:
+        return Case(HEADS[name], fn, s_ref, False, [x, *weights], **work)
+    return Case(HEADS[name], lambda: fn(a, c), lambda: affine(a, s_ref(), c),
+                False, [x, *weights, a, c], **work)
 
 
 # kind prefix of make_case -> the KERNELS name, also its wrapper's in
@@ -546,10 +623,36 @@ def measured_case(torch, rng, kind: str, m, shape) -> Case:
                 m * k * n, (m, k, n))
 
 
+# (M, (K, N)): ragged M and K (k % 32 != 0), N = 1, 10, 33, 128, the MNIST
+# head's 256 x 4096 x 10 and the scan shape
+RAGGED_SHAPES = [(3, (100, 1)), (37, (153, 10)), (130, (1000, 33)),
+                 (257, (4000, 128)), (256, (4096, 10)), (1024, (4096, 4096))]
+
+
+def head_cases() -> list:
+    """The three integer heads, their int32 s and their logits, at the MLPs'
+    and the abits-3 VGG's head shapes at batch 32 and 256 (D's with 1, 2, 3
+    and 8 planes), and on :data:`RAGGED_SHAPES` and M = 1 with nnz off the
+    mask's count and msign bits outside the mask (D at 3 and 8 planes); and
+    the wrappers called without the heads' K-major copy."""
+    cases = []
+    for out in ("s", "logits"):
+        for b in (CHECK_BATCH, TIME_BATCH):
+            cases += [("head", b, (*MLP_HEAD, out)),
+                      ("ternary_head", b, (*MLP_HEAD, out))]
+            cases += [(f"plane_head-{p}", b, (*PLANE_HEAD, out)) for p in (1, 2, 3, 8)]
+        for m, (k, n) in [*RAGGED_SHAPES, (1, (100, 10)), (1, (4096, 33))]:
+            cases += [("head", m, (k, n, out)), ("ternary_head-nnz", m, (k, n, out)),
+                      (f"plane_head-{3 if m % 2 else 8}-outside", m, (k, n, out))]
+        # the wrappers themselves, with the K-major weights made per call
+        cases += [(kind, 37, (153, 10, out)) for kind in
+                  ("head-fn", "ternary_head-fn", "plane_head-1-fn", "plane_head-2-fn")]
+    return cases
+
+
 def measured_cases() -> list:
-    """F1-F4 and G at every geometry the shootout sweeps, on ragged M and K
-    (k % 32 != 0, zero pad bits) with N = 1, 10, 33, 128, the MNIST head's
-    256 x 4096 x 10 and the scan shape; H in every mode at every compiled
+    """F1-F4 and G at every geometry the shootout sweeps, on
+    :data:`RAGGED_SHAPES` (zero pad bits); H in every mode at every compiled
     length on a ragged count of elements."""
     from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels.int_probe import MODES, REPS
@@ -559,9 +662,7 @@ def measured_cases() -> list:
     kinds += [f"chunk3d-{bm}x{bn}x{kc}" for bm, bn, kc in G.CHUNK3D_GEOMETRIES]
     kinds += [f"lanered-{r}x{c}" for r, c in G.LANERED_GEOMETRIES]
     kinds += [f"multiacc-{a}" for a in G.NACCS]
-    shapes = [(3, (100, 1)), (37, (153, 10)), (130, (1000, 33)),
-              (257, (4000, 128)), (TIME_BATCH, MLP_HEAD), SCAN]
-    cases = [(kind, m, s) for kind in kinds for m, s in shapes]
+    cases = [(kind, m, s) for kind in kinds for m, s in RAGGED_SHAPES]
     return cases + [(f"int_chain-{mode}-{reps}", None, (37, 29))
                     for mode in MODES for reps in REPS]
 
@@ -611,7 +712,7 @@ def compare(torch, err: dict, name: str, got, want, words: bool, what: str) -> N
     """Record the max abs error of ``got`` against ``want`` under ``name``
     and raise unless they are equal."""
     e = (word_err(torch, got, want) if words
-         else float((got.long() - want.long()).abs().max()))
+         else float((got.double() - want.double()).abs().max()))
     err[name] = max(err[name], e)
     if got.shape != want.shape or not torch.equal(got, want):
         raise AssertionError(f"{name} {what}: kernel output differs from the "
@@ -771,7 +872,8 @@ def phase_kernels(torch, err: dict) -> None:
                                         (3, (5, 7, 6, 10, True)),
                                         (2, (4, 4, 20, 300, False)))
               for kind in i8]
-    cases += ternary_vgg_cases() + plane_cases() + dense_cases() + measured_cases()
+    cases += (ternary_vgg_cases() + plane_cases() + dense_cases() + head_cases()
+              + measured_cases())
     splits_seen = set()
     for kind, b, shape in cases:
         case = make_case(torch, rng, kind, b, shape)
@@ -795,6 +897,8 @@ def phase_kernels(torch, err: dict) -> None:
 
 
 DENSE_NAMES = ("xnor_dense_fused", "ternary_dense_fused", "plane_dense_fused")
+# the kernels phase 6 also times as CUDA graph replays
+GRAPH_NAMES = (*DENSE_NAMES, *HEADS.values())
 
 
 def dense_split(torch, name: str, m: int, shape) -> int | None:
@@ -853,7 +957,7 @@ def ternary_vgg_cases() -> list:
 def plane_cases() -> list:
     """D at the bit-plane VGGs' shapes at batch 32 and 256: one plane and
     one threshold (``cifar10-tnn``), two planes and three thresholds (abits
-    3) and the abits-3 head; then 1 to 8 planes with 1 to 255 thresholds
+    3); then 1 to 8 planes with 1 to 255 thresholds
     (levels to 255, the u8 operand's top bit), ragged batch, odd spatial, C
     not a multiple of 32 or of 128, N = 8, 10, 33, 48, K not a multiple of
     32."""
@@ -863,7 +967,6 @@ def plane_cases() -> list:
                   for s in CONV_SHAPES]
         cases += [(f"plane_dense-{pt}", b, s) for pt in ("1-1", "2-3")
                   for s in DENSE_SHAPES]
-        cases.append(("plane_gemm-2", b, PLANE_HEAD))
     cases += [("plane_conv-2-1", CHECK_BATCH, CONV_SHAPES[0]),
               ("plane_conv-3-3", CHECK_BATCH, CONV_SHAPES[1]),
               ("plane_conv-3-7", CHECK_BATCH, CONV_SHAPES[2]),
@@ -883,10 +986,7 @@ def plane_cases() -> list:
               ("plane_dense-3-7", 3, (100, 48)),
               ("plane_dense-2-3", 37, (96, 33)),
               ("plane_dense-1-1", 5, (100, 10)),
-              ("plane_dense-5-31", 3, (64, 8)),
-              ("plane_gemm-1", 3, (100, 10)),
-              ("plane_gemm-3", 3, (100, 33)),
-              ("plane_gemm-2", 37, DENSE_SHAPES[0])]
+              ("plane_dense-5-31", 3, (64, 8))]
     return cases
 
 
@@ -996,8 +1096,8 @@ def plain_vgg_forward(torch, model, x, err: dict):
 
 def plain_plane_forward(torch, model, x, err: dict):
     """The bit-plane VGG forward with each plane layer and the integer
-    head's GEMM run both ways on the same input planes: planes and int32 s
-    must be equal."""
+    head run both ways on the same input planes: planes, the head's int32 s
+    and its logits must be equal."""
     from qnx_torch.kernels import plane_gemm as D
     from qnx_torch.nn.inference import PlaneDenseLogits
 
@@ -1015,15 +1115,27 @@ def plain_plane_forward(torch, model, x, err: dict):
         compare(torch, err, "plane_dense_fused", got, planes, True, f"dense_{j}")
     head = model.head
     if isinstance(head, PlaneDenseLogits):
-        s = D.plane_gemm_ref(planes, head.mask, head.msign)
-        compare(torch, err, "plane_gemm", head.scores(planes), s, False, "head s")
-        return head.logits(s)
+        return plain_head(torch, err, "plane_head", head, planes,
+                          D.plane_gemm_ref(planes, head.mask, head.msign))
     return head(planes)
 
 
+def plain_head(torch, err: dict, name: str, head, x, s):
+    """Hold an integer head's int32 s (``scores``) and logits (its forward,
+    one launch) against the plain ``s`` and its float64 affine; return the
+    plain logits."""
+    from qnx_torch.kernels.xnor_gemm import affine
+
+    compare(torch, err, name, head.scores(x), s, False, "head s")
+    logits = affine(head.a, s, head.c)
+    compare(torch, err, name, head(x), logits, False, "head logits")
+    return logits
+
+
 def plain_mlp_forward(torch, model, x, err: dict):
-    """The MLP forward with each hidden layer and the head's integer GEMM
-    run both ways on the same input bits: words and int32 s must equal."""
+    """The MLP forward with each hidden layer and the integer head run both
+    ways on the same input bits: words, the head's int32 s and its logits
+    must be equal."""
     from qnx_torch.kernels import xnor_conv_fused as F
     from qnx_torch.kernels.ternary_gemm import ternary_gemm_ref
     from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount_ref
@@ -1042,15 +1154,11 @@ def plain_mlp_forward(torch, model, x, err: dict):
                                          layer.tau)
         compare(torch, err, name, got, bits, True, f"dense_{i}")
     head = model.head
-    got = head.scores(bits)
     if isinstance(head, TernaryDenseLogits):
-        name = "ternary_gemm"
-        s = ternary_gemm_ref(bits, head.mask, head.sign, head.nnz)
-    else:
-        name = "xnor_gemm_popcount"
-        s = xnor_gemm_popcount_ref(bits, head.wp, head.k)
-    compare(torch, err, name, got, s, False, "head s")
-    return head.logits(s)
+        return plain_head(torch, err, "ternary_head", head, bits,
+                          ternary_gemm_ref(bits, head.mask, head.sign, head.nnz))
+    return plain_head(torch, err, "xnor_head", head, bits,
+                      xnor_gemm_popcount_ref(bits, head.wp, head.k))
 
 
 def exact_dot(torch, x8, w8):
@@ -1107,9 +1215,9 @@ def phase_slices(torch, err: dict):
     paths = [("cifar10_bnn", CIFAR10_BNN, pack_vgg, plain_vgg_forward,
               {"xnor_conv3x3_fused": 5, "xnor_dense_fused": 2}),
              ("mnist_bnn", MNIST_BNN, pack_mlp, plain_mlp_forward,
-              {"xnor_dense_fused": 2, "xnor_gemm_popcount": 1}),
+              {"xnor_dense_fused": 2, "xnor_head": 1}),
              ("mnist_tnn", MNIST_TNN, pack_mlp, plain_mlp_forward,
-              {"ternary_dense_fused": 2, "ternary_gemm": 1}),
+              {"ternary_dense_fused": 2, "ternary_head": 1}),
              ("cifar10_bnn_int8", CIFAR10_BNN, pack_int8, plain_i8_forward,
               {"i8_conv3x3_fused": 5}),
              ("cifar10_tnn_int8", CIFAR10_TNN, pack_int8, plain_i8_forward,
@@ -1119,7 +1227,7 @@ def phase_slices(torch, err: dict):
               {"plane_conv3x3_fused": 5, "plane_dense_fused": 2}),
              ("cifar10_tnn_a3", CIFAR10_TNN.replace(abits=3, last_layer_float=False),
               pack_vgg_bitplane, plain_plane_forward,
-              {"plane_conv3x3_fused": 5, "plane_dense_fused": 2, "plane_gemm": 1}),
+              {"plane_conv3x3_fused": 5, "plane_dense_fused": 2, "plane_head": 1}),
              ("cifar10_tnn_a1", CIFAR10_TNN.replace(abits=1), pack_vgg,
               plain_vgg_forward,
               {"ternary_conv3x3_fused": 5, "ternary_dense_fused": 2})]
@@ -1194,7 +1302,9 @@ def phase_times(torch, card: str, models: dict) -> dict:
     sums, per kernel, the medians and the bound over every layer of every
     path at batch 256 (a per-forward figure of each path, summed over the
     paths; kernel E's over the two int8 VGGs, pm1 and levels; D's over the
-    two bit-plane VGGs, one plane and two), the scan shape aside."""
+    two bit-plane VGGs, one plane and two; the heads' logits, their int32
+    s aside), the measurement path's kernels (B and C among them) at one
+    call at the scan shape."""
     rng = np.random.default_rng(11)
     total = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_bound_ms=0.0, bytes_bound_ms=0.0, graph_ms=0.0,
@@ -1203,12 +1313,18 @@ def phase_times(torch, card: str, models: dict) -> dict:
     # (kind, batch, shape, layers of this shape in the served paths)
     cases = [("conv", b, s, 1) for s in CONV_SHAPES]
     cases += [("dense", b, s, 1) for s in DENSE_SHAPES]
-    cases += [("dense", b, MLP_HIDDEN, 2), ("ternary_dense", b, MLP_HIDDEN, 2),
-              ("popcount", b, MLP_HEAD, 1), ("ternary", b, MLP_HEAD, 1)]
+    cases += [("dense", b, MLP_HIDDEN, 2), ("ternary_dense", b, MLP_HIDDEN, 2)]
+    # the served heads: the logits (one launch each) and the int32 s; B and
+    # C at the MLP head's shape, for comparison
+    cases += [(kind, b, (*shape, out), int(out == "logits"))
+              for out in ("logits", "s")
+              for kind, shape in (("head", MLP_HEAD), ("ternary_head", MLP_HEAD),
+                                  ("plane_head-2", PLANE_HEAD))]
+    cases += [("popcount", b, MLP_HEAD, 0), ("ternary", b, MLP_HEAD, 0)]
     cases += [(kind, b, s, 1) for kind in ("i8conv-pm1", "i8conv-levels1")
               for s in CONV_SHAPES]
-    cases += [(kind, SCAN[0], SCAN[1], 0)
-              for kind in ("ternary_dense", "popcount", "ternary")]
+    cases += [("ternary_dense", SCAN[0], SCAN[1], 0)]
+    cases += [(kind, SCAN[0], SCAN[1], 1) for kind in ("popcount", "ternary")]
     # the ternary VGG's A' layers, and D at the bit-plane VGGs' layers: one
     # plane and one threshold, then two planes, three thresholds and the head
     cases += [(kind, b, s, 1) for kind, shapes in (("ternary_conv", CONV_SHAPES),
@@ -1217,7 +1333,6 @@ def phase_times(torch, card: str, models: dict) -> dict:
     cases += [(f"plane_{layer}-{pt}", b, s, 1) for pt in ("1-1", "2-3")
               for layer, shapes in (("conv", CONV_SHAPES), ("dense", DENSE_SHAPES))
               for s in shapes]
-    cases.append(("plane_gemm-2", b, PLANE_HEAD, 1))
     # the measurement path's kernels: each formulation's default geometry
     # at the scan shape, H's popc chain at the JAX probe's size
     cases += [(kind, SCAN[0], SCAN[1], 1) for kind in MEASURED_TIMED]
@@ -1245,14 +1360,15 @@ def phase_times(torch, card: str, models: dict) -> dict:
         t["ops_bound_ms" if ops_ms >= bytes_ms else "bytes_bound_ms"] += (
             layers * max(ops_ms, bytes_ms))
         graph_txt = ""
-        if case.name in DENSE_NAMES:  # calls shorter than a host launch
+        if case.name in GRAPH_NAMES:  # calls shorter than a host launch
             g = graph_ms(case.kern, lib)
             t["graph_ms"] += layers * g["kernel"]["median"]
             t["library_graph_ms"] += layers * g["library"]["median"]
+            split = dense_split(torch, case.name, m, shape)
             graph_txt = ("; CUDA graph replays: " + "; ".join(
                 f"{what} {fmt_graph(g[what])}" for what in ("kernel", "library"))
                 + f"; factor {g['kernel']['median'] / g['library']['median']:.3f}"
-                + f"; K split over {dense_split(torch, case.name, m, shape)} blocks")
+                + (f"; K split over {split} blocks" if split else ""))
         log("times", f"{card} | {case.name} {kind} batch {m} {shape}: kernel "
             f"{fmt(kt)}; plain {fmt(pt)}; {lib_txt}; bound "
             f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
@@ -1280,7 +1396,7 @@ def phase_times(torch, card: str, models: dict) -> dict:
             f"{k} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
             f"library {v['library_ms'] or 0:.4f} ms, bound {v['bound_ms']:.4f} ms"
             + (f", graph replays kernel {v['graph_ms']:.4f} ms, library "
-               f"{v['library_graph_ms']:.4f} ms" if k in DENSE_NAMES else "")
+               f"{v['library_graph_ms']:.4f} ms" if k in GRAPH_NAMES else "")
             for k, v in total.items()))
     return total
 
@@ -1415,9 +1531,8 @@ def phase_stages(torch, card: str, models: dict) -> None:
         for i, layer in enumerate(model.hidden, 1):
             stages.append((f"dense_{i} kernel", lambda l=layer, a=bits: l(a)))
             bits = layer(bits)
-        s = head.scores(bits)
-        stages += [("head kernel", lambda a=bits: head.scores(a)),
-                   ("head: affine", lambda: head.logits(s))]
+        stages += [("head kernel: int32 s", lambda a=bits: head.scores(a)),
+                   ("head kernel: logits", lambda a=bits: head(a))]
     time_stages(torch, card, "mnist_bnn", model, x, stages)
     engine_rate(card, "mnist_bnn", model, rng, (28, 28, 1))
 
@@ -1526,10 +1641,37 @@ def stages_plane(torch, card: str, model, rng) -> None:
 def ab_shapes(kind: str) -> list:
     """The shapes ``--ab`` times a kind at: the dense kinds (``dense``,
     ``ternary_dense``, ``plane_dense-P-T``) at the VGG's dense layers and
-    the MLPs' hidden layer, the conv kinds at the five VGG convs."""
-    if kind.split("-")[0] in ("dense", "ternary_dense", "plane_dense"):
+    the MLPs' hidden layer, the head kinds (``head``, ``ternary_head``,
+    ``plane_head-P``) at their head shape, the int32 s and the logits, the
+    conv kinds at the five VGG convs; a ``forward-PATH`` kind at its path."""
+    prefix = kind.split("-")[0]
+    if prefix == "forward":
+        return [kind.split("-", 1)[1]]
+    if prefix in ("dense", "ternary_dense", "plane_dense"):
         return [*DENSE_SHAPES, MLP_HIDDEN]
+    if prefix in HEADS:
+        shape = PLANE_HEAD if prefix == "plane_head" else MLP_HEAD
+        return [(*shape, "s"), (*shape, "logits")]
     return CONV_SHAPES
+
+
+def forward_case(torch, name: str):
+    """The ``--ab`` kind ``forward-NAME``: the served path NAME's model
+    (``mnist_bnn``, ``mnist_tnn``, ``cifar10_tnn_a3``) as the checkout's
+    converter builds it from seed 0, a batch of TIME_BATCH of its
+    normalized requests (the golden's first), and the golden logits."""
+    from qnx_torch.convert.pack_model import pack_mlp, pack_vgg_bitplane
+    from qnx_torch.models.factory import init_variables
+    from qnx_torch.serve.engine import normalize_u8
+    from qnx_torch.utils.config import CIFAR10_TNN, MNIST_BNN, MNIST_TNN
+
+    cf, pack = {"mnist_bnn": (MNIST_BNN, pack_mlp),
+                "mnist_tnn": (MNIST_TNN, pack_mlp),
+                "cifar10_tnn_a3": (CIFAR10_TNN.replace(abits=3, last_layer_float=False),
+                                   pack_vgg_bitplane)}[name]
+    gold = golden(name)
+    x = normalize_u8(cuda(torch, requests(cf, gold)[:TIME_BATCH]))
+    return pack(init_variables(cf, seed=0), cf), x, gold["logits"]
 
 
 def ab_child(kinds: str, root: str) -> int:
@@ -1537,7 +1679,10 @@ def ab_child(kinds: str, root: str) -> int:
     :func:`ab_shapes` at batch TIME_BATCH with the ``qnx_torch`` of
     checkout ``root``, per call (CUDA events around 20 calls, median of 7)
     and as CUDA graph replays (the marginal median of 7), after one call
-    held against the plain version; print them as JSON."""
+    held against the plain version (a forward: its logits against the JAX
+    golden's, within the slices' tolerance; per call only, since a
+    forward's ``pack_bits`` copies its shift table from the host, which a
+    graph cannot capture); print them as JSON."""
     root = Path(root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -1551,10 +1696,20 @@ def ab_child(kinds: str, root: str) -> int:
     for kind in kinds.split(","):
         row = out.setdefault(kind, {"ms": [], "graph_ms": [], "equal": True})
         for shape in ab_shapes(kind):
-            case = make_case(torch, rng, kind, TIME_BATCH, shape)
-            kern = case.kern
-            row["equal"] &= bool(torch.equal(kern(), case.plain()))
+            if kind.startswith("forward-"):
+                model, x, gold = forward_case(torch, shape)
+                kern = lambda: model(x)
+                got = kern()[:len(gold)].cpu().numpy()
+                row["equal"] &= bool(np.allclose(
+                    got, gold, rtol=LOGIT_RTOL,
+                    atol=LOGIT_ATOL_REL * float(np.abs(gold).max())))
+            else:
+                case = make_case(torch, rng, kind, TIME_BATCH, shape)
+                kern = case.kern
+                row["equal"] &= bool(torch.equal(kern(), case.plain()))
             row["ms"].append(statistics.median(time_ms(torch, kern, 20)))
+            if kind.startswith("forward-"):
+                continue
             g = time_fns_marginal_interleaved({"kernel": (kern, ())}, iters=20,
                                               repeats=7, graph=True)
             row["graph_ms"].append(g["kernel"]["median"] * 1e3)
@@ -1582,11 +1737,14 @@ def ab(kinds: str, roots: list[str]) -> int:
             print(f"{card} | run {i} {root}: {kind} at batch {TIME_BATCH}, "
                   f"shapes {shapes}: per call " + ", ".join(
                       f"{t:.4f}" for t in row["ms"]) + f" ms, sum "
-                  f"{sum(row['ms']):.4f} ms; graph replays " + ", ".join(
+                  f"{sum(row['ms']):.4f} ms; "
+                  + (("graph replays " + ", ".join(
                       f"{t:.4f}" for t in row["graph_ms"]) + f" ms, sum "
-                  f"{sum(row['graph_ms']):.4f} ms; "
-                  + ("equal to the plain version" if row["equal"] else
-                     "DIFFERS from the plain version"), flush=True)
+                      f"{sum(row['graph_ms']):.4f} ms; ") if row["graph_ms"] else "")
+                  + (f"{'' if row['equal'] else 'NOT '}within the slices' "
+                     f"tolerance of the JAX golden" if kind.startswith("forward-")
+                     else "equal to the plain version" if row["equal"]
+                     else "DIFFERS from the plain version"), flush=True)
     return 1 if failed else 0
 
 

@@ -38,7 +38,9 @@ _SIGNATURES = {
     "qnx_ternary_conv3x3_fused": [_P] * 8 + [_I] * 6 + [_P],
     "qnx_plane_conv3x3_fused": [_P] * 6 + [_I] * 8 + [_P],
     "qnx_plane_dense_fused": [_P] * 6 + [_I] * 6 + [_P],
-    "qnx_plane_gemm": [_P] * 4 + [_I] * 4 + [_P],
+    "qnx_xnor_head": [_P] * 5 + [_I] * 4 + [_P],
+    "qnx_ternary_head": [_P] * 6 + [_I] * 3 + [_P],
+    "qnx_plane_head": [_P] * 5 + [_I] * 4 + [_P],
     "qnx_gemm_outer": [_P] * 3 + [_I] * 6 + [_P],
     "qnx_gemm_outer_acc": [_P] * 3 + [_I] * 7 + [_P],
     "qnx_gemm_chunk3d": [_P] * 3 + [_I] * 7 + [_P],

@@ -10,20 +10,19 @@
 //
 // Pad bits are 0 in both binary operands, so they XOR to 0; ternary pad words
 // are 0 in the mask plane.  So k is the true reduction length and nothing is
-// corrected.  The packed models use them for the logit heads (PackedDenseLogits,
-// TernaryDenseLogits), where a float affine a*s + c follows in torch.
+// corrected.  They serve the measurement path at wide N (the shootout's
+// baseline, the accumulator scan, the roofline); the models' logit heads
+// (PackedDenseLogits, TernaryDenseLogits), at N = 10, run popcount_head.cu.
 //
 // Layout: popcount_rows.cuh's: one lane per output column, 4 rows per
-// thread, 8 warps per block.  One layout for every shape: at the MLP heads'
-// N = 10 it leaves 22 of 32 lanes idle and launches 8 blocks for M = 256,
-// so it is bound by the latency of the 128-word loop on 8 SMs (0.02-0.05
-// ms on an H100 SXM at 700 W); at wide N (1024 x 4096 x 4096) it is bound
+// thread, 8 warps per block.  At wide N (1024 x 4096 x 4096) it is bound
 // by popc issue, 16 per clock per SM at compute capability 9.0, with one
 // coalesced weight load and four broadcast activation loads per four
-// popcounts (0.71-0.83 of that bound on the same card).  A warp per output
-// with the words split across lanes would suit N = 10 better and wide N
-// worse; shared-memory tiles and the b1 tensor-core MMA are later work.  Lanes with column >= N return at once:
-// these kernels have no ballot, so any N, down to 1, is allowed.
+// popcounts (0.71-0.83 of that bound on an H100 SXM at 700 W); at N = 10
+// it leaves 22 of 32 lanes idle, hence popcount_head.cu's warp per row.
+// Shared-memory tiles and the b1 tensor-core MMA are later work.  Lanes
+// with column >= N return at once: these kernels have no ballot, so any N,
+// down to 1, is allowed.
 #include <cuda_runtime.h>
 
 #include "popcount_rows.cuh"

@@ -1,6 +1,6 @@
 // Launch geometry and inner loop shared by the popcount GEMMs with int32
-// out (popcount_gemm.cu: kernels B and C; plane_fused.cu: D's head) and
-// kernel G (gemm_formulations.cu).
+// out at wide N (popcount_gemm.cu: kernels B and C) and kernel G
+// (gemm_formulations.cu).
 //
 // One lane owns one output column, one warp 32 consecutive columns, and each
 // thread kDenseRows rows: per packed word it loads one weight word (the warp's

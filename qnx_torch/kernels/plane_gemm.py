@@ -22,17 +22,20 @@ kernel E's epilogue helpers (``multi_threshold``, ``pool_codes``).  A layer
 writes as many planes as it reads.
 
 The JAX layers run one Pallas GEMM per plane and leave the plane sum, the
-thresholds, the pool and the plane packing to XLA.  Here one CUDA kernel
-launch does all of it per layer, with three entries: the conv and the dense
-layer on the int8 tensor cores (``csrc/expand_mma_conv.cu``,
-``csrc/expand_mma_dense.cu``: the planes expand to u8 levels and the weight
-planes to s8 inside the kernel, one product whatever P), the head by
-popcount (``csrc/plane_fused.cu``):
+thresholds, the pool and the plane packing (or the head's affine) to XLA.
+Here one CUDA kernel launch does all of it per layer, with three entries:
+the conv and the dense layer on the int8 tensor cores
+(``csrc/expand_mma_conv.cu``, ``csrc/expand_mma_dense.cu``: the planes
+expand to u8 levels and the weight planes to s8 inside the kernel, one
+product whatever P), the head by popcount (``csrc/popcount_head.cu``, a
+warp a row, the planes summed in registers):
 
 * :func:`plane_conv_fused`: (P, B, H, W, Cw) planes -> (P, B, H', W', Nw);
 * :func:`plane_dense_fused`: (P, M, Kw) planes -> (P, M, Nw);
-* :func:`plane_gemm`: (P, M, Kw) planes -> (M, N) int32 s (the integer head;
-  a 2-D (M, Kw) input is one plane, the JAX ``plane_gemm``).
+* :func:`plane_head`: (P, M, Kw) planes -> (M, N) int32 s, or float32
+  logits ``a * s + c`` (the integer head, ``PlaneDenseLogits``; a 2-D
+  (M, Kw) input is one plane); :func:`plane_gemm` is its int32 s on the
+  (Kw, N) weights, the JAX ``plane_gemm`` summed over the planes.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (``*_ref``: unpack to {0,1} and {-1, 0, +1}, float32 matmul per
@@ -49,6 +52,7 @@ from . import _build
 from .i8_conv_fused import multi_threshold, pool_codes
 from .xnor_conv import extract_packed_patches
 from .xnor_conv_fused import card_splits
+from .xnor_gemm import affine, check_head, head_out, k_major
 
 # |s| <= K * (2^P - 1) must stay in int32, and the level in P bits
 MAX_PLANES = 8
@@ -108,29 +112,58 @@ def _check_levels(name: str, p: int, n: int, sgn, tau) -> None:
                          f"levels of {p} planes")
 
 
+def plane_head_ref(planes: torch.Tensor, mask: torch.Tensor,
+                   msign: torch.Tensor, a=None, c=None) -> torch.Tensor:
+    """Plain version of :func:`plane_head`: :func:`plane_gemm_ref`, then
+    :func:`~qnx_torch.kernels.xnor_gemm.affine` where ``a`` and ``c`` are
+    given."""
+    s = plane_gemm_ref(planes, mask, msign)
+    return s if a is None else affine(a, s, c)
+
+
+def plane_head(planes: torch.Tensor, mask: torch.Tensor, msign: torch.Tensor,
+               a=None, c=None, *, wt=None) -> torch.Tensor:
+    """Bit-plane logit head: (M, N) int32 ``s = sum_j 2^j t_j``, or float32
+    logits ``a * s + c`` where ``a`` and ``c`` are given, in one launch.
+
+    Args:
+      planes: (P, M, Kw) int32 packed {0,1} activation planes, or (M, Kw)
+              for one plane.
+      mask, msign: (Kw, N) int32 weight planes (msign = mask & sign; bits
+              outside the mask count as weight 2, as in the plain version).
+      a, c:   (N,) float32 affine, or None for s.
+      wt:     ``k_major(mask, msign)``, made once by the caller
+              (``PlaneDenseLogits`` holds it); made per call without it.
+    """
+    x = _as_planes(planes)
+    p = _check("plane_head", x, mask, msign, x.shape[-1])
+    (_, m, kw), n = x.shape, mask.shape[1]
+    if not check_head("plane_head", x, kw, n, 2**p - 1, a, c, wt,
+                      {"mask": mask, "msign": msign}):
+        return plane_head_ref(x, mask, msign, a, c)
+    out = head_out(x, m, n, a)
+    if out.numel():
+        _build.launch("qnx_plane_head", x.device, x,
+                      k_major(mask, msign) if wt is None else wt, a, c, out, p,
+                      m, kw, n)
+        plane_head.launches += 1
+    return out
+
+
+plane_head.launches = 0
+
+
 def plane_gemm(planes: torch.Tensor, mask: torch.Tensor,
                msign: torch.Tensor) -> torch.Tensor:
-    """Bit-plane GEMM summed over the planes -> (M, N) int32 ``s``.
+    """Bit-plane GEMM summed over the planes -> (M, N) int32 ``s``: the int32
+    epilogue of :func:`plane_head` (its launches count there).
 
     Args:
       planes: (P, M, Kw) int32 packed {0,1} activation planes, or (M, Kw)
               for one plane.
       mask, msign: (Kw, N) int32 weight planes (msign = mask & sign).
     """
-    x = _as_planes(planes)
-    p = _check("plane_gemm", x, mask, msign, x.shape[-1])
-    if not _build.check_operands("plane_gemm", x, mask=mask, msign=msign):
-        return plane_gemm_ref(x, mask, msign)
-    (_, m, kw), n = x.shape, mask.shape[1]
-    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    if out.numel():
-        _build.launch("qnx_plane_gemm", x.device, x, mask, msign, out, p, m,
-                      kw, n)
-        plane_gemm.launches += 1
-    return out
-
-
-plane_gemm.launches = 0
+    return plane_head(planes, mask, msign)
 
 
 def plane_conv(planes: torch.Tensor, mask: torch.Tensor, msign: torch.Tensor,

@@ -7,9 +7,13 @@ sign bits:
 
     s[m, n] = nnz[n] - 2 * sum_kw popcount(mask[kw, n] & (xp[m, kw] ^ sign[kw, n]))
 
-:func:`ternary_gemm` launches the CUDA kernel of ``csrc/popcount_gemm.cu``
-for a CUDA tensor and runs its plain version, :func:`ternary_gemm_ref`, only
-for a tensor on the CPU; ``ternary_gemm.launches`` counts kernel launches.
+Two wrappers launch two CUDA kernels: :func:`ternary_gemm`, the GEMM of
+``csrc/popcount_gemm.cu`` at wide N (the measurement path), and
+:func:`ternary_head`, ``csrc/popcount_head.cu``'s ternary logit head
+(``TernaryDenseLogits``: int32 s or the logits ``a * s + c`` in one launch,
+on the weight planes K-major).  Each launches its kernel for a CUDA tensor
+and runs its plain version (``*_ref``) only for a tensor on the CPU;
+``launches`` on each counts kernel launches.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 
 from qnx_torch.ops.packing import WORD, unpack_bits
 from . import _build
+from .xnor_gemm import affine, check_head, head_out, k_major
 
 
 def ternary_gemm_ref(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
@@ -66,3 +71,43 @@ def ternary_gemm(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
 
 
 ternary_gemm.launches = 0
+
+
+def ternary_head_ref(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
+                     nnz: torch.Tensor, a=None, c=None) -> torch.Tensor:
+    """Plain version of :func:`ternary_head`: :func:`ternary_gemm_ref`, then
+    :func:`~qnx_torch.kernels.xnor_gemm.affine` where ``a`` and ``c`` are
+    given."""
+    s = ternary_gemm_ref(xp, mask, sign, nnz)
+    return s if a is None else affine(a, s, c)
+
+
+def ternary_head(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
+                 nnz: torch.Tensor, a=None, c=None, *, wt=None) -> torch.Tensor:
+    """Ternary logit head: (M, N) int32 s, or float32 logits ``a * s + c``
+    where ``a`` and ``c`` are given, in one launch.
+
+    Args:
+      xp:   (M, Kw) int32 packed ±1 activation rows.
+      mask, sign: (Kw, N) int32 weight planes packed along K.
+      nnz:  (N,) int32 base of each column (its nonzero count; taken as
+            given).
+      a, c: (N,) float32 affine, or None for s.
+      wt:   ``k_major(mask, sign)``, made once by the caller
+            (``TernaryDenseLogits`` holds it); made per call without it.
+    """
+    check_planes("ternary_head", xp, mask, sign, nnz)
+    (m, kw), n = xp.shape, mask.shape[1]
+    if not check_head("ternary_head", xp, kw, n, 1, a, c, wt,
+                      {"mask": mask, "sign": sign}, nnz=nnz):
+        return ternary_head_ref(xp, mask, sign, nnz, a, c)
+    out = head_out(xp, m, n, a)
+    if out.numel():
+        _build.launch("qnx_ternary_head", xp.device, xp,
+                      k_major(mask, sign) if wt is None else wt, nnz, a, c, out,
+                      m, kw, n)
+        ternary_head.launches += 1
+    return out
+
+
+ternary_head.launches = 0

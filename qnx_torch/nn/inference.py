@@ -27,12 +27,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from qnx_torch.kernels.plane_gemm import (levels_to_planes, plane_conv_fused,
-                                          plane_dense_fused, plane_gemm)
-from qnx_torch.kernels.ternary_gemm import ternary_gemm
+                                          plane_dense_fused, plane_head)
+from qnx_torch.kernels.ternary_gemm import ternary_head
 from qnx_torch.kernels.xnor_conv_fused import (ternary_conv_fused,
                                                ternary_gemm_fused,
                                                xnor_conv_fused, xnor_gemm_fused)
-from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
+from qnx_torch.kernels.xnor_gemm import k_major, xnor_head
 from qnx_torch.ops.packing import pack_bits, unpack_bits
 from qnx_torch.ops.quant import quantized_relu
 
@@ -91,16 +91,6 @@ def _levels_from_float(y: torch.Tensor, nb: int) -> torch.Tensor:
     return torch.round(quantized_relu(y, nb) / q).to(torch.int32)
 
 
-def _affine(a: torch.Tensor, s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Logits ``a * s + c`` of an integer head, rounded once as the JAX
-    package's ``a * f32(s) + c`` is under XLA, which contracts it into one
-    fused multiply-add.  ``a * s`` is exact in float64 (a has 24 significant
-    bits, |s| < 2^24), so the float64 sum rounded to float32 is that one
-    rounding but for a double-rounding tie, which float64's 29 spare bits
-    make vanishingly rare."""
-    return (a.double() * s.double() + c.double()).float()
-
-
 class FloatDenseBits(_BatchNorm):
     """Float-input dense layer producing sign bits: f32 ``x @ w`` (+bias) ->
     BN -> bits packed along the features."""
@@ -154,49 +144,54 @@ class TernaryDenseBits(nn.Module):
 
 
 class _IntegerHead(nn.Module):
-    """Output head over packed bits: an integer GEMM ``scores`` (int32 s)
-    and the folded float affine ``a * s + c`` (``logits``)."""
+    """Output head over packed bits or planes: an integer GEMM and the
+    folded float affine ``a * s + c``, one kernel launch on the card
+    (``csrc/popcount_head.cu``) for the logits (``forward``) or the int32 s
+    (``scores``).  The weight planes are also held K-major (``wt``), as the
+    kernel reads them."""
 
-    def __init__(self, a, c):
+    def __init__(self, a, c, *planes):
         super().__init__()
         self.register_buffer("a", a)  # (N,) f32
         self.register_buffer("c", c)  # (N,) f32
+        self.register_buffer("wt", k_major(*planes))  # (planes, N, Kw) int32
 
-    def scores(self, bits: torch.Tensor) -> torch.Tensor:
+    def head(self, x: torch.Tensor, a=None, c=None) -> torch.Tensor:
+        """The head's wrapper: int32 s, or the logits with ``a`` and ``c``."""
         raise NotImplementedError
 
-    def logits(self, s: torch.Tensor) -> torch.Tensor:
-        return _affine(self.a, s, self.c)
+    def scores(self, x: torch.Tensor) -> torch.Tensor:
+        """The head's int32 s."""
+        return self.head(x)
 
-    def forward(self, bits: torch.Tensor) -> torch.Tensor:
-        return self.logits(self.scores(bits))
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(x, self.a, self.c)
 
 
 class PackedDenseLogits(_IntegerHead):
     """Binary output head: popcount GEMM -> int32 s -> float affine."""
 
     def __init__(self, wp, a, c, k: int):
-        super().__init__(a, c)
+        super().__init__(a, c, wp)
         self.register_buffer("wp", wp)  # (Kw, N) int32
         self.k = k
 
-    def scores(self, bits: torch.Tensor) -> torch.Tensor:
-        """The head's int32 s."""
-        return xnor_gemm_popcount(bits, self.wp, self.k)
+    def head(self, bits, a=None, c=None):
+        return xnor_head(bits, self.wp, self.k, a, c, wt=self.wt)
 
 
 class TernaryDenseLogits(_IntegerHead):
     """Ternary output head: two-plane popcount GEMM -> int32 s -> affine."""
 
     def __init__(self, mask, sign, nnz, a, c):
-        super().__init__(a, c)
+        super().__init__(a, c, mask, sign)
         self.register_buffer("mask", mask)  # (Kw, N) int32
         self.register_buffer("sign", sign)  # (Kw, N) int32
         self.register_buffer("nnz", nnz)    # (N,) int32
 
-    def scores(self, bits: torch.Tensor) -> torch.Tensor:
-        """The head's int32 s."""
-        return ternary_gemm(bits, self.mask, self.sign, self.nnz)
+    def head(self, bits, a=None, c=None):
+        return ternary_head(bits, self.mask, self.sign, self.nnz, a, c,
+                            wt=self.wt)
 
 
 class FloatDenseLogits(_BatchNorm):
@@ -420,17 +415,16 @@ class PlaneDenseTernary(nn.Module):
 
 
 class PlaneDenseLogits(_IntegerHead):
-    """Integer head over planes: s = sum_j 2^j t_j (one kernel over all
-    planes), logits = a * s + c."""
+    """Integer head over planes: s = sum_j 2^j t_j, logits = a * s + c, in
+    one kernel over all planes."""
 
     def __init__(self, mask, msign, a, c):
-        super().__init__(a, c)
+        super().__init__(a, c, mask, msign)
         self.register_buffer("mask", mask)    # (Kw, N) int32
         self.register_buffer("msign", msign)
 
-    def scores(self, planes: torch.Tensor) -> torch.Tensor:
-        """The head's int32 s."""
-        return plane_gemm(planes, self.mask, self.msign)
+    def head(self, planes, a=None, c=None):
+        return plane_head(planes, self.mask, self.msign, a, c, wt=self.wt)
 
 
 class FloatDenseLogitsFromPlanes(_BatchNorm):

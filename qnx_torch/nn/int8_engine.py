@@ -32,9 +32,9 @@ from torch import nn
 
 from qnx_torch.kernels.i8_conv_fused import (_unported, act_epilogue,
                                              i8_conv_fused, k_major)
-from qnx_torch.nn.inference import (FloatConvBits, FloatDenseBits, _affine,
-                                    _BatchNorm, _ieee_f32, _levels_from_float,
-                                    _maxpool2)
+from qnx_torch.kernels.xnor_gemm import affine
+from qnx_torch.nn.inference import (FloatConvBits, FloatDenseBits, _BatchNorm,
+                                    _ieee_f32, _levels_from_float, _maxpool2)
 
 # torch._int_mm on CUDA takes M > 16 rows and K and N multiples of 8
 _INT_MM_MIN_ROWS = 17
@@ -178,7 +178,7 @@ class I8DenseLogits(nn.Module):
         return _dot_i8(x8, self.w8)
 
     def logits(self, s: torch.Tensor) -> torch.Tensor:
-        return _affine(self.a, s, self.c)
+        return affine(self.a, s, self.c)
 
     def forward(self, x8: torch.Tensor) -> torch.Tensor:
         return self.logits(self.scores(x8))

@@ -219,7 +219,7 @@ def test_cpu_tensors_never_count_launches():
     planes = _planes(rng, 2, (2, 4, 4, 32))
     mask, sign, _ = pack_conv_ternary_np(_ternary(rng, (3, 3, 32, 32)))
     sgn, tau = _levels(rng, 2, 32, 3, 288)
-    for fn in (PG.plane_conv_fused, PG.plane_dense_fused, PG.plane_gemm):
+    for fn in (PG.plane_conv_fused, PG.plane_dense_fused, PG.plane_head):
         fn.launches = 0
     PG.plane_conv_fused(*_t(planes, mask, mask & sign, sgn, tau), pool=True)
     flat = torch.from_numpy(planes.reshape(2, 2, -1))
@@ -227,7 +227,7 @@ def test_cpu_tensors_never_count_launches():
     PG.plane_dense_fused(flat, *_t(dmask, dmsign, sgn, tau))
     PG.plane_gemm(flat, *_t(dmask, dmsign))
     assert (PG.plane_conv_fused.launches, PG.plane_dense_fused.launches,
-            PG.plane_gemm.launches) == (0, 0, 0)
+            PG.plane_head.launches) == (0, 0, 0)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
