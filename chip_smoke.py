@@ -20,7 +20,17 @@ Drives the port's served paths through the hand-written CUDA kernels in
   ``popcount_head.cu`` (as the MLPs' heads: a warp a row, the affine fused);
 * ``cifar10-tnn`` at abits 1, the ternary packed VGG (``pack_vgg``): every
   hidden conv and dense layer through the ternary branch of kernel A (A';
-  the convs on the int8 tensor cores, ``expand_mma_conv.cu``),
+  the convs on the int8 tensor cores, ``expand_mma_conv.cu``);
+* the other activations and the wbits > 1 network types: through the int8
+  engine, ``cifar10-bnn`` with binary_sigmoid (``zo`` codes {0, 1}),
+  ``cifar10-tnn`` with quantized_tanh (signed ``tanh`` codes {-1, 0, 1})
+  and as ``full-qnn`` with 4-bit grid weights (level codes), every hidden
+  conv through kernel E; ``cifar10-bnn`` as the relu network type ``qnn``
+  with 4-bit weights (``I8WConv``, ``I8WDense``, ``I8WHead``: dequantized
+  weights on cuDNN and cuBLAS, TF32 off, no kernel of the repo); and
+  ``cifar10-tnn`` with quantized_tanh through the bit-plane engine (two
+  planes of unsigned indices, every conv through kernel D with its border
+  term ``corr``, the dense layers through D),
 
 each with random weights from seed 0, built on the card by the converters'
 default and served by ``qnx_torch.serve.ServeEngine``; and the measurement
@@ -46,10 +56,13 @@ integer probe H.  Phases:
    split of a tile's K the wrappers pick (1, 2, 4 and 8 blocks, all
    required); kernel E in the pm1 encoding
    and the levels encoding with 1, 3 and 20 thresholds (more than the 15
-   it stages in shared memory), C not a multiple of 16 or 128 (6, 8, 20,
-   40, 96); D with 1 to 8 planes and 1 to 255 thresholds, mixed threshold
-   directions and int32-extreme thresholds; A, A' and D's convs with C not
-   a multiple of 128 (40, 96, 160);
+   it stages in shared memory), in the zo encoding and the tanh encoding
+   with 2, 6 and 254 thresholds (signed codes down to -127), on grid
+   weights of 4 and 8 bits (-128 included), C not a multiple of 16 or 128
+   (6, 8, 20, 40, 96); D with 1 to 8 planes and 1 to 255 thresholds, mixed
+   threshold directions and int32-extreme thresholds, and with the border
+   term at 2, 3 and 8 planes (2, 6 and 254 thresholds); A, A' and D's
+   convs with C not a multiple of 128 (40, 96, 160);
    F1-F4 and G at every geometry the shootout sweeps on ragged M and K
    with N = 1, 10, 33, 128, the MNIST head and 1024x4096x4096 (a geometry
    that does not fit is logged as such); H in each mode and compiled
@@ -57,10 +70,13 @@ integer probe H.  Phases:
    int32 s and int8 codes must be equal;
 4. slice: for each path, 600 uint8 requests through the engine; every
    request answered, each layer's words or codes and each integer head's
-   int32 s and logits equal to the plain path's, the logits also
-   to the JAX package's committed golden logits, and each kernel's launch
-   count equal to layers x batches (counts set to 0 just before each path
-   and read just after);
+   int32 s and logits equal to the plain path's, every hidden layer's codes
+   or levels taking two values or more (the tanh paths' three at abits 2),
+   the logits also to the JAX package's committed golden logits, and each
+   kernel's launch count equal to layers x batches (counts set to 0 just
+   before each path and read just after); the relu path's logits against
+   a float64 run of the same layers and the golden within its own
+   tolerance;
 5. measure: the measurement path at reduced repeats (8 x 3), counts set to
    0 just before and read just after: the shootout at its four full shapes
    with every candidate equal to kernel B, the accumulator scan, the probe's
@@ -72,12 +88,16 @@ integer probe H.  Phases:
    JAX probe's 4096x1024; kernel E on K-major weights made beforehand, as
    ``I8Conv`` holds them, so its row is the kernel alone), each path's
    forward, and the int8 VGG against the strict-f32 float twin at batch
-   256 and 1024, with CUDA events; the dense kernels, the integer heads
+   256 and 1024, with CUDA events, and the relu ``qnn`` VGG against the
+   same twin in the same turns; E in each served encoding (pm1, levels,
+   zo, tanh, grid weights) and D's conv with the border term and without;
+   the dense kernels, the integer heads
    and their library calls also as CUDA graph replays, which leave out the
    host's launch;
 7. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
-   throughput over 40 queued batches.
+   throughput over 40 queued batches, of those paths and of the five paths
+   of the other activations and network types.
 
 Any failure raises (non-zero exit).  The last lines are a JSON summary of
 the kernels, the card's ``name, power.limit``, and the result object.
@@ -89,9 +109,9 @@ card: for each DIR (a checkout, such as a parent commit unpacked with
 ``git archive`` into the ignored ``archive_check/``) one process that
 imports that checkout's ``qnx_torch``, builds its kernels and times each
 kind of KINDS (comma-separated :func:`make_case` kinds: ``conv`` for A's
-binary conv, ``ternary_conv`` for the A' conv, ``plane_conv-P-T`` for D,
-``i8conv-pm1`` and ``i8conv-levels3`` for E in the pm1 encoding and in
-levels with 3 thresholds, at the five VGG conv shapes; ``dense``,
+binary conv, ``ternary_conv`` for the A' conv, ``plane_conv-P-T`` for D (``plane_conv-P-T-corr`` with the border
+term), ``i8conv-ENC`` for E in encoding ENC of :data:`I8_ENCODINGS`
+(``i8conv-ENC-wB`` on B-bit grid weights), at the five VGG conv shapes; ``dense``,
 ``ternary_dense`` and ``plane_dense-P-T`` for the A, A' and D dense
 layers, at the VGG's two dense shapes and the MLPs' hidden shape; ``head``,
 ``ternary_head`` and ``plane_head-P`` for the integer heads' modules,
@@ -132,6 +152,15 @@ CHUNKS = (8, 100, 300, 92, 100)  # 600 requests: one chunk splits, tail pads
 # |logit| of 3.9)
 LOGIT_RTOL = 1e-5
 LOGIT_ATOL_REL = 1e-4  # times max |logit|
+# the relu network types' logits: float all the way down (six convs on
+# cuDNN, three GEMMs on cuBLAS, TF32 off), each relu feeding the next layer,
+# against XLA:CPU's summation orders (the golden) and a float64 run of the
+# same layers (the plain path).  Measured on an H100 at 700 W (PERF.md §6):
+# 4.9e-7 from the float64 run and 6.0e-7 from the golden on a max |logit|
+# of 1.67, 3.6e-7 of it; the atol allows 80 times that for cuDNN's choice
+# of another algorithm, and stays 30 times below what TF32 (1e-3) gives
+RELU_LOGIT_RTOL = 1e-5
+RELU_LOGIT_ATOL_REL = 3e-5  # times max |logit|
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
 # (H, W, C_in, N, pool) of conv_1..conv_5 and (K, N) of dense_0, dense_1
@@ -155,10 +184,18 @@ PROBE_SHAPE = (4096, 1024)  # vpu_probe's BLOCK (256, 1024) x GRID 16
 MEASURE_REPEATS = dict(iters=8, repeats=3)
 # the int8 VGG against its f32 twin at these batches; 1024 is bench.py's
 TWIN_BATCHES = (256, 1024)
-# E's encodings: (JAX act, thresholds): pm1, and levels with 1, 3 and 20
-# (more than the kernel's 15 in shared memory)
+# E's encodings: (JAX act, thresholds): pm1, levels with 1, 3 and 20
+# (more than the kernel's 15 in shared memory), zo, and tanh with 2, 6 and
+# 254 thresholds (nb 2, 3 and 8: signed codes down to -127)
 I8_ENCODINGS = {"pm1": ("pm1", 1), "levels1": ("levels", 1),
-                "levels3": ("levels", 3), "levels20": ("levels", 20)}
+                "levels3": ("levels", 3), "levels20": ("levels", 20),
+                "zo": ("zo", 1), "tanh2": ("tanh", 2), "tanh6": ("tanh", 6),
+                "tanh254": ("tanh", 254)}
+# E's encodings in the served int8 paths (cifar10-bnn pm1, cifar10-tnn
+# levels, cifar10-bnn zo, cifar10-tnn tanh, full-qnn's levels on 4-bit
+# grid weights), the kinds phase 6 times
+I8_SERVED = ("i8conv-pm1", "i8conv-levels1", "i8conv-zo", "i8conv-tanh2",
+             "i8conv-levels1-w4")
 
 KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "xnor_conv3x3_fused": ("qnx_torch/kernels/csrc/expand_mma_conv.cu",
@@ -330,23 +367,28 @@ def ternary_conv_operands(torch, rng, b, h, w, c, n):
         padding_correction(pattern, h, w), sgn, tau)]
 
 
-def plane_operands(torch, rng, p, n_thresh, lead, c, n, conv):
+def plane_operands(torch, rng, p, n_thresh, lead, c, n, conv, corr=False):
     """Kernel D's operands: P {0,1} planes of levels drawn in [0, 2^P) over
     ``lead + (c,)``, ternary weights (3x3 tap-major for a conv) as (mask,
     msign); with ``n_thresh`` > 0 mixed-direction ascending thresholds
     around the spread of s with int32-extreme channels (levels n_thresh, 0
-    and n_thresh - 1, sgn = -1 on the second)."""
-    from qnx_torch.kernels.xnor_conv import pack_conv_ternary_np
+    and n_thresh - 1, sgn = -1 on the second).  ``corr``: quantized_tanh's
+    planes, unsigned indices in [0, 2^P - 2], and the conv's border term
+    (2^(P-1) - 1) x the pattern's padding correction, last."""
+    from qnx_torch.kernels.xnor_conv import pack_conv_ternary_np, padding_correction
     from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
 
-    lvl = rng.integers(0, 2**p, (*lead, c))
+    lvl = rng.integers(0, 2**p - (1 if corr else 0), (*lead, c))
     planes = np.stack([pack_bits_np((lvl >> j) & 1, axis=-1) for j in range(p)])
     if conv:
-        mask, sign, _ = pack_conv_ternary_np(ternary_weights(rng, (3, 3, c, n)))
+        pattern = ternary_weights(rng, (3, 3, c, n))
+        mask, sign, _ = pack_conv_ternary_np(pattern)
     else:
         mask, sign, _ = pack_ternary_np(ternary_weights(rng, (c, n)), axis=0)
     args = [planes, mask, mask & sign]
     lim = int(np.sqrt(9 * c if conv else c)) * 2 ** (p - 1) + 1
+    if corr:  # the border term shifts s by up to (L - 1) 9 C
+        lim += (2 ** (p - 1) - 1) * 3 * c
     if n_thresh:
         sgn = rng.choice(np.array([1, -1], np.int32), n)
         sgn[1:2] = -1
@@ -354,24 +396,36 @@ def plane_operands(torch, rng, p, n_thresh, lead, c, n, conv):
         tau[:, :3] = np.array([I32_MIN, I32_MAX, I32_MIN], np.int64)[:n]
         tau[-1, 2:3] = I32_MAX
         args += [sgn, tau]
+    if corr:
+        h, w = lead[1:3]
+        args.append((2 ** (p - 1) - 1) * padding_correction(pattern, h, w))
     return [cuda(torch, a) for a in args]
 
 
-def i8_operands(torch, rng, b, h, w, c, n, encoding: str, n_thresh: int):
-    """Codes of the encoding, ternary weights, mixed-direction thresholds
-    around the spread of s with int32-extreme channels (sgn = -1 on one, so
-    under the pool too)."""
+def i8_operands(torch, rng, b, h, w, c, n, encoding: str, n_thresh: int,
+                wbits: int = 0):
+    """Codes of the encoding (pm1 ±1, zo {0, 1}, levels 0..n_thresh, tanh
+    signed -n_thresh/2..n_thresh/2), ternary weights or ``wbits``-bit grid
+    weights in [-2^(wbits-1), 2^(wbits-1) - 1] (the bottom in every column),
+    mixed-direction thresholds around the spread of s with int32-extreme
+    channels (sgn = -1 on one, so under the pool too)."""
+    shape = (b, h, w, c)
     if encoding == "pm1":
-        x = np.where(rng.random((b, h, w, c)) < 0.5, 1, -1).astype(np.int8)
+        x = np.where(rng.random(shape) < 0.5, 1, -1).astype(np.int8)
+    elif encoding == "tanh":
+        x = rng.integers(-(n_thresh // 2), n_thresh // 2 + 1, shape, dtype=np.int8)
     else:
-        x = rng.integers(0, n_thresh + 1, (b, h, w, c), dtype=np.int8)
-    wgt = rng.integers(-1, 2, (3, 3, c, n), dtype=np.int8)
+        x = rng.integers(0, n_thresh + 1, shape, dtype=np.int8)
+    m = 2 ** (wbits - 1) if wbits else 1
+    wgt = rng.integers(-m, m + (0 if wbits else 1), (3, 3, c, n), dtype=np.int8)
+    if wbits:
+        wgt[1, 1, 0, :] = -m
     sgn = rng.choice(np.array([1, -1], np.int32), n)
     sgn[1:2] = -1
-    lim = 2 * int(np.sqrt(9 * c)) + 1
+    lim = 2 * int(np.sqrt(9 * c)) * m * max(1, n_thresh // 2) + 1
     tau = np.sort(rng.integers(-lim, lim, (n_thresh, n)), axis=0).astype(np.int32)
     tau[:, :3] = np.array([I32_MIN, I32_MAX, I32_MIN], np.int64)[:n]
-    if encoding == "pm1":
+    if encoding in ("pm1", "zo"):
         tau = tau[0]
     return [cuda(torch, a) for a in (x, wgt, sgn, tau)]
 
@@ -454,10 +508,12 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
                     lambda: F.ternary_conv_fused_ref(*args, pool=pool), True,
                     args, b * h * w * 9 * c * n, (b * h * w, 9 * c, n),
                     dict(weights="ternary"))
-    if kind.startswith("i8conv-"):
-        encoding, n_thresh = I8_ENCODINGS[kind.split("-")[1]]
+    if kind.startswith("i8conv-"):  # i8conv-ENC[-wBITS]
+        _, enc, *grid = kind.split("-")
+        encoding, n_thresh = I8_ENCODINGS[enc]
         h, w, c, n, pool = shape
-        args = i8_operands(torch, rng, b, h, w, c, n, encoding, n_thresh)
+        args = i8_operands(torch, rng, b, h, w, c, n, encoding, n_thresh,
+                           int(grid[0][1:]) if grid else 0)
         kw = dict(encoding=encoding, pool=pool)
         # the K-major weights made beforehand, as I8Conv holds them, so the
         # kernel is timed alone (a checkout from before them reads w8)
@@ -502,21 +558,25 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
 
 
 def plane_case(torch, rng, kind: str, b: int, shape) -> Case:
-    """A :class:`Case` of kernel D: ``plane_conv-P-T`` (shape (H, W, C, N,
-    pool)) or ``plane_dense-P-T`` (shape (K, N)) with P planes and T
-    thresholds.  The library call is one ``_int_mm`` on the planes'
-    levels."""
+    """A :class:`Case` of kernel D: ``plane_conv-P-T[-corr]`` (shape (H, W,
+    C, N, pool); ``-corr``: quantized_tanh's planes and the border term) or
+    ``plane_dense-P-T`` (shape (K, N)) with P planes and T thresholds.  The
+    library call is one ``_int_mm`` on the planes' levels."""
     from qnx_torch.kernels import plane_gemm as D
 
-    name, p, n_thresh = kind.split("-")
+    name, p, n_thresh, *opts = kind.split("-")
     p, n_thresh = int(p), int(n_thresh)
     lib = dict(levels=p, weights="ternary")
     if name == "plane_conv":
         h, w, c, n, pool = shape
-        args = plane_operands(torch, rng, p, n_thresh, (b, h, w), c, n, conv=True)
+        args = plane_operands(torch, rng, p, n_thresh, (b, h, w), c, n, conv=True,
+                              corr="corr" in opts)
+        kw = dict(pool=pool)
+        if "corr" in opts:  # a checkout from before the border term takes none
+            kw["corr"] = args[5]
         return Case("plane_conv3x3_fused",
-                    lambda: D.plane_conv_fused(*args, pool=pool),
-                    lambda: D.plane_conv_fused_ref(*args, pool=pool), True, args,
+                    lambda: D.plane_conv_fused(*args[:5], **kw),
+                    lambda: D.plane_conv_fused_ref(*args[:5], **kw), True, args,
                     b * h * w * 9 * c * n, (b * h * w, 9 * c, n), lib)
     k, n = shape
     args = plane_operands(torch, rng, p, n_thresh, (b,), k, n, conv=False)
@@ -819,7 +879,9 @@ def mma_sass(library: Path) -> dict:
         if "i8_conv3x3_kernel" in name:
             label, k32 = f"E copies of {last} B", E_K32_PER_STEP
         else:
-            ops = ("D P=" + str(first[0] or "any") if "PlaneOperands" in name
+            ops = ("D P=" + str(first[0] or "any")
+                   + (" corr" if "Lb1E" in name else "")  # kBorderTerm
+                   if "PlaneOperands" in name
                    else "A'" if "TernaryOperands" in name else "A")
             layer = "dense" if "expand_mma_dense_kernel" in name else "conv"
             label, k32 = f"{ops} {layer} KW={last}", last
@@ -872,6 +934,7 @@ def phase_kernels(torch, err: dict) -> None:
                                         (3, (5, 7, 6, 10, True)),
                                         (2, (4, 4, 20, 300, False)))
               for kind in i8]
+    cases += i8_activation_cases()
     cases += (ternary_vgg_cases() + plane_cases() + dense_cases() + head_cases()
               + measured_cases())
     splits_seen = set()
@@ -937,6 +1000,25 @@ def dense_cases() -> list:
                     ("plane_dense-2-1", TIME_BATCH, MLP_HIDDEN)]
 
 
+def i8_activation_cases() -> list:
+    """E in the zo and tanh encodings (2, 6 and 254 thresholds) and on 4-
+    and 8-bit grid weights (-128 included) at the int8 VGGs' conv shapes at
+    batch 32 and 256, ragged batch, odd spatial, C not a multiple of 16 or
+    128, N = 10, 33, 130."""
+    kinds = ["i8conv-zo", "i8conv-tanh2", "i8conv-tanh6", "i8conv-tanh254",
+             "i8conv-levels1-w4", "i8conv-pm1-w8", "i8conv-levels3-w8"]
+    cases = [(kind, b, s) for b in (CHECK_BATCH, TIME_BATCH)
+             for s in CONV_SHAPES for kind in kinds[:2] + kinds[4:5]]
+    cases += [(kind, CHECK_BATCH, s) for s in CONV_SHAPES
+              for kind in kinds[2:4] + kinds[5:]]
+    return cases + [(kind, b, s) for b, s in ((3, (5, 7, 16, 48, False)),
+                                             (3, (7, 5, 16, 48, True)),
+                                             (3, (6, 4, 40, 130, True)),
+                                             (3, (5, 7, 6, 10, True)),
+                                             (2, (4, 6, 96, 33, False)))
+                    for kind in kinds]
+
+
 def ternary_vgg_cases() -> list:
     """A' at the ternary VGG's (abits 1) conv and dense shapes at batch 32
     and 256; the conv with ragged batch, odd spatial, C not a multiple of
@@ -982,6 +1064,14 @@ def plane_cases() -> list:
               ("plane_conv-2-3", 3, (5, 7, 128, 48, False)),
               ("plane_conv-2-3", 5, (8, 8, 160, 256, True)),
               ("plane_conv-1-1", 3, (7, 9, 96, 130, False)),
+              # the border term (quantized_tanh): P = 2 as served, 3 and 8
+              *[("plane_conv-2-2-corr", b, s) for b in (CHECK_BATCH, TIME_BATCH)
+                for s in CONV_SHAPES],
+              ("plane_conv-3-6-corr", CHECK_BATCH, CONV_SHAPES[1]),
+              ("plane_conv-3-6-corr", 3, (5, 7, 40, 10, False)),
+              ("plane_conv-2-2-corr", 3, (4, 6, 32, 33, True)),
+              ("plane_conv-8-254-corr", 2, (8, 6, 32, 40, True)),
+              ("plane_conv-8-254-corr", 2, (4, 6, 128, 40, False)),
               ("plane_dense-3-3", CHECK_BATCH, DENSE_SHAPES[0]),
               ("plane_dense-3-7", 3, (100, 48)),
               ("plane_dense-2-3", 37, (96, 33)),
@@ -991,11 +1081,12 @@ def plane_cases() -> list:
 
 
 def serve(torch, label: str, model, images, per_batch: dict, plain_forward,
-          err: dict, gold) -> dict:
+          err: dict, gold, tol=(LOGIT_RTOL, LOGIT_ATOL_REL)) -> dict:
     """Serve ``images`` in CHUNKS through the engine with every launch count
     set to 0 just before and read just after; check the answers, the counts
     (``per_batch`` x batches), and the logits against the plain path and
-    the golden.  Returns the launch counts."""
+    the golden within ``tol`` (rtol, atol over max |logit|).  Returns the
+    launch counts."""
     from qnx_torch.serve.engine import ServeEngine, normalize_u8
 
     engine = ServeEngine(model, batch_size=SERVE_BATCH, max_wait_ms=50.0)
@@ -1032,23 +1123,23 @@ def serve(torch, label: str, model, images, per_batch: dict, plain_forward,
             plain.append(plain_forward(torch, model, x, err).cpu().numpy())
     plain = np.concatenate(plain)
     d_plain = float(np.abs(logits - plain).max())
-    np.testing.assert_allclose(
-        logits, plain, rtol=LOGIT_RTOL,
-        atol=LOGIT_ATOL_REL * float(np.abs(plain).max()))
+    rtol, atol_rel = tol
+    np.testing.assert_allclose(logits, plain, rtol=rtol,
+                               atol=atol_rel * float(np.abs(plain).max()))
     if not (logits.argmax(-1) == plain.argmax(-1)).all():
         raise AssertionError(f"{label}: argmax differs from the plain path")
     gold = gold["logits"]
     ours = logits[:len(gold)]
     d_gold = float(np.abs(ours - gold).max())
-    np.testing.assert_allclose(ours, gold, rtol=LOGIT_RTOL,
-                               atol=LOGIT_ATOL_REL * float(np.abs(gold).max()))
+    np.testing.assert_allclose(ours, gold, rtol=rtol,
+                               atol=atol_rel * float(np.abs(gold).max()))
     if not (ours.argmax(-1) == gold.argmax(-1)).all():
         raise AssertionError(f"{label}: argmax differs from the JAX golden")
     log(label, f"every layer's words or codes equal to the plain path for all "
         f"{len(images)} images; logits max |engine - plain| {d_plain:.3g}, "
         f"max |engine - JAX golden| {d_gold:.3g} (max |logit| "
-        f"{float(np.abs(gold).max()):.3g}, {classes} classes); argmax "
-        f"identical")
+        f"{float(np.abs(gold).max()):.3g}, {classes} classes; tolerance rtol "
+        f"{rtol:g}, atol {atol_rel:g} x max |logit|); argmax identical")
     return launches
 
 
@@ -1094,25 +1185,49 @@ def plain_vgg_forward(torch, model, x, err: dict):
     return model.head(bits)
 
 
+def check_values(torch, label: str, codes, want=None) -> None:
+    """A hidden layer's codes (or levels) must take two values or more, or
+    exactly ``want``: random weights must not make a layer constant, which
+    would let its parity pass without exercising it."""
+    values = set(torch.unique(codes).tolist())
+    if (values != set(want)) if want else len(values) < 2:
+        raise AssertionError(f"{label}: the layer's codes take the values "
+                             f"{sorted(values)}, not {sorted(want) if want else 'two or more'}")
+
+
+def plane_levels(torch, planes, n: int):
+    """The level index that (P, ..., Nw) planes hold over n channels."""
+    from qnx_torch.ops.packing import unpack_bits
+
+    return sum(((unpack_bits(planes[j], n, dtype=torch.int32) + 1) // 2) << j
+               for j in range(planes.shape[0]))
+
+
 def plain_plane_forward(torch, model, x, err: dict):
     """The bit-plane VGG forward with each plane layer and the integer
     head run both ways on the same input planes: planes, the head's int32 s
-    and its logits must be equal."""
+    and its logits must be equal; every layer's levels take two values or
+    more (tanh mode at abits 2: the three indices 0, 1, 2)."""
     from qnx_torch.kernels import plane_gemm as D
     from qnx_torch.nn.inference import PlaneDenseLogits
 
+    tanh3 = {0, 1, 2} if model.first.mode == "tanh" and model.first.nb == 2 else None
     planes = model.first(x)
     for i, conv in enumerate(model.convs, 1):
         got = conv(planes)
         planes = D.plane_conv_fused_ref(planes, conv.mask, conv.msign, conv.sgn,
-                                        conv.tau, pool=conv.pool)
+                                        conv.tau, pool=conv.pool, corr=conv.corr)
         compare(torch, err, "plane_conv3x3_fused", got, planes, True, f"conv_{i}")
+        check_values(torch, f"conv_{i}", plane_levels(torch, planes,
+                                                      conv.mask.shape[1]), tanh3)
     planes = planes.reshape(planes.shape[0], planes.shape[1], -1)
     for j, dense in enumerate(model.denses):
         got = dense(planes)
         planes = D.plane_dense_fused_ref(planes, dense.mask, dense.msign,
                                          dense.sgn, dense.tau)
         compare(torch, err, "plane_dense_fused", got, planes, True, f"dense_{j}")
+        check_values(torch, f"dense_{j}", plane_levels(torch, planes,
+                                                       dense.mask.shape[1]), tanh3)
     head = model.head
     if isinstance(head, PlaneDenseLogits):
         return plain_head(torch, err, "plane_head", head, planes,
@@ -1176,7 +1291,9 @@ def check_codes(torch, label: str, got, want) -> None:
 def plain_i8_forward(torch, model, x, err: dict):
     """The int8 forward with each conv run through kernel E and its plain
     version on the same input codes (codes must be equal), and each dense
-    layer's and integer head's ``_int_mm`` against a float64 product."""
+    layer's and integer head's ``_int_mm`` against a float64 product; every
+    layer's codes take two values or more (zo's {0, 1}, tanh's {-1, 0, 1}
+    at abits 2)."""
     from qnx_torch.kernels.i8_conv_fused import act_epilogue, i8_conv_fused_ref
     from qnx_torch.nn.int8_engine import I8DenseLogits, I8MLP
 
@@ -1184,23 +1301,63 @@ def plain_i8_forward(torch, model, x, err: dict):
         x8, convs, denses = model.first(x.reshape(x.shape[0], -1)), [], model.hidden
     else:
         x8, convs, denses = model.first(x), model.convs, model.denses
+    want = {"zo": {0, 1}, "tanh": {-1, 0, 1} if model.first.nb == 2 else None}.get(
+        model.first.act)
+    check_values(torch, "first", x8, want)
     for i, conv in enumerate(convs, 1):
         got = conv(x8)
         x8 = i8_conv_fused_ref(x8, conv.w8, conv.sgn, conv.tau,
                                encoding=conv.act, pool=conv.pool)
         compare(torch, err, "i8_conv3x3_fused", got, x8, False, f"conv_{i}")
+        check_values(torch, f"conv_{i}", x8, want)
     x8 = x8.reshape(x8.shape[0], -1)
     for j, dense in enumerate(denses):
         got = dense(x8)
         x8 = act_epilogue(dense.act, exact_dot(torch, x8, dense.w8), dense.sgn,
                           dense.tau)
         check_codes(torch, f"dense_{j} codes", got, x8)
+        check_values(torch, f"dense_{j}", x8, want)
     head = model.head
     if isinstance(head, I8DenseLogits):
         s = exact_dot(torch, x8, head.w8)
         check_codes(torch, "head int32 s", head.scores(x8), s)
         return head.logits(s)
     return head(x8)
+
+
+def plain_relu_forward(torch, model, x, err: dict):
+    """The relu network type's VGG (``I8WConv``, ``I8WDense``, ``I8WHead``)
+    in float64 on the card, the same layers in the same order: the weights
+    dequantized, the 'SAME' conv, bias, pool, BN and relu; every hidden
+    layer's output has zeros and positives.  No kernel of the repo runs
+    here, so ``err`` is not touched."""
+    import torch.nn.functional as F
+
+    def bn(layer, y):
+        mul = torch.rsqrt(layer.bn_var.double() + layer.bn_eps) * layer.bn_scale.double()
+        return (y - layer.bn_mean.double()) * mul + layer.bn_bias.double()
+
+    def dense(layer, a):
+        y = a @ (layer.w.double() * layer.alpha.double())
+        return y if layer.bias is None else y + layer.bias.double()
+
+    a = x.double()
+    for i, layer in enumerate([model.first, *model.convs]):
+        w = layer.w.double() * layer.alpha.double()
+        y = F.conv2d(a.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+        y = y.permute(0, 2, 3, 1)
+        if layer.bias is not None:
+            y = y + layer.bias.double()
+        if layer.pool:
+            b, h, wd, c = y.shape
+            y = y.reshape(b, h // 2, 2, wd // 2, 2, c).amax(dim=(2, 4))
+        a = torch.relu(bn(layer, y))
+        check_values(torch, f"conv_{i}", torch.sign(a), {0.0, 1.0})
+    a = a.reshape(a.shape[0], -1)
+    for j, layer in enumerate(model.denses):
+        a = torch.relu(bn(layer, dense(layer, a)))
+        check_values(torch, f"dense_{j}", torch.sign(a), {0.0, 1.0})
+    return bn(model.head, dense(model.head, a)).float()
 
 
 def phase_slices(torch, err: dict):
@@ -1231,17 +1388,43 @@ def phase_slices(torch, err: dict):
              ("cifar10_tnn_a1", CIFAR10_TNN.replace(abits=1), pack_vgg,
               plain_vgg_forward,
               {"ternary_conv3x3_fused": 5, "ternary_dense_fused": 2})]
+    paths += activation_paths()
     for name, cf, pack, plain_forward, per_batch in paths:
         model = pack(init_variables(cf, seed=0), cf)  # on the card by default
         if not all(t.is_cuda for t in model.buffers()):
             raise AssertionError(f"{name}: the converter's default is not the card")
         gold = golden(name)
+        tol = ((RELU_LOGIT_RTOL, RELU_LOGIT_ATOL_REL)
+               if plain_forward is plain_relu_forward else
+               (LOGIT_RTOL, LOGIT_ATOL_REL))
         counts = serve(torch, f"slice {name}", model, requests(cf, gold),
-                       per_batch, plain_forward, err, gold)
+                       per_batch, plain_forward, err, gold, tol)
         for k, v in counts.items():
             launches[k] += v
         models[name] = model
     return models, launches
+
+
+def activation_paths() -> list:
+    """The five paths of the other activations and the wbits > 1 network
+    types, as :func:`phase_slices` takes them: (golden name, config,
+    converter, plain forward, launches a batch)."""
+    from qnx_torch.convert.pack_model import pack_int8, pack_vgg_bitplane
+    from qnx_torch.utils.config import CIFAR10_BNN, CIFAR10_TNN
+
+    tanh = CIFAR10_TNN.replace(activation="quantized_tanh")
+    e5 = {"i8_conv3x3_fused": 5}
+    return [("cifar10_bnn_zo_int8", CIFAR10_BNN.replace(activation="binary_sigmoid"),
+             pack_int8, plain_i8_forward, e5),
+            ("cifar10_tnn_tanh_int8", tanh, pack_int8, plain_i8_forward, e5),
+            ("cifar10_qnn_int8", CIFAR10_TNN.replace(network_type="full-qnn",
+                                                      wbits=4),
+             pack_int8, plain_i8_forward, e5),
+            ("cifar10_qnn_relu_int8", CIFAR10_BNN.replace(network_type="qnn",
+                                                           wbits=4),
+             pack_int8, plain_relu_forward, {}),
+            ("cifar10_tnn_tanh", tanh, pack_vgg_bitplane, plain_plane_forward,
+             {"plane_conv3x3_fused": 5, "plane_dense_fused": 2})]
 
 
 def phase_measure(torch) -> dict:
@@ -1301,10 +1484,12 @@ def phase_times(torch, card: str, models: dict) -> dict:
     interleaved (plain, kernel, library, library, kernel, plain).  ``total``
     sums, per kernel, the medians and the bound over every layer of every
     path at batch 256 (a per-forward figure of each path, summed over the
-    paths; kernel E's over the two int8 VGGs, pm1 and levels; D's over the
-    two bit-plane VGGs, one plane and two; the heads' logits, their int32
-    s aside), the measurement path's kernels (B and C among them) at one
-    call at the scan shape."""
+    paths; kernel E's over the five int8 VGGs: pm1, levels, zo, tanh, and
+    levels on 4-bit grid weights; D's over the three bit-plane VGGs: one
+    plane, two, and tanh mode's two with the border term, its convs also
+    timed without the term, outside the sums; the heads' logits, their
+    int32 s aside), the measurement path's kernels (B and C among them) at
+    one call at the scan shape."""
     rng = np.random.default_rng(11)
     total = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_bound_ms=0.0, bytes_bound_ms=0.0, graph_ms=0.0,
@@ -1321,8 +1506,7 @@ def phase_times(torch, card: str, models: dict) -> dict:
               for kind, shape in (("head", MLP_HEAD), ("ternary_head", MLP_HEAD),
                                   ("plane_head-2", PLANE_HEAD))]
     cases += [("popcount", b, MLP_HEAD, 0), ("ternary", b, MLP_HEAD, 0)]
-    cases += [(kind, b, s, 1) for kind in ("i8conv-pm1", "i8conv-levels1")
-              for s in CONV_SHAPES]
+    cases += [(kind, b, s, 1) for kind in I8_SERVED for s in CONV_SHAPES]
     cases += [("ternary_dense", SCAN[0], SCAN[1], 0)]
     cases += [(kind, SCAN[0], SCAN[1], 1) for kind in ("popcount", "ternary")]
     # the ternary VGG's A' layers, and D at the bit-plane VGGs' layers: one
@@ -1333,6 +1517,11 @@ def phase_times(torch, card: str, models: dict) -> dict:
     cases += [(f"plane_{layer}-{pt}", b, s, 1) for pt in ("1-1", "2-3")
               for layer, shapes in (("conv", CONV_SHAPES), ("dense", DENSE_SHAPES))
               for s in shapes]
+    # the tanh bit-plane VGG: two planes, two thresholds, the border term;
+    # its convs also without the border term, in turns with it
+    for s in CONV_SHAPES:
+        cases += [("plane_conv-2-2-corr", b, s, 1), ("plane_conv-2-2", b, s, 0)]
+    cases += [("plane_dense-2-2", b, s, 1) for s in DENSE_SHAPES]
     # the measurement path's kernels: each formulation's default geometry
     # at the scan shape, H's popc chain at the JAX probe's size
     cases += [(kind, SCAN[0], SCAN[1], 1) for kind in MEASURED_TIMED]
@@ -1421,10 +1610,12 @@ def fmt_graph(r: dict) -> str:
             f"{r['spread']:.3f}, n={len(r['samples'])})")
 
 
-def phase_twin(torch, card: str, model) -> None:
-    """The int8 VGG (``cifar10-bnn``) against its strict-f32 float twin, TF32
-    off, at batch 256 and 1024 (``bench.py``'s batch), interleaved (f32,
-    int8, int8, f32); median and spread of each, and their ratio."""
+def phase_twin(torch, card: str, model, relu_model) -> None:
+    """The int8 VGG (``cifar10-bnn``) and the relu network type's VGG
+    (``qnn``, 4-bit weights, float relu activations) against the
+    strict-f32 float twin, TF32 off, at batch 256 and 1024 (``bench.py``'s
+    batch), interleaved (f32, int8, qnn, qnn, int8, f32); median and spread
+    of each, and their ratios."""
     from qnx_torch.bench.float_baseline import (float_forward, float_variables,
                                                 strict_f32)
     from qnx_torch.models.factory import init_variables
@@ -1445,15 +1636,21 @@ def phase_twin(torch, card: str, model) -> None:
             if out.shape != (b, 10) or not torch.isfinite(out).all():
                 raise AssertionError(f"float twin: bad logits {tuple(out.shape)}")
             f1, i1 = time_ms(torch, twin, 3, 5), time_ms(torch, lambda: model(x), 5, 5)
+            r1 = time_ms(torch, lambda: relu_model(x), 3, 5)
+            r2 = time_ms(torch, lambda: relu_model(x), 3, 5)
             i2, f2 = time_ms(torch, lambda: model(x), 5, 5), time_ms(torch, twin, 3, 5)
-        f, i = f1 + f2, i1 + i2
-        fm, im = statistics.median(f), statistics.median(i)
+        f, i, r = f1 + f2, i1 + i2, r1 + r2
+        fm, im, rm = statistics.median(f), statistics.median(i), statistics.median(r)
         log("twin", f"{card} | batch {b}: strict-f32 twin {fmt(f)} "
             f"(spread {(max(f) - min(f)) / fm:.3f}); int8 I8VGG {fmt(i)} "
-            f"(spread {(max(i) - min(i)) / im:.3f})")
+            f"(spread {(max(i) - min(i)) / im:.3f}); relu qnn I8VGG {fmt(r)} "
+            f"(spread {(max(r) - min(r)) / rm:.3f})")
         print(f"{card} | int8 VGG cifar10-bnn against the strict-f32 twin, "
               f"batch {b}: {fm / im:.3f}x the twin's img/s "
               f"({b / im * 1e3:.1f} against {b / fm * 1e3:.1f})", flush=True)
+        print(f"{card} | relu qnn VGG (4-bit weights) against the strict-f32 "
+              f"twin, batch {b}: {fm / rm:.3f}x the twin's img/s "
+              f"({b / rm * 1e3:.1f} against {b / fm * 1e3:.1f})", flush=True)
 
 
 def time_stages(torch, card: str, label: str, model, x, stages) -> None:
@@ -1537,7 +1734,11 @@ def phase_stages(torch, card: str, models: dict) -> None:
     engine_rate(card, "mnist_bnn", model, rng, (28, 28, 1))
 
     stages_int8(torch, card, models["cifar10_bnn_int8"], rng)
-    stages_plane(torch, card, models["cifar10_tnn"], rng)
+    for label in ("cifar10_tnn", "cifar10_tnn_tanh"):
+        stages_plane(torch, card, label, models[label], rng)
+    for name, *_ in activation_paths():
+        if name != "cifar10_tnn_tanh":
+            engine_rate(card, name, models[name], rng, (32, 32, 3))
 
 
 def stages_packed(torch, card: str, label: str, model, rng) -> None:
@@ -1607,10 +1808,10 @@ def stages_int8(torch, card: str, model, rng) -> None:
     engine_rate(card, "cifar10_bnn_int8", model, rng, (32, 32, 3))
 
 
-def stages_plane(torch, card: str, model, rng) -> None:
-    """Each stage of the batch-256 bit-plane VGG (``cifar10-tnn``): the float
-    first layer, each kernel D conv and dense layer, the float head over the
-    planes; then the engine."""
+def stages_plane(torch, card: str, label: str, model, rng) -> None:
+    """Each stage of a batch-256 bit-plane VGG (``cifar10-tnn``, in relu
+    mode and in tanh mode): the float first layer, each kernel D conv and
+    dense layer, the float head over the planes; then the engine."""
     from qnx_torch.serve.engine import normalize_u8
 
     b = TIME_BATCH
@@ -1634,8 +1835,8 @@ def stages_plane(torch, card: str, model, rng) -> None:
             planes = dense(planes)
         stages.append(("head: planes to values + sgemm + BN",
                        lambda a=planes: model.head(a)))
-    time_stages(torch, card, "cifar10_tnn", model, x, stages)
-    engine_rate(card, "cifar10_tnn", model, rng, (32, 32, 3))
+    time_stages(torch, card, label, model, x, stages)
+    engine_rate(card, label, model, rng, (32, 32, 3))
 
 
 def ab_shapes(kind: str) -> list:
@@ -1769,7 +1970,8 @@ def main(argv: list[str]) -> int:
     measured = phase_measure(torch)
     launches.update({name: measured[name] for name in MEASURED})
     total = phase_times(torch, card, models)
-    phase_twin(torch, card, models["cifar10_bnn_int8"])
+    phase_twin(torch, card, models["cifar10_bnn_int8"],
+               models["cifar10_qnn_relu_int8"])
     phase_stages(torch, card, models)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "qnx") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")

@@ -1,9 +1,9 @@
 """Conversion pass: trained fake-quant variables -> packed, bit-plane and
 int8 models (torch port of :func:`qnx.convert.pack_model.pack_mlp` and
-:func:`qnx.convert.pack_model.pack_vgg`, binary and ternary, of the relu
-mode of :func:`qnx.convert.pack_model.pack_vgg_bitplane`, and of the
-``full-bnn`` / ``full-tnn`` branches of :func:`qnx.convert.pack_model.
-pack_int8` with the ``pm1`` and ``levels`` encodings).
+:func:`qnx.convert.pack_model.pack_vgg`, binary and ternary, of
+:func:`qnx.convert.pack_model.pack_vgg_bitplane` in its relu and tanh
+modes, and of :func:`qnx.convert.pack_model.pack_int8` for every quantized
+network type and its four encodings).
 
 Input is the JAX package's variables as numpy arrays — the
 ``{"params", "quant", "batch_stats"}`` dict of ``jax.device_get(init_model(
@@ -79,6 +79,22 @@ def _ternary_pattern(latent: np.ndarray, h: float, style: str):
     return t, alpha
 
 
+def _quant_grid(latent: np.ndarray, h: float, nb: int):
+    """Integer grid z and scale alpha of the pow2-grid weight quantizer
+    (qnx.ops.quant.quantize): Wq = alpha * z with
+
+        z = clip(round(latent/H * m), -m, m-1),  alpha = H/m,  m = 2^(nb-1),
+
+    in quantize's float32 op order (np.round rounds half to even, as
+    jnp.round); alpha * z equals H * (z / m) bit for bit, a pow2 scale being
+    exact in float32.  z fits int8 for nb <= 8."""
+    latent = np.asarray(latent, np.float32)
+    m = float(2 ** (nb - 1))
+    r = (latent / np.float32(h)).astype(np.float32)
+    z = np.clip(np.round((r * np.float32(m)).astype(np.float32)), -m, m - 1)
+    return z.astype(np.float32), float(h) / m
+
+
 def _weight_pattern(cf: Config, latent: np.ndarray, h: float):
     """A quantized layer's weight pattern and scale alpha: ternary
     {-1, 0, +1} for ``full-tnn`` (``cf.ternary_style``), else binary ±1
@@ -128,6 +144,16 @@ def _zo_fold_params(alpha: float, bias, pattern: np.ndarray, axes):
     sumw = np.asarray(pattern, np.float64).sum(axis=axes)
     b = np.zeros_like(sumw) if bias is None else np.asarray(bias, np.float64)
     return alpha / 2.0, b + (alpha / 2.0) * sumw
+
+
+def _tanh_fold_bias(alpha_q: float, bias, pattern: np.ndarray, axes, nb: int):
+    """quantized_tanh input coding of the plane engine: the planes carry
+    u = v + (L-1), so sum a*w = q*(sum u*w - (L-1)*sum_w); the constant
+    -(L-1)*sum_w part folds into the bias (alpha_q = alpha*q)."""
+    lm1 = 2 ** (nb - 1) - 1
+    sumw = np.asarray(pattern, np.float64).sum(axis=axes)
+    b = np.zeros_like(sumw) if bias is None else np.asarray(bias, np.float64)
+    return b - alpha_q * lm1 * sumw
 
 
 def validate_vgg_variables(variables: dict, cf: Config) -> None:
@@ -348,10 +374,13 @@ def pack_vgg_bitplane(variables: dict, cf: Config, device="cuda") -> I.PlaneVGG:
     on ``device`` (``cifar10-tnn``: ternary weights, 2-bit activations).
 
     Activations decompose into {0,1} planes (x = q * sum 2^j b_j), the
-    effective GEMM scale becomes alpha*q, and BN + quantized_relu fold into
-    multi-level integer thresholds (``fold_bn_levels``).  The
-    ``quantized_tanh`` lowering (unsigned indices, the (L-1)-scaled border
-    correction) is not ported yet and raises (ROADMAP.md §1 item 10)."""
+    effective GEMM scale becomes alpha*q, and BN + the activation fold into
+    multi-level integer thresholds (``fold_bn_levels``).  quantized_relu
+    levels take nb - 1 planes; quantized_tanh's signed codes become unsigned
+    indices u = v + (L-1) in nb planes, whose constant part folds into each
+    layer's bias (:func:`_tanh_fold_bias`), whose zero pads the
+    (L-1)-scaled border term ``corr`` corrects, and which the float head
+    recentres (``lvl0``)."""
     device = _check_device(device)
     if cf.architecture != "vgg":
         raise ValueError("pack_vgg_bitplane expects a vgg config")
@@ -359,11 +388,8 @@ def pack_vgg_bitplane(variables: dict, cf: Config, device="cuda") -> I.PlaneVGG:
         raise ValueError(
             "bitplane VGG path requires abits >= 2 with ternary/binary "
             f"weights; got {cf.network_type}/abits={cf.abits}")
-    if _engine_activation(cf) == "quantized_tanh":
-        raise NotImplementedError(
-            "pack_vgg_bitplane of the 'quantized_tanh' activation (tanh-mode "
-            "planes and border correction) is not ported yet (ROADMAP.md §1 "
-            "item 10); ported: quantized_relu")
+    tanh = _engine_activation(cf) == "quantized_tanh"
+    mode = "tanh" if tanh else "relu"
     validate_vgg_variables(variables, cf)
     params = variables["params"]
     quant = variables.get("quant", {})
@@ -371,6 +397,7 @@ def pack_vgg_bitplane(variables: dict, cf: Config, device="cuda") -> I.PlaneVGG:
     eps = cf.batch_norm_epsilon
     nb = cf.abits
     q = 2.0 ** (1 - nb)
+    lm1 = 2 ** (nb - 1) - 1  # quantized_tanh's unsigned-index offset L-1
     hin, win, _ = cf.input_shape
 
     def get(name):
@@ -379,10 +406,18 @@ def pack_vgg_bitplane(variables: dict, cf: Config, device="cuda") -> I.PlaneVGG:
         h = float(quant[name]["H"]) if name in quant else None
         return latent, h, bias
 
-    def levels(name, alpha, bias):
+    def in_bias(alpha, bias, pattern, axes=0):
+        """The bias for this layer's input coding: tanh's unsigned indices
+        fold their constant part in here."""
+        if tanh:
+            return _tanh_fold_bias(alpha * q, bias, pattern, axes, nb)
+        return bias
+
+    def levels(name, alpha, bias, pattern, axes=0):
         bn = _bn(params, stats, name, eps)
         lt = fold_bn_levels(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
-                            eps, nb, alpha=alpha * q, bias=bias, mode="relu")
+                            eps, nb, alpha=alpha * q,
+                            bias=in_bias(alpha, bias, pattern, axes), mode=mode)
         return _t(lt.sgn), _t(lt.tau)
 
     # first conv: float path -> planes
@@ -397,19 +432,23 @@ def pack_vgg_bitplane(variables: dict, cf: Config, device="cuda") -> I.PlaneVGG:
         w=_t(w0), bias=None if bias is None else _t(bias),
         bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
         bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]), bn_eps=eps, nb=nb,
-        pool=False)
+        pool=False, mode=mode)
 
     convs = []
+    sh, sw = hin, win  # spatial dims at the INPUT of each conv
     for i in range(1, 6):
+        if i in (2, 4):
+            sh, sw = sh // 2, sw // 2
         latent, h, bias = get(f"conv_{i}")
         pattern, alpha = _weight_pattern(cf, latent, h)
         mask, sign, _ = pack_conv_ternary_np(pattern)
-        sgn, tau = levels(f"bn_conv_{i}", alpha, bias)
+        sgn, tau = levels(f"bn_conv_{i}", alpha, bias, pattern, (0, 1, 2))
+        corr = _t(lm1 * padding_correction(pattern, sh, sw)) if tanh else None
         convs.append(I.PlaneConvTernary(
             mask=_t(mask), msign=_t(mask & sign), sgn=sgn, tau=tau,
-            pool=i % 2 == 1))
+            pool=i % 2 == 1, corr=corr))
 
-    fh, fw = hin // 8, win // 8  # after three 2x2 pools
+    fh, fw = sh // 2, sw // 2  # after conv_5's pool
     c_last = _np(params["conv_5"]["kernel"]).shape[-1]
     denses = []
     for j in range(2):
@@ -419,7 +458,7 @@ def pack_vgg_bitplane(variables: dict, cf: Config, device="cuda") -> I.PlaneVGG:
             mask, sign, _ = _pack_ternary_per_position(pattern, fh, fw, c_last)
         else:
             mask, sign, _ = pack_ternary_np(pattern, axis=0)
-        sgn, tau = levels(f"bn_dense_{j}", alpha, bias)
+        sgn, tau = levels(f"bn_dense_{j}", alpha, bias, pattern)
         denses.append(I.PlaneDenseTernary(mask=_t(mask), msign=_t(mask & sign),
                                           sgn=sgn, tau=tau))
 
@@ -432,11 +471,12 @@ def pack_vgg_bitplane(variables: dict, cf: Config, device="cuda") -> I.PlaneVGG:
             bias=None if bias is None else _t(bias),
             bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
             bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]), bn_eps=eps,
-            k=latent.shape[0], q=q)
+            k=latent.shape[0], q=q, lvl0=lm1 if tanh else 0)
     else:
         pattern, alpha = _weight_pattern(cf, latent, h)
         aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
-                             eps, alpha=alpha * q, bias=bias)
+                             eps, alpha=alpha * q,
+                             bias=in_bias(alpha, bias, pattern))
         mask, sign, _ = pack_ternary_np(pattern, axis=0)
         head = I.PlaneDenseLogits(mask=_t(mask), msign=_t(mask & sign),
                                   a=_t(aff.a), c=_t(aff.c0))
@@ -521,36 +561,35 @@ def pack_mlp(variables: dict, cf: Config, device="cuda") -> I.PackedMLP:
 
 def pack_int8(variables: dict, cf: Config,
               device="cuda") -> E.I8MLP | E.I8VGG:
-    """Lower a trained ``full-bnn`` or ``full-tnn`` model into the int8
-    engine (:mod:`qnx_torch.nn.int8_engine`) on ``device``: an
+    """Lower a trained model into the int8 engine
+    (:mod:`qnx_torch.nn.int8_engine`) on ``device``: an
     :class:`~qnx_torch.nn.int8_engine.I8MLP` or
-    :class:`~qnx_torch.nn.int8_engine.I8VGG`.
+    :class:`~qnx_torch.nn.int8_engine.I8VGG`, for every quantized
+    ``network_type``:
 
-    Weights become int8 patterns ({-1, +1} binary, {-1, 0, +1} ternary),
-    activations int8 codes: ``pm1`` for binary_tanh (abits 1), ``levels`` for
-    quantized_relu (abits > 1), with BN folded into integer thresholds
-    (``fold_bn_sign`` or ``fold_bn_levels`` with the level step folded into
-    alpha).  The codes are the activation values up to that exact step, so
-    no offset or pad correction is needed.  ``full-qnn``, the relu network
-    types and the ``zo`` / ``tanh`` encodings are not ported yet.
+    * ``full-bnn`` / ``full-tnn`` / ``full-qnn``: the integer path.  Weights
+      become int8 patterns ({-1, +1} binary, {-1, 0, +1} ternary, or
+      pow2-grid integers, which need wbits <= 8), activations int8 codes:
+      ``pm1`` for binary_tanh, ``zo`` for binary_sigmoid, ``levels`` for
+      quantized_relu and ``tanh`` for quantized_tanh, with BN folded into
+      integer thresholds (``fold_bn_sign`` for pm1 and zo,
+      ``fold_bn_levels`` for the level codes, the level step q folded into
+      alpha).  The codes are the activation values up to that exact step,
+      so no offset or pad correction is needed.
+    * ``bnn`` / ``tnn`` / ``qnn``: the relu network types, quantized
+      weights stored int8 with a scalar scale and float relu activations
+      (:func:`_pack_int8_relu`).
     """
     device = _check_device(device)
     if cf.network_type not in ("full-bnn", "full-tnn", "full-qnn",
                                "bnn", "tnn", "qnn"):
         raise ValueError(f"int8 engine requires a quantized network_type; "
                          f"got {cf.network_type}")
-    if cf.network_type not in ("full-bnn", "full-tnn"):
-        raise NotImplementedError(
-            f"pack_int8 of network_type {cf.network_type!r} is not ported yet "
-            "(ROADMAP.md §1 item 10); ported: full-bnn and full-tnn")
+    if cf.network_type in ("full-qnn", "qnn") and cf.wbits > 8:
+        raise ValueError(
+            f"int8 engine holds pow2-grid weights as int8 integers, which "
+            f"requires wbits <= 8; got wbits={cf.wbits}")
     act_op = _engine_activation(cf)
-    act = {"binary_tanh": "pm1", "binary_sigmoid": "zo",
-           "quantized_relu": "levels", "quantized_tanh": "tanh"}[act_op]
-    if act not in ("pm1", "levels"):
-        raise NotImplementedError(
-            f"pack_int8 of the {act_op!r} activation ({act!r} codes) is not "
-            "ported yet (ROADMAP.md §1 item 10); ported: binary_tanh (pm1) "
-            "and quantized_relu (levels)")
     if cf.architecture == "vgg":
         validate_vgg_variables(variables, cf)
     params = variables["params"]
@@ -558,7 +597,10 @@ def pack_int8(variables: dict, cf: Config,
     stats = variables["batch_stats"]
     eps = cf.batch_norm_epsilon
     nb = cf.abits
-    q_in = 1.0 if act == "pm1" else 2.0 ** (1 - nb)
+    act = {"binary_tanh": "pm1", "binary_sigmoid": "zo",
+           "quantized_relu": "levels", "quantized_tanh": "tanh",
+           "relu": "relu"}[act_op]
+    q_in = 1.0 if act in ("pm1", "zo") else 2.0 ** (1 - nb)
 
     def get(name):
         latent = _np(params[name]["kernel"])
@@ -566,24 +608,36 @@ def pack_int8(variables: dict, cf: Config,
         h = float(quant[name]["H"]) if name in quant else None
         return latent, h, bias
 
+    def pattern_alpha(latent, h):
+        if cf.network_type in ("full-tnn", "tnn"):
+            return _ternary_pattern(latent, h, cf.ternary_style)
+        if cf.network_type in ("full-qnn", "qnn"):
+            return _quant_grid(latent, h, cf.wbits)
+        return _binary_pattern(latent, h), h
+
+    if cf.network_type in ("bnn", "tnn", "qnn"):
+        return _pack_int8_relu(variables, cf, get, pattern_alpha,
+                               eps).to(device)
+
     def bn_of(name):
         return _bn(params, stats, name, eps)
 
     def fold_hidden(bn, alpha, bias):
-        if act == "pm1":
+        if act in ("pm1", "zo"):
             thr = fold_bn_sign(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
                                eps, alpha=alpha * q_in, bias=bias)
         else:
             thr = fold_bn_levels(bn["gamma"], bn["beta"], bn["mean"],
                                  bn["var"], eps, nb, alpha=alpha * q_in,
-                                 bias=bias, mode="relu")
+                                 bias=bias,
+                                 mode="tanh" if act == "tanh" else "relu")
         return _t(thr.sgn), _t(thr.tau)
 
     def first_quant_w(latent, h):
         """First layer weights as f32 values (quantized if not float)."""
         if h is None:
             return latent.astype(np.float32)
-        pattern, alpha = _weight_pattern(cf, latent, h)
+        pattern, alpha = pattern_alpha(latent, h)
         return (pattern * alpha).astype(np.float32)
 
     def bn_kwargs(bn):
@@ -592,7 +646,7 @@ def pack_int8(variables: dict, cf: Config,
 
     def hidden_weights(name, bn_name):
         latent, h, bias = get(name)
-        pattern, alpha = _weight_pattern(cf, latent, h)
+        pattern, alpha = pattern_alpha(latent, h)
         sgn, tau = fold_hidden(bn_of(bn_name), alpha, bias)
         return dict(w8=_t(pattern.astype(np.int8)), sgn=sgn, tau=tau, act=act)
 
@@ -604,7 +658,7 @@ def pack_int8(variables: dict, cf: Config,
                 w=_t(latent.astype(np.float32)),
                 bias=None if bias is None else _t(bias), q=q_in,
                 **bn_kwargs(bn))
-        pattern, alpha = _weight_pattern(cf, latent, h)
+        pattern, alpha = pattern_alpha(latent, h)
         aff = fold_bn_affine(bn["gamma"], bn["beta"], bn["mean"], bn["var"],
                              eps, alpha=alpha * q_in, bias=bias)
         return E.I8DenseLogits(w8=_t(pattern.astype(np.int8)), a=_t(aff.a),
@@ -633,3 +687,41 @@ def pack_int8(variables: dict, cf: Config,
     else:
         raise ValueError(f"unknown architecture {cf.architecture!r}")
     return model.to(device)
+
+
+def _pack_int8_relu(variables: dict, cf: Config, get, pattern_alpha,
+                    eps: float) -> E.I8MLP | E.I8VGG:
+    """The relu network types (``bnn`` / ``tnn`` / ``qnn``): quantized
+    weights stored int8 with a scalar dequant scale, float relu activations
+    (only the weights are quantized); a float boundary layer keeps float32
+    weights with alpha = 1."""
+    params = variables["params"]
+    stats = variables["batch_stats"]
+
+    def layer(cls, name, bn_name, **kw):
+        latent, h, bias = get(name)
+        if h is None:  # float boundary layer
+            w, alpha = _t(latent.astype(np.float32)), 1.0
+        else:
+            pattern, alpha = pattern_alpha(latent, h)
+            w = _t(pattern.astype(np.int8))
+        bn = _bn(params, stats, bn_name, eps)
+        return cls(w=w, alpha=torch.tensor(alpha, dtype=torch.float32),
+                   bias=None if bias is None else _t(bias),
+                   bn_scale=_t(bn["gamma"]), bn_bias=_t(bn["beta"]),
+                   bn_mean=_t(bn["mean"]), bn_var=_t(bn["var"]), bn_eps=eps,
+                   **kw)
+
+    if cf.architecture == "mlp":
+        denses = [layer(E.I8WDense, f"dense_{i}", f"bn_{i}")
+                  for i in range(cf.num_hidden)]
+        return E.I8MLP(first=denses[0], hidden=denses[1:],
+                       head=layer(E.I8WHead, "dense_out", "bn_out"))
+    if cf.architecture == "vgg":
+        convs = [layer(E.I8WConv, f"conv_{i}", f"bn_conv_{i}", pool=i % 2 == 1)
+                 for i in range(6)]
+        denses = [layer(E.I8WDense, f"dense_{j}", f"bn_dense_{j}")
+                  for j in range(2)]
+        return E.I8VGG(first=convs[0], convs=convs[1:], denses=denses,
+                       head=layer(E.I8WHead, "dense_out", "bn_out"))
+    raise ValueError(f"unknown architecture {cf.architecture!r}")

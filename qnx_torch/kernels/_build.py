@@ -34,9 +34,9 @@ _SIGNATURES = {
     "qnx_xnor_conv3x3_fused": [_P] * 6 + [_I] * 7 + [_P],
     "qnx_xnor_gemm_popcount": [_P] * 3 + [_I] * 4 + [_P],
     "qnx_ternary_gemm": [_P] * 5 + [_I] * 3 + [_P],
-    "qnx_i8_conv3x3_fused": [_P] * 5 + [_I] * 8 + [_P],
+    "qnx_i8_conv3x3_fused": [_P] * 5 + [_I] * 9 + [_P],
     "qnx_ternary_conv3x3_fused": [_P] * 8 + [_I] * 6 + [_P],
-    "qnx_plane_conv3x3_fused": [_P] * 6 + [_I] * 8 + [_P],
+    "qnx_plane_conv3x3_fused": [_P] * 7 + [_I] * 8 + [_P],
     "qnx_plane_dense_fused": [_P] * 6 + [_I] * 6 + [_P],
     "qnx_xnor_head": [_P] * 5 + [_I] * 4 + [_P],
     "qnx_ternary_head": [_P] * 6 + [_I] * 3 + [_P],

@@ -16,6 +16,8 @@
 //                                        outside mask, as the popcount form)
 //       s        = sum_k lvl w          (= sum_j 2^j (2 popc(b_j & msign)
 //                                                     - popc(b_j & mask)))
+//       s        = s + corr[y,x,n]      (quantized_tanh's unsigned indices:
+//                                        the border term; none for relu)
 //       s        = max of s over the 2x2 window               (pool)
 //       level    = sum_v [sgn * s >= tau[v]]; plane j of the output = bit j
 //   A:  x[m,k]   = 2 bit - 1            (s8: +-1; a pad tap reads the zero
@@ -97,7 +99,7 @@ struct ConvArgs {
   const uint32_t* w0;  // (9 Cw, N) mask (D, A') or sign (A)
   const uint32_t* w1;  // (9 Cw, N) msign (D) or sign (A'); A: unused
   const int* nnz;      // (N,)      A' only
-  const int* corr;     // (H, W, N) A and A'
+  const int* corr;     // (H, W, N) A and A', D's tanh mode
   const int* sgn;      // (N,)
   const int* tau;      // (n_thresh, N)
   uint32_t* out;       // (P, B, H', W', Nw)
@@ -298,9 +300,10 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
       pos = a.pool ? (static_cast<size_t>(px.bi) * qh + px.qy) * qw + px.qx
                    : (static_cast<size_t>(px.bi) * a.h + px.y) * a.w + px.x;
     }
-    // A and A': the row's corr over the block's channels, all loads in flight
+    // the border term: the row's corr over the block's channels, all loads
+    // in flight
     int corr[4][4][2] = {};
-    if constexpr (Ops::kCorr) {
+    if constexpr (Ops::kBorder) {
       const int* row_corr = a.corr + (static_cast<size_t>(px.y) * a.w + px.x) * a.n;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -329,11 +332,11 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
         for (int j = 0; j < 2; ++j) {
           const int c = 32 * q + ni * 8 + 2 * t + j;  // the block's channel
           int s = acc[(4 * q + ni) * 4 + 2 * r + j];
-          if constexpr (Ops::kCorr) {
-            if (in_img && n0 + c < a.n) {
-              s += corr[q][ni][j] +
-                   (Ops::kCount ? col_nnz[c] - count[c] - count[kBN + c]
-                                : binary_const);
+          if (in_img && n0 + c < a.n) {  // each pixel's, before the pool
+            if constexpr (Ops::kBorder) s += corr[q][ni][j];
+            if constexpr (Ops::kCorr) {
+              s += Ops::kCount ? col_nnz[c] - count[c] - count[kBN + c]
+                               : binary_const;
             }
           }
           if (a.pool) {  // the window's four rows are lanes g, g^1, g^2, g^3
@@ -420,17 +423,24 @@ extern "C" {
 // Each launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() so a refused launch is reported at once.
 
-// Kernel D's conv: planes (P, B, H, W, Cw), mask / msign (9 Cw, N), sgn
-// (N,), tau (n_thresh, N) -> planes (P, B, H', W', ceil(N/32)).
+// Kernel D's conv: planes (P, B, H, W, Cw), mask / msign (9 Cw, N), corr
+// (H, W, N) or null (no border term: the relu mode's instances, which load
+// none), sgn (N,), tau (n_thresh, N) -> planes (P, B, H', W', ceil(N/32)).
 int qnx_plane_conv3x3_fused(const void* xp, const void* mask, const void* msign,
-                            const void* sgn, const void* tau, void* out, int p,
-                            int b, int h, int w, int cw, int n, int n_thresh,
-                            int pool, void* stream) {
+                            const void* corr, const void* sgn, const void* tau,
+                            void* out, int p, int b, int h, int w, int cw, int n,
+                            int n_thresh, int pool, void* stream) {
   const ConvArgs a{static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(mask),
-                   static_cast<const uint32_t*>(msign), nullptr, nullptr,
-                   static_cast<const int*>(sgn), static_cast<const int*>(tau),
-                   static_cast<uint32_t*>(out), p, b, h, w, cw, n, n_thresh, pool, 0};
-  // the served paths' one and two planes get an unrolled expander
+                   static_cast<const uint32_t*>(msign), nullptr,
+                   static_cast<const int*>(corr), static_cast<const int*>(sgn),
+                   static_cast<const int*>(tau), static_cast<uint32_t*>(out), p, b,
+                   h, w, cw, n, n_thresh, pool, 0};
+  // the served paths' planes get an unrolled expander: relu mode's one and
+  // two (abits 2, 3), tanh mode's two (abits 2)
+  if (corr) {
+    if (p == 2) return dispatch<PlaneOperands<2, true>>(a, stream);
+    return dispatch<PlaneOperands<0, true>>(a, stream);
+  }
   if (p == 1) return dispatch<PlaneOperands<1>>(a, stream);
   if (p == 2) return dispatch<PlaneOperands<2>>(a, stream);
   return dispatch<PlaneOperands<0>>(a, stream);

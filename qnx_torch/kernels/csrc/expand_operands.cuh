@@ -37,18 +37,24 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int s) {
 // the A operand's type; kWPlanes, the weight planes a K step copies;
 // kCorr, whether the epilogue adds a column constant (A and A': the +-1
 // product over every bit position of the words, pads included, is not the
-// popcount form's s) and, in the convs, corr; kCount, whether that
-// constant is A''s nnz - (set bits of the mask's column), else A's true
-// k less the bit positions (conv: k - 288 Cw, dense: k - 32 Kw).
+// popcount form's s); kCount, whether that constant is A''s nnz - (set
+// bits of the mask's column), else A's true k less the bit positions
+// (conv: k - 288 Cw, dense: k - 32 Kw); kBorder, whether the conv's
+// epilogue adds the border term corr[y, x, n] to each pixel's s before the
+// pool (A and A' always; D where its planes hold quantized_tanh's
+// unsigned indices, whose zero pads are not the zero activation).
 
-// Kernel D, with kP planes (0: as many as the argument says).  A: u8
-// levels sum_j 2^j bit_j.  B: s8 2 msign - mask.
-template <int kP>
+// Kernel D, with kP planes (0: as many as the argument says), and with
+// the border term where kBorderTerm.  A: u8 levels sum_j 2^j bit_j.  B: s8
+// 2 msign - mask.  One product over the levels whatever P, so the border
+// term is added once per output, not once per plane.
+template <int kP, bool kBorderTerm = false>
 struct PlaneOperands {
   static constexpr bool kU8 = true;
   static constexpr int kWPlanes = 2;
   static constexpr bool kCorr = false;
   static constexpr bool kCount = false;
+  static constexpr bool kBorder = kBorderTerm;
 
   __device__ static uint4 expand_a(const uint32_t* w, int stride, int planes, int h) {
     const int p = kP ? kP : planes;
@@ -98,6 +104,7 @@ struct BinaryOperands {
   static constexpr int kWPlanes = 1;
   static constexpr bool kCorr = true;
   static constexpr bool kCount = false;
+  static constexpr bool kBorder = true;
 
   __device__ static uint4 expand_a(const uint32_t* w, int, int, int h) {
     return expand_pm1(w[0], h);
@@ -115,6 +122,7 @@ struct TernaryOperands {
   static constexpr int kWPlanes = 2;
   static constexpr bool kCorr = true;
   static constexpr bool kCount = true;
+  static constexpr bool kBorder = true;
 
   __device__ static uint4 expand_a(const uint32_t* w, int, int, int h) {
     return expand_pm1(w[0], h);

@@ -9,21 +9,28 @@
 //                (int32; a tap outside the image reads an int8 zero, which
 //                is the zero pad in every encoding, so there is no corr)
 //   pool:   s = max of s over the 2x2 window ('VALID': odd H or W floor)
-//   pm1:    code = sgn[n] * s >= tau[n] ? 1 : -1
-//   levels: code = sum_v [sgn[n] * s >= tau[v, n]]
+//   k    = sum_v [sgn[n] * s >= tau[v, n]]     (n_thresh thresholds)
+//   code = mul * k - off, the encoding's affine form:
+//     pm1    (2, 1): one threshold, code -1 or +1   (binary_tanh)
+//     zo     (1, 0): one threshold, code 0 or 1     (binary_sigmoid)
+//     levels (1, 0): code 0 .. n_thresh             (quantized_relu)
+//     tanh   (1, n_thresh / 2): n_thresh = 2L - 2 thresholds, signed code
+//            -(L-1) .. L-1, down to -127 at 8 bits  (quantized_tanh)
 //
 // I8Conv thresholds first and pools the codes, taking the window's minimum
-// where sgn < 0.  Pooling s first is the same function: the code is
-// nondecreasing in sgn*s, so the window's max code (sgn = 1) is the code of
-// max s, and its min code (sgn = -1) is the code of min(-s) = -max s.  One
-// threshold per pooled output instead of four.  The plain version
-// (i8_conv_fused.py:i8_conv_fused_ref) keeps I8Conv's order, so the card's
-// check holds the two formulations against each other.  The encoding is an
-// argument: one threshold in the levels encoding is still levels ({0, 1}),
-// never the sign encoding (the JAX I8Conv(fused=True) fault, ROADMAP.md §3).
-// The compare is int32, tau is never negated (it may be INT32_MIN).  The
-// accumulator is exact for any int8 operands while 9*C*128*128 < 2^31,
-// C <= 14563 (the wrapper checks).
+// where sgn < 0.  Pooling s first is the same function in every encoding:
+// mul > 0, so the code is nondecreasing in sgn*s, and the window's max code
+// (sgn = 1) is the code of max s, its min code (sgn = -1) the code of
+// min(-s) = -max s.  One threshold per pooled output instead of four.  The
+// plain version (i8_conv_fused.py:i8_conv_fused_ref) keeps I8Conv's order,
+// so the card's check holds the two formulations against each other.  The
+// encoding is an argument, passed as its affine form: one threshold in the
+// levels or zo encoding is {0, 1}, never the sign encoding's {-1, +1} (the
+// JAX I8Conv(fused=True) fault, ROADMAP.md §3).  A zero code is the zero
+// activation in every encoding (zo's 0, tanh's signed 0), so a zero pad
+// needs no border term.  The compare is int32, tau is never negated (it
+// may be INT32_MIN).  The accumulator is exact for any int8 operands while
+// 9*C*128*128 < 2^31, C <= 14563 (the wrapper checks).
 //
 // What bounds it on an H100: the int8 tensor cores (1,979 TOP/s dense at
 // 700 W; 0.156 ms for the five cifar10 VGG convs at batch 256) only if the
@@ -84,7 +91,8 @@ struct I8Args {
   const int* sgn;    // (N,)
   const int* tau;    // (n_thresh, N)
   int8_t* out;       // (B, H', W', N) codes
-  int b, h, w, c, cp, n, n_thresh, levels, pool;
+  int b, h, w, c, cp, n, n_thresh, pool;
+  int mul, off;      // code = mul * (thresholds passed) - off
 };
 
 // the tile ring, then the block's sgn and first thresholds
@@ -298,11 +306,10 @@ i8_conv3x3_kernel(const I8Args a) {
           k0 += u0 >= tau_v[0];
           if (live1) k1 += u1 >= tau_v[1];
         }
-        if (!a.levels) {  // pm1: one threshold, code +-1
-          k0 = 2 * k0 - 1;
-          k1 = 2 * k1 - 1;
-        }
-        if (live1 && (a.n & 1) == 0) {  // both bytes, 2-aligned
+        k0 = a.mul * k0 - a.off;  // the encoding's code, -127 .. 127
+        k1 = a.mul * k1 - a.off;
+        // both bytes, 2-aligned; a negative code's two's complement byte
+        if (live1 && (a.n & 1) == 0) {
           *reinterpret_cast<uint16_t*>(orow + c) = static_cast<uint16_t>(
               (k0 & 0xff) | ((k1 & 0xff) << 8));
         } else {
@@ -346,11 +353,12 @@ extern "C" {
 // cudaGetLastError() so a refused launch is reported at once.  x8 (B, H,
 // W, C) int8 codes; wk (N, 9 Cp) int8 weights, K-major, each tap's C
 // channels zero-padded to Cp = ceil(C / 16) 16, 16-byte aligned; sgn (N,);
-// tau (n_thresh, N); levels: 0 for the pm1 encoding (n_thresh 1), 1 for
-// levels -> out (B, H', W', N) int8 codes.
+// tau (n_thresh, N); mul, off: the encoding's code mul * k - off of the k
+// thresholds passed (pm1 2, 1; zo and levels 1, 0; tanh 1, n_thresh / 2)
+// -> out (B, H', W', N) int8 codes.
 int qnx_i8_conv3x3_fused(const void* x8, const void* wk, const void* sgn,
                          const void* tau, void* out, int b, int h, int w,
-                         int c, int n, int n_thresh, int levels, int pool,
+                         int c, int n, int n_thresh, int mul, int off, int pool,
                          void* stream) {
   if (reinterpret_cast<uintptr_t>(wk) % 16) {
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -358,7 +366,7 @@ int qnx_i8_conv3x3_fused(const void* x8, const void* wk, const void* sgn,
   const I8Args a{static_cast<const int8_t*>(x8), static_cast<const int8_t*>(wk),
                  static_cast<const int*>(sgn), static_cast<const int*>(tau),
                  static_cast<int8_t*>(out), b, h, w, c, (c + 15) / 16 * 16, n,
-                 n_thresh, levels, pool};
+                 n_thresh, pool, mul, off};
   // the activation copies' width: 16 bytes where C and x8 allow it
   auto s = static_cast<cudaStream_t>(stream);
   const auto x = reinterpret_cast<uintptr_t>(x8);

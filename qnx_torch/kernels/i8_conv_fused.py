@@ -2,8 +2,11 @@
 port of :mod:`qnx.kernels.i8_conv_fused`, kernel E.
 
     s    = 3x3 'SAME' stride-1 conv of x8 with w8, int32   (zero pads)
-    code = sgn * s >= tau ? 1 : -1            (encoding "pm1", tau (N,))
-    code = sum_v [sgn * s >= tau[v]]          (encoding "levels", tau (L, N))
+    code = sgn * s >= tau ? 1 : -1         (encoding "pm1", tau (N,))
+    code = sgn * s >= tau ? 1 : 0          (encoding "zo", tau (N,))
+    code = sum_v [sgn * s >= tau[v]]       (encoding "levels", tau (L, N))
+    code = sum_v [sgn * s >= tau[v]] - L/2 (encoding "tanh", tau (L, N),
+                                            L = 2^nb - 2 even: signed codes)
     pool: 2x2/2 max of the codes, the window's min where sgn < 0
           ('VALID': an odd H or W floors)
 
@@ -18,7 +21,9 @@ the pool of the codes.  The kernel reads the weights K-major
 The encoding is an argument, never inferred from ``tau``'s shape: the JAX
 ``I8Conv(fused=True)`` passes ``levels = tau.shape[0]``, and its kernel takes
 one threshold as the sign encoding, so a levels layer with one threshold
-gives {-1, +1} there where ``I8Conv`` gives {0, 1} (ROADMAP.md §3).  The JAX
+gives {-1, +1} there where ``I8Conv`` gives {0, 1} (ROADMAP.md §3).  The
+kernel takes each encoding as the affine form of its code,
+``mul * k - off`` of the k thresholds passed (:func:`code_affine`).  The JAX
 wrapper's TPU tiling (``block_b``, ``block_n``, the VMEM budget) and its
 pool split between the kernel and XLA have no counterpart here.
 
@@ -31,7 +36,7 @@ import torch
 
 from . import _build
 
-ENCODINGS = ("pm1", "levels")
+ENCODINGS = ("pm1", "zo", "levels", "tanh")
 # |s| <= 9 * C * 128 * 128 must stay below 2^31 for int8 operands
 MAX_CHANNELS = (2**31 - 1) // (9 * 128 * 128)
 # each tap's channels of the K-major weights are zero-padded to a multiple
@@ -39,17 +44,18 @@ MAX_CHANNELS = (2**31 - 1) // (9 * 128 * 128)
 K_ALIGN = 16
 
 
-def _unported(act: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the int8 engine's {act!r} encoding is not ported yet (ROADMAP.md "
-        "§1 item 10); ported: 'pm1' and 'levels'")
-
-
 def sign_epilogue(s: torch.Tensor, sgn: torch.Tensor,
                   tau: torch.Tensor) -> torch.Tensor:
     """±1 int8 codes of the integer threshold test ``sgn * s >= tau``
     (sgn and tau (N,), broadcast over the leading dims of s)."""
     return torch.where(sgn * s >= tau, 1, -1).to(torch.int8)
+
+
+def zo_epilogue(s: torch.Tensor, sgn: torch.Tensor,
+                tau: torch.Tensor) -> torch.Tensor:
+    """{0, 1} int8 codes of the same test (binary_sigmoid: 1 iff BN(y) > 0,
+    the sign test of pm1 with another coding)."""
+    return torch.where(sgn * s >= tau, 1, 0).to(torch.int8)
 
 
 def multi_threshold(s: torch.Tensor, sgn: torch.Tensor,
@@ -63,10 +69,12 @@ def multi_threshold(s: torch.Tensor, sgn: torch.Tensor,
     return lvl
 
 
-def level_epilogue(s: torch.Tensor, sgn: torch.Tensor,
-                   tau: torch.Tensor) -> torch.Tensor:
-    """Level codes int8 ``sum_v [sgn * s >= tau[v]]`` (tau (n_thresh, N))."""
-    return multi_threshold(s, sgn, tau).to(torch.int8)
+def level_epilogue(s: torch.Tensor, sgn: torch.Tensor, tau: torch.Tensor,
+                   off: int = 0) -> torch.Tensor:
+    """Level codes int8 ``sum_v [sgn * s >= tau[v]] - off`` (tau (n_thresh,
+    N)): off 0 for quantized_relu, off = n_thresh // 2 = L - 1 recentres
+    quantized_tanh's unsigned index into its signed code."""
+    return (multi_threshold(s, sgn, tau) - off).to(torch.int8)
 
 
 def act_epilogue(act: str, s: torch.Tensor, sgn: torch.Tensor,
@@ -74,30 +82,41 @@ def act_epilogue(act: str, s: torch.Tensor, sgn: torch.Tensor,
     """int32 s -> int8 activation codes of encoding ``act``."""
     if act == "pm1":
         return sign_epilogue(s, sgn, tau)
+    if act == "zo":
+        return zo_epilogue(s, sgn, tau)
     if act == "levels":
         return level_epilogue(s, sgn, tau)
-    if act in ("zo", "tanh"):
-        raise _unported(act)
+    if act == "tanh":
+        return level_epilogue(s, sgn, tau, off=tau.shape[0] // 2)
     raise ValueError(f"unknown int8 encoding {act!r}")
+
+
+def code_affine(encoding: str, n_thresh: int) -> tuple[int, int]:
+    """(mul, off) of the encoding's code ``mul * k - off`` of the k
+    thresholds passed, as kernel E takes it: pm1 (2, 1), zo and levels
+    (1, 0), tanh (1, n_thresh // 2)."""
+    return {"pm1": (2, 1), "zo": (1, 0), "levels": (1, 0),
+            "tanh": (1, n_thresh // 2)}[encoding]
 
 
 def _n_thresholds(encoding: str, n: int, sgn: torch.Tensor,
                   tau: torch.Tensor) -> int:
-    """Check sgn (N,) and tau ((N,) for pm1, (L, N) for levels); return the
-    number of thresholds."""
+    """Check sgn (N,) and tau ((N,) for pm1 and zo, (L, N) for levels and
+    (L, N) with L even for tanh); return the number of thresholds."""
     if encoding not in ENCODINGS:
-        if encoding in ("zo", "tanh"):
-            raise _unported(encoding)
         raise ValueError(f"encoding must be one of {ENCODINGS}, got {encoding!r}")
-    if encoding == "pm1":
+    if encoding in ("pm1", "zo"):
         tau_ok = tau.shape == (n,)
     else:
         tau_ok = tau.dim() == 2 and tau.shape[0] >= 1 and tau.shape[1] == n
+        if encoding == "tanh":  # 2^nb - 2 thresholds, codes within int8
+            tau_ok = tau_ok and tau.shape[0] % 2 == 0 and tau.shape[0] <= 254
     if sgn.shape != (n,) or not tau_ok:
         raise ValueError(f"i8_conv_fused: sgn {tuple(sgn.shape)} must be ({n},) "
-                         f"and tau {tuple(tau.shape)} ({n},) for pm1 or "
-                         f"(L >= 1, {n}) for levels (got {encoding!r})")
-    return 1 if encoding == "pm1" else tau.shape[0]
+                         f"and tau {tuple(tau.shape)} ({n},) for pm1 and zo, "
+                         f"(L >= 1, {n}) for levels, (L even <= 254, {n}) for "
+                         f"tanh (got {encoding!r})")
+    return tau.shape[0] if tau.dim() == 2 else 1
 
 
 def conv3x3_s_ref(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
@@ -160,9 +179,10 @@ def i8_conv_fused(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
       x8:  (B, H, W, C) int8 activation codes.
       w8:  (3, 3, C, N) int8 weights (HWIO), any int8 values.
       sgn: (N,) int32 threshold direction (+1 / -1).
-      tau: (N,) int32 threshold (``encoding="pm1"``), or (L, N) int32
-           thresholds (``encoding="levels"``, L >= 1).
-      encoding: "pm1" (codes ±1) or "levels" (codes 0..L).
+      tau: (N,) int32 threshold (``encoding`` "pm1" or "zo"), or (L, N)
+           int32 thresholds ("levels", L >= 1; "tanh", L = 2^nb - 2).
+      encoding: "pm1" (codes ±1), "zo" (codes 0, 1), "levels" (codes
+           0..L) or "tanh" (codes -L/2..L/2).
       pool: 2x2/2 max pool of the codes (window min where sgn < 0).
       wk:  ``k_major(w8)``, the weights as the kernel reads them.  Without
            it the wrapper makes that copy itself (a torch transpose of the
@@ -197,8 +217,8 @@ def i8_conv_fused(x8: torch.Tensor, w8: torch.Tensor, sgn: torch.Tensor,
     out = torch.empty((b, ho, wo, n), dtype=torch.int8, device=x8.device)
     if out.numel():
         _build.launch("qnx_i8_conv3x3_fused", x8.device, x8, wk, sgn, tau, out,
-                      b, h, w, c, n, n_thresh, int(encoding == "levels"),
-                      int(pool))
+                      b, h, w, c, n, n_thresh,
+                      *code_affine(encoding, n_thresh), int(pool))
         i8_conv_fused.launches += 1
     return out
 

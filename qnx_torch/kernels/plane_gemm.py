@@ -2,23 +2,28 @@
 (torch port of :mod:`qnx.kernels.plane_gemm`, kernel D, and of what the JAX
 bit-plane layers leave to XLA around it).
 
-Multi-bit quantized_relu activations decompose as ``x = q * sum_j 2^j b_j``
-with ``b_j`` in {0,1}: P planes, each packed along the channels like sign
+Multi-bit activations decompose as ``x = q * sum_j 2^j b_j`` with ``b_j``
+in {0,1} (quantized_relu's level, or quantized_tanh's unsigned index
+``u = v + (L - 1)``): P planes, each packed along the channels like sign
 bits.  Ternary (or binary) weights are two packed planes, ``mask`` (nonzero)
 and ``msign = mask & sign`` (positive).  Per plane
 
     t_j  = 2 * popcount(b_j & msign) - popcount(b_j & mask)   (= b_j . w)
     s    = sum_j 2^j t_j
+    s    = s + corr[y, x, n]                (conv with a border term)
     s    = 2x2 max of s                     (conv with pool)
     lvl  = sum_v [sgn * s >= tau[v]]        (fold_bn_levels thresholds)
     plane j of the output = bit j of lvl, packed along the channels.
 
-Zero pads are b = 0 and add nothing, so the 'SAME' conv over planes needs no
-correction in relu mode, the only mode ported (the tanh mode's unsigned
-indices and border term are ROADMAP.md §1 item 10).  The level is nondecreasing in ``sgn * s``, so pooling ``s`` (max) and
-thresholding once equals the JAX order, threshold then pool of the levels
-(the window's min where sgn < 0), which the plain versions follow with
-kernel E's epilogue helpers (``multi_threshold``, ``pool_codes``).  A layer
+Zero pads are b = 0 and add nothing, so the 'SAME' conv over quantized_relu
+planes needs no correction (``corr`` None); quantized_tanh's zero pads are
+u = 0 where the zero activation is u = L - 1, and ``corr`` (H, W, N), (L - 1)
+times the pattern's padding correction, adds back what they leave out.  The
+level is nondecreasing in ``sgn * s``, so pooling ``s + corr`` (max, each
+pixel's corr added before the pool) and thresholding once equals the JAX
+order, corr, threshold, then pool of the levels (the window's min where
+sgn < 0), which the plain versions follow with kernel E's epilogue helpers
+(``multi_threshold``, ``pool_codes``).  A layer
 writes as many planes as it reads.
 
 The JAX layers run one Pallas GEMM per plane and leave the plane sum, the
@@ -184,14 +189,18 @@ def plane_conv(planes: torch.Tensor, mask: torch.Tensor, msign: torch.Tensor,
 
 def plane_conv_fused_ref(planes: torch.Tensor, mask: torch.Tensor,
                          msign: torch.Tensor, sgn: torch.Tensor,
-                         tau: torch.Tensor, *, pool: bool = False) -> torch.Tensor:
+                         tau: torch.Tensor, *, pool: bool = False,
+                         corr: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of :func:`plane_conv_fused`, in the JAX order: gather
     3x3 patches of each plane padded with zero words, :func:`plane_gemm_ref`
-    over the planes, the levels, the pool of the levels, the planes."""
+    over the planes, the border term, the levels, the pool of the levels,
+    the planes."""
     p, b, h, w, cw = planes.shape
     patches = torch.stack([extract_packed_patches(planes[j], 3, 3)
                            .reshape(b * h * w, 9 * cw) for j in range(p)])
     s = plane_gemm_ref(patches, mask, msign).reshape(b, h, w, -1)
+    if corr is not None:
+        s = s + corr
     lvl = multi_threshold(s, sgn, tau)
     if pool:
         lvl = pool_codes(lvl, sgn)
@@ -200,9 +209,10 @@ def plane_conv_fused_ref(planes: torch.Tensor, mask: torch.Tensor,
 
 def plane_conv_fused(planes: torch.Tensor, mask: torch.Tensor,
                      msign: torch.Tensor, sgn: torch.Tensor, tau: torch.Tensor,
-                     *, pool: bool = False) -> torch.Tensor:
-    """Fused bit-plane 3x3 'SAME' stride-1 conv + levels (+2x2 pool) ->
-    the next layer's planes.
+                     *, pool: bool = False,
+                     corr: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused bit-plane 3x3 'SAME' stride-1 conv (+ border term) + levels
+    (+2x2 pool) -> the next layer's planes.
 
     Args:
       planes: (P, B, H, W, Cw) int32 packed {0,1} activation planes.
@@ -210,7 +220,9 @@ def plane_conv_fused(planes: torch.Tensor, mask: torch.Tensor,
               (pack_conv_ternary_np; msign = mask & sign).
       sgn:    (N,) int32 threshold direction.
       tau:    (n_thresh, N) int32 ascending thresholds, n_thresh < 2^P.
-      pool:   fuse the 2x2/2 max pool (of s, before the levels).
+      pool:   fuse the 2x2/2 max pool (of s + corr, before the levels).
+      corr:   (H, W, N) int32 added to each pixel's s (quantized_tanh's
+              border term), or None (quantized_relu: no term, no loads).
 
     Returns:
       (P, B, H', W', ceil(N/32)) int32 planes; H' = H/2, W' = W/2 when pool.
@@ -221,15 +233,20 @@ def plane_conv_fused(planes: torch.Tensor, mask: torch.Tensor,
     _check_levels("plane_conv_fused", p, n, sgn, tau)
     if pool and (h % 2 or w % 2):
         raise ValueError(f"plane_conv_fused: pool needs even H and W, got {h}x{w}")
+    if corr is not None and tuple(corr.shape) != (h, w, n):
+        raise ValueError(f"plane_conv_fused: corr {tuple(corr.shape)} must be "
+                         f"({h}, {w}, {n})")
     if not _build.check_operands("plane_conv_fused", planes, mask=mask,
-                                 msign=msign, sgn=sgn, tau=tau):
-        return plane_conv_fused_ref(planes, mask, msign, sgn, tau, pool=pool)
+                                 msign=msign, sgn=sgn, tau=tau,
+                                 **({} if corr is None else {"corr": corr})):
+        return plane_conv_fused_ref(planes, mask, msign, sgn, tau, pool=pool,
+                                    corr=corr)
     ho, wo = (h // 2, w // 2) if pool else (h, w)
     out = torch.empty((p, b, ho, wo, packed_len(n)), dtype=torch.int32,
                       device=planes.device)
     if out.numel():
         _build.launch("qnx_plane_conv3x3_fused", planes.device, planes, mask,
-                      msign, sgn, tau, out, p, b, h, w, cw, n,
+                      msign, corr, sgn, tau, out, p, b, h, w, cw, n,
                       tau.shape[0], int(pool))
         plane_conv_fused.launches += 1
     return out

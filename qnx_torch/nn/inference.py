@@ -6,9 +6,10 @@ A packed model is a chain of
 
     bits --XNOR/ternary popcount conv/GEMM--> int32 s --(sgn*s >= tau)--> bits
 
-and a bit-plane model (n-bit quantized_relu activations, abits > 1) one of
+and a bit-plane model (n-bit quantized_relu or quantized_tanh activations,
+abits > 1) one of
 
-    {0,1} planes --plane popcount conv/GEMM--> s = sum_j 2^j t_j
+    {0,1} planes --plane popcount conv/GEMM--> s = sum_j 2^j t_j (+ corr)
                  --(sum_v [sgn*s >= tau[v]])--> level --bit j--> planes
 
 with float math only at the first layer (real-valued images in) and the
@@ -34,7 +35,7 @@ from qnx_torch.kernels.xnor_conv_fused import (ternary_conv_fused,
                                                xnor_conv_fused, xnor_gemm_fused)
 from qnx_torch.kernels.xnor_gemm import k_major, xnor_head
 from qnx_torch.ops.packing import pack_bits, unpack_bits
-from qnx_torch.ops.quant import quantized_relu
+from qnx_torch.ops.quant import quantized_relu, quantized_tanh
 
 _TF32_LOCK = threading.Lock()
 
@@ -76,6 +77,17 @@ class _BatchNorm(nn.Module):
         return (y - self.bn_mean) * mul + self.bn_bias
 
 
+def _conv_same(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
+    """f32 'SAME' stride-1 conv of NHWC ``x`` with HWIO ``w`` (+bias), TF32
+    off, NHWC out."""
+    kh, kw = w.shape[:2]
+    with _ieee_f32():
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                     padding=(kh // 2, kw // 2))
+    y = y.permute(0, 2, 3, 1)
+    return y if bias is None else y + bias
+
+
 def _maxpool2(y: torch.Tensor) -> torch.Tensor:
     """2x2/2 max pool (NHWC, 'VALID'), exact on int32 or f32."""
     b, h, w, c = y.shape
@@ -89,6 +101,16 @@ def _levels_from_float(y: torch.Tensor, nb: int) -> torch.Tensor:
     exact in float32)."""
     q = 2.0 ** (1 - nb)
     return torch.round(quantized_relu(y, nb) / q).to(torch.int32)
+
+
+def _tanh_levels_from_float(y: torch.Tensor, nb: int) -> torch.Tensor:
+    """Float pre-activation -> int32 SIGNED code v in [-(L-1), L-1]
+    (L = 2^(nb-1)) of quantized_tanh(y, nb), ``round(quantized_tanh(y) /
+    q)`` (the division by the pow2 step q is exact in float32).  A zero
+    code is the zero activation, so the int8 engine's conv pads need no
+    correction."""
+    q = 2.0 ** (1 - nb)
+    return torch.round(quantized_tanh(y, nb) / q).to(torch.int32)
 
 
 class FloatDenseBits(_BatchNorm):
@@ -225,12 +247,7 @@ class FloatConvBits(_BatchNorm):
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
         """The f32 'SAME' conv (+bias), NHWC in and out."""
-        kh, kw = self.w.shape[:2]
-        with _ieee_f32():
-            y = F.conv2d(x.permute(0, 3, 1, 2), self.w.permute(3, 2, 0, 1),
-                         padding=(kh // 2, kw // 2))
-        y = y.permute(0, 2, 3, 1)
-        return y if self.bias is None else y + self.bias
+        return _conv_same(x, self.w, self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x)
@@ -358,19 +375,27 @@ def mlp_forward(model: PackedMLP, images: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class FloatConvPlanes(FloatConvBits):
-    """Float first conv -> BN -> n-bit quantized_relu levels -> packed {0,1}
-    planes (abits > 1 configs).  Only the relu mode is ported; the tanh
-    lowering is ROADMAP.md §1 item 10."""
+    """Float first conv -> BN -> n-bit levels -> packed {0,1} planes
+    (abits > 1 configs).  ``mode="relu"``: quantized_relu's level in
+    [0, L - 1], nb - 1 planes; ``mode="tanh"``: quantized_tanh's signed
+    code v as the unsigned index u = v + (L - 1) in [0, 2L - 2], nb planes
+    (L = 2^(nb-1))."""
 
     def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
-                 bn_eps: float = 1e-4, nb: int = 2, pool: bool = False):
+                 bn_eps: float = 1e-4, nb: int = 2, pool: bool = False,
+                 mode: str = "relu"):
         super().__init__(w, bias, bn_scale, bn_bias, bn_mean, bn_var,
                          bn_eps=bn_eps, pool=pool)
+        if mode not in ("relu", "tanh"):
+            raise ValueError(f"mode must be 'relu' or 'tanh', got {mode!r}")
         self.nb = nb
+        self.mode = mode
 
     def levels(self, z: torch.Tensor) -> torch.Tensor:
-        """BN output -> the nb - 1 planes of its quantized_relu level, which
-        spans [0, 2^(nb-1) - 1]."""
+        """BN output -> the planes of its level index."""
+        if self.mode == "tanh":
+            u = _tanh_levels_from_float(z, self.nb) + (2 ** (self.nb - 1) - 1)
+            return levels_to_planes(u, self.nb)
         return levels_to_planes(_levels_from_float(z, self.nb), self.nb - 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -381,21 +406,26 @@ class FloatConvPlanes(FloatConvBits):
 
 
 class PlaneConvTernary(nn.Module):
-    """Ternary- (or binary-) weight conv over activation planes + multi-level
-    integer thresholds (+ max pool of s) -> the next planes, in one kernel.
-    Zero pads add nothing to {0,1} planes: relu mode needs no border term."""
+    """Ternary- (or binary-) weight conv over activation planes + border
+    term + multi-level integer thresholds (+ max pool of s) -> the next
+    planes, in one kernel.  Zero pads add nothing to {0,1} planes, so relu
+    mode has no border term (``corr`` None); tanh mode's planes carry
+    unsigned indices u = v + (L - 1), whose zero pads understate the zero
+    activation by L - 1 a tap, and ``corr`` (H, W, N) holds that
+    (L - 1)-scaled border correction."""
 
-    def __init__(self, mask, msign, sgn, tau, pool: bool = False):
+    def __init__(self, mask, msign, sgn, tau, pool: bool = False, corr=None):
         super().__init__()
         self.register_buffer("mask", mask)    # (9*Cw, N) int32
         self.register_buffer("msign", msign)  # mask & sign
         self.register_buffer("sgn", sgn)      # (N,) int32
         self.register_buffer("tau", tau)      # (n_thresh, N) int32
+        self.register_buffer("corr", corr)    # (H, W, N) int32 or None
         self.pool = pool
 
     def forward(self, planes: torch.Tensor) -> torch.Tensor:
         return plane_conv_fused(planes, self.mask, self.msign, self.sgn,
-                                self.tau, pool=self.pool)
+                                self.tau, pool=self.pool, corr=self.corr)
 
 
 class PlaneDenseTernary(nn.Module):
@@ -428,24 +458,27 @@ class PlaneDenseLogits(_IntegerHead):
 
 
 class FloatDenseLogitsFromPlanes(_BatchNorm):
-    """Float head over n-bit activations: x = q * sum_j 2^j b_j, f32 GEMM
-    (+bias), BN -> logits (``last_layer_float`` configs)."""
+    """Float head over n-bit activations: x = q * (sum_j 2^j b_j - lvl0),
+    f32 GEMM (+bias), BN -> logits (``last_layer_float`` configs; lvl0 =
+    L - 1 recentres quantized_tanh's unsigned index, 0 for relu)."""
 
     def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
-                 bn_eps: float = 1e-4, k: int = 0, q: float = 0.5):
+                 bn_eps: float = 1e-4, k: int = 0, q: float = 0.5,
+                 lvl0: int = 0):
         super().__init__(bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
         self.register_buffer("w", w)        # (K, N) f32
         self.register_buffer("bias", bias)
         self.k = k
         self.q = q
+        self.lvl0 = lvl0
 
     def forward(self, planes: torch.Tensor) -> torch.Tensor:
         lvl = None
         for j in range(planes.shape[0]):
             b = (unpack_bits(planes[j], self.k, axis=-1, dtype=torch.int32) + 1) // 2
             lvl = b if lvl is None else lvl + (b << j)
-        # the int32 level times the pow2 step q: exact
-        x = lvl.to(torch.float32) * self.q
+        # the int32 difference times the pow2 step q: exact
+        x = (lvl - self.lvl0).to(torch.float32) * self.q
         with _ieee_f32():
             y = x @ self.w
         if self.bias is not None:
@@ -454,8 +487,8 @@ class FloatDenseLogitsFromPlanes(_BatchNorm):
 
 
 class PlaneVGG(PackedVGG):
-    """End-to-end n-bit-activation VGG (the CIFAR-10 TNN config): float first
-    conv (``FloatConvPlanes``) -> plane convs -> flatten each plane
+    """End-to-end n-bit-activation VGG (the CIFAR-10 TNN config, relu or
+    tanh mode): float first conv (``FloatConvPlanes``) -> plane convs -> flatten each plane
     (C-word-aligned) -> plane dense -> head, on (P, B, ...) planes."""
 
 

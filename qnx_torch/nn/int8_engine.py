@@ -1,13 +1,16 @@
-"""int8 inference engine (torch port of :mod:`qnx.nn.int8_engine`, the
-``pm1`` and ``levels`` encodings).
+"""int8 inference engine (torch port of :mod:`qnx.nn.int8_engine`).
 
-Activations are int8 codes: ``pm1`` for binary_tanh (±1), ``levels`` for
-quantized_relu(nb) level indices 0 .. 2^(nb-1)-1 (real value q * level,
-q = 2^(1-nb), folded into the thresholds).  Weights are int8 {-1, 0, +1}.
-Every hidden layer is an exact int32 product and the integer threshold
-epilogue of the packed engine, from the same BN fold, so the two engines
-give the same bits.  An int8 zero is a true zero in both encodings, so the
-convs' zero pads need no correction.
+Activations are int8 codes: ``pm1`` for binary_tanh (±1), ``zo`` for
+binary_sigmoid ({0, 1}, the code is the value), ``levels`` for
+quantized_relu(nb) level indices 0 .. 2^(nb-1)-1 and ``tanh`` for
+quantized_tanh(nb) signed codes -(2^(nb-1)-1) .. 2^(nb-1)-1 (real value
+q * code, q = 2^(1-nb), folded into the thresholds).  Weights are int8:
+{-1, 0, +1}, or ``full-qnn``'s pow2-grid integers in [-2^(wbits-1),
+2^(wbits-1) - 1] (wbits <= 8, the scale folded likewise).  Every hidden
+layer is an exact int32 product and the integer threshold epilogue of the
+packed engine, from the same BN fold, so the two engines give the same
+bits.  An int8 zero is a true zero in every encoding, so the convs' zero
+pads need no correction.
 
 * every hidden conv runs kernel E (:func:`qnx_torch.kernels.i8_conv_fused.
   i8_conv_fused`: conv, threshold and pool in one CUDA kernel), with its
@@ -19,10 +22,13 @@ convs' zero pads need no correction.
   with the (K, N) weights held column-major (:func:`_column_major`);
 * the first layer and a float head are float32 ops with TF32 off.
 
-The ``zo`` and ``tanh`` encodings raise NotImplementedError (ROADMAP.md §1
-item 10).  Layers are ``nn.Module``s whose int8 weights, thresholds and float
-weights are buffers; tensors keep the JAX layouts (NHWC codes, (3, 3, C, N)
-conv weights, (K, N) dense weights).
+The relu network types (``bnn``, ``tnn``, ``qnn``: quantized weights, float
+relu activations) are :class:`I8WConv`, :class:`I8WDense` and
+:class:`I8WHead`: int8 weights and a scalar scale, dequantized at each call
+and run through cuDNN and cuBLAS with TF32 off, as the JAX package leaves
+them to XLA.  Layers are ``nn.Module``s whose int8 weights, thresholds and
+float weights are buffers; tensors keep the JAX layouts (NHWC codes,
+(3, 3, C, N) conv weights, (K, N) dense weights).
 """
 from __future__ import annotations
 
@@ -30,11 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from qnx_torch.kernels.i8_conv_fused import (_unported, act_epilogue,
+from qnx_torch.kernels.i8_conv_fused import (ENCODINGS, act_epilogue,
                                              i8_conv_fused, k_major)
 from qnx_torch.kernels.xnor_gemm import affine
 from qnx_torch.nn.inference import (FloatConvBits, FloatDenseBits, _BatchNorm,
-                                    _ieee_f32, _levels_from_float, _maxpool2)
+                                    _conv_same, _ieee_f32, _levels_from_float,
+                                    _maxpool2, _tanh_levels_from_float)
 
 # torch._int_mm on CUDA takes M > 16 rows and K and N multiples of 8
 _INT_MM_MIN_ROWS = 17
@@ -78,9 +85,7 @@ def _int_mm_padded(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
 
 
 def _check_act(act: str) -> str:
-    if act in ("zo", "tanh"):
-        raise _unported(act)
-    if act not in ("pm1", "levels"):
+    if act not in ENCODINGS:
         raise ValueError(f"unknown int8 encoding {act!r}")
     return act
 
@@ -89,6 +94,10 @@ def _encode_float(act: str, z: torch.Tensor, nb: int) -> torch.Tensor:
     """Float post-BN pre-activation -> int8 activation code (first layers)."""
     if _check_act(act) == "pm1":
         return torch.where(z > 0, 1, -1).to(torch.int8)
+    if act == "zo":
+        return torch.where(z > 0, 1, 0).to(torch.int8)
+    if act == "tanh":
+        return _tanh_levels_from_float(z, nb).to(torch.int8)
     return _levels_from_float(z, nb).to(torch.int8)
 
 
@@ -185,7 +194,8 @@ class I8DenseLogits(nn.Module):
 
 
 class I8FloatHead(_BatchNorm):
-    """Float head: codes * q -> f32 matmul (+bias, TF32 off) -> BN."""
+    """Float head: codes * q -> f32 matmul (+bias, TF32 off) -> BN (q = 1
+    for pm1 and zo, 2^(1-nb) for levels and tanh)."""
 
     def __init__(self, w, bias, bn_scale, bn_bias, bn_mean, bn_var,
                  bn_eps: float = 1e-4, q: float = 1.0):
@@ -203,8 +213,64 @@ class I8FloatHead(_BatchNorm):
         return self._bn(y)
 
 
+class _Dequantized(_BatchNorm):
+    """A relu network type's layer: weights ``w`` (int8 grid integers, or
+    float32 for a float boundary layer) times the scalar ``alpha``, made
+    float at each call; ``alpha * z`` is the fake-quant weight bit for bit
+    (both are H * z * 2^-(nb-1), and a pow2 scale is exact in float32)."""
+
+    def __init__(self, w, alpha, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                 bn_eps: float = 1e-4):
+        super().__init__(bn_scale, bn_bias, bn_mean, bn_var, bn_eps)
+        self.register_buffer("w", w)          # int8 or f32, JAX layout
+        self.register_buffer("alpha", alpha)  # () f32
+        self.register_buffer("bias", bias)    # (N,) f32 or None
+
+    def weights(self) -> torch.Tensor:
+        return self.w.to(torch.float32) * self.alpha
+
+    def _dense(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ (alpha w) (+bias), TF32 off."""
+        with _ieee_f32():
+            y = x @ self.weights()
+        return y if self.bias is None else y + self.bias
+
+
+class I8WDense(_Dequantized):
+    """Relu network types' dense layer: float x @ (alpha w) (+bias, TF32
+    off) -> BN -> relu."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self._bn(self._dense(x)))
+
+
+class I8WConv(_Dequantized):
+    """Relu network types' conv: float 'SAME' conv with alpha w (+bias,
+    TF32 off) -> [2x2 pool] -> BN -> relu, the training graph's order."""
+
+    def __init__(self, w, alpha, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                 bn_eps: float = 1e-4, pool: bool = False):
+        super().__init__(w, alpha, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                         bn_eps)
+        self.pool = pool
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _conv_same(x, self.weights(), self.bias)
+        if self.pool:
+            y = _maxpool2(y)
+        return torch.relu(self._bn(y))
+
+
+class I8WHead(_Dequantized):
+    """Relu network types' head: logits = BN(x @ (alpha w) + bias)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._bn(self._dense(x))
+
+
 class I8MLP(nn.Module):
-    """flatten -> I8FirstDense -> hidden I8Dense layers -> head."""
+    """flatten -> I8FirstDense (or I8WDense) -> hidden I8Dense (or I8WDense)
+    layers -> head."""
 
     def __init__(self, first: I8FirstDense, hidden, head):
         super().__init__()
@@ -221,7 +287,8 @@ class I8MLP(nn.Module):
 
 class I8VGG(nn.Module):
     """I8FirstConv -> 5 I8Conv (kernel E) -> NHWC flatten -> 2 I8Dense ->
-    head."""
+    head; or, for the relu network types, 6 I8WConv -> flatten -> 2
+    I8WDense -> I8WHead."""
 
     def __init__(self, first: I8FirstConv, convs, denses, head):
         super().__init__()

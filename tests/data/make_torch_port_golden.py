@@ -15,7 +15,19 @@ images, with the random variables of
 * ``torch_port_golden_cifar10_tnn_a3.npz``: the same at abits 3 with a
   quantized head (two planes, three thresholds, ``PlaneDenseLogits``);
 * ``torch_port_golden_cifar10_tnn_a1.npz``: the same at abits 1, the ternary
-  packed VGG (``pack_vgg``'s ternary branch).
+  packed VGG (``pack_vgg``'s ternary branch);
+* ``torch_port_golden_cifar10_bnn_zo_int8.npz``: ``cifar10-bnn`` with
+  binary_sigmoid activations through the int8 engine (``zo`` codes);
+* ``torch_port_golden_cifar10_tnn_tanh_int8.npz`` and
+  ``torch_port_golden_cifar10_tnn_tanh.npz``: ``cifar10-tnn`` with
+  quantized_tanh activations through the int8 engine (signed ``tanh``
+  codes) and through the bit-plane engine (tanh mode: two planes, the
+  border term);
+* ``torch_port_golden_cifar10_qnn_int8.npz``: ``cifar10-tnn`` as
+  ``full-qnn`` with 4-bit grid weights through the int8 engine;
+* ``torch_port_golden_cifar10_qnn_relu_int8.npz``: ``cifar10-bnn`` as the
+  relu network type ``qnn`` with 4-bit weights (float relu activations,
+  ``I8WConv`` / ``I8WDense`` / ``I8WHead``).
 
 Each file holds the images and logits only, never the variables (the
 full-width float latents are about 147 MB for an MLP); the int8 files also
@@ -34,12 +46,19 @@ ROOT = Path(__file__).resolve().parents[2]
 DATA = Path(__file__).parent
 NAMES = ("cifar10_bnn", "mnist_bnn", "mnist_tnn", "cifar10_bnn_int8",
          "cifar10_tnn_int8", "mnist_bnn_int8", "cifar10_tnn",
-         "cifar10_tnn_a1", "cifar10_tnn_a3")
+         "cifar10_tnn_a1", "cifar10_tnn_a3", "cifar10_bnn_zo_int8",
+         "cifar10_tnn_tanh_int8", "cifar10_qnn_int8", "cifar10_qnn_relu_int8",
+         "cifar10_tnn_tanh")
 INT8 = "_int8"
-# a golden's name -> (preset, the fields it changes)
+# a golden's name (less the engine's suffix) -> (preset, the fields it
+# changes)
 VARIANTS = {"cifar10_tnn_a1": ("CIFAR10_TNN", dict(abits=1)),
             "cifar10_tnn_a3": ("CIFAR10_TNN", dict(abits=3,
-                                                   last_layer_float=False))}
+                                                   last_layer_float=False)),
+            "cifar10_bnn_zo": ("CIFAR10_BNN", dict(activation="binary_sigmoid")),
+            "cifar10_tnn_tanh": ("CIFAR10_TNN", dict(activation="quantized_tanh")),
+            "cifar10_qnn": ("CIFAR10_TNN", dict(network_type="full-qnn", wbits=4)),
+            "cifar10_qnn_relu": ("CIFAR10_BNN", dict(network_type="qnn", wbits=4))}
 VARIABLES_SEED = 0
 IMAGES_SEED = 1
 N_IMAGES = 8

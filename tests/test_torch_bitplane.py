@@ -265,10 +265,10 @@ def _jax_layers(jm):
 @pytest.mark.parametrize("cf", [*PLANE_CFS, CIFAR10_TNN],
                          ids=[*PLANE_IDS, "cifar10-tnn"])
 def test_pack_vgg_bitplane_buffers_equal_jax_leaves(cf):
-    """Every leaf equal; the JAX fields that only the unported tanh mode
-    reads (and the plane layers' nb, which their input's plane count
-    carries) are not held by the port, and JAX's must be their relu-mode
-    values."""
+    """Every leaf equal, the relu mode's corr (None), lvl0 (0) and mode
+    included; the plane layers' nb and mode, which their input's plane
+    count carries, are not held by the port, and JAX's must be their
+    relu-mode values."""
     relu_only = {"corr": None, "lvl0": 0, "mode": "relu", "nb": cf.abits}
     variables = init_variables(cf, seed=3)
     jm = jax_pack_vgg_bitplane(variables, cf)
@@ -367,8 +367,20 @@ def test_logits_match_jax_plane_vgg(cf):
 
 
 def test_unported_bitplane_variants_raise():
+    """quantized_tanh, which raised before the port lowered it, gives the
+    JAX PlaneVGG's logits (nb planes, the border term, lvl0); abits 1
+    still raises ValueError."""
     cf = TNN_CF.replace(activation="quantized_tanh")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10"):
-        pack_vgg_bitplane(init_variables(cf, seed=0), cf, device="cpu")
+    variables = init_variables(cf, seed=0)
+    tm = pack_vgg_bitplane(variables, cf, device="cpu")
+    assert tm.first.mode == "tanh" and tm.head.lvl0 == 1
+    assert all(conv.corr is not None for conv in tm.convs)
+    x = np.random.default_rng(1).uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda m, v: m(v))(
+        jax_pack_vgg_bitplane(variables, cf), jnp.asarray(x)))
+    got = plane_forward(tm, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL,
+                               atol=ATOL_REL * np.abs(want).max())
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     with pytest.raises(ValueError, match="abits"):
         pack_vgg_bitplane(init_variables(VGG_CF, seed=0), VGG_CF, device="cpu")

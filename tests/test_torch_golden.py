@@ -106,3 +106,60 @@ def test_tnn_golden_regenerates_from_the_jax_package(name):
 @pytest.mark.parametrize("name", TNN_NAMES)
 def test_port_cpu_path_matches_tnn_golden(name):
     _check_port_matches(name)
+
+
+# the other activations and the wbits > 1 network types at full width: zo
+# and signed tanh codes, full-qnn's 4-bit grid weights and the relu type
+# qnn through the int8 engine, and quantized_tanh through the bit-plane
+# engine
+ACT_NAMES = ["cifar10_bnn_zo_int8", "cifar10_tnn_tanh_int8", "cifar10_qnn_int8",
+             "cifar10_qnn_relu_int8", "cifar10_tnn_tanh"]
+
+
+@pytest.mark.parametrize("name", ACT_NAMES)
+def test_activation_golden_regenerates_from_the_jax_package(name):
+    _check_regenerates(name)
+
+
+def _hidden_values(model, x):
+    """The sets of values each hidden layer's output takes on images x: the
+    int8 codes, the bit-plane engine's unsigned indices, or the relu
+    types' float activations' signs."""
+    from qnx_torch.ops.packing import unpack_bits
+
+    out = []
+    with torch.inference_mode():
+        a = model.first(x)
+        for layer in [*model.convs, *model.denses]:
+            if layer is model.denses[0]:
+                a = a.reshape(*a.shape[:-3], -1)
+            a = layer(a)
+            if a.dtype == torch.int32:  # planes: the level index
+                n = layer.mask.shape[1]
+                a_lvl = sum(((unpack_bits(a[j], n, dtype=torch.int32) + 1) // 2) << j
+                            for j in range(a.shape[0]))
+                out.append(set(a_lvl.unique().tolist()))
+            else:
+                out.append(set(torch.sign(a).unique().tolist())
+                           if a.is_floating_point() else set(a.unique().tolist()))
+    return out
+
+
+@pytest.mark.parametrize("name", ACT_NAMES)
+def test_port_cpu_path_matches_activation_golden(name):
+    """The port's CPU path matches the golden, and no hidden layer's output
+    is constant at full width: zo's two codes, tanh's three, the level
+    codes' two or more, the relu types' zeros and positives."""
+    _check_port_matches(name)
+    g = np.load(MAKER.path(name))
+    cf = MAKER.config_of(name)
+    pack = pack_vgg_bitplane if not name.endswith(MAKER.INT8) else pack_int8
+    model = pack(init_variables(cf, int(g["variables_seed"])), cf, device="cpu")
+    want = {"cifar10_bnn_zo_int8": {0, 1}, "cifar10_tnn_tanh_int8": {-1, 0, 1},
+            "cifar10_tnn_tanh": {0, 1, 2}, "cifar10_qnn_relu_int8": {0.0, 1.0}}
+    for i, values in enumerate(_hidden_values(
+            model, normalize_u8(torch.from_numpy(g["images"])))):
+        if name in want:
+            assert values == want[name], f"{name} layer {i}: {values}"
+        else:
+            assert len(values) >= 2, f"{name} layer {i}: {values}"

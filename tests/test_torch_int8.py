@@ -195,9 +195,13 @@ def test_kernel_e_cpu_tensors_never_count_launches_and_bad_operands_raise():
         K.i8_conv_fused(x, wgt, sgn, tau, encoding="levels")
     with pytest.raises(ValueError, match="tau"):
         K.i8_conv_fused(x, wgt, sgn, tau[None], encoding="pm1")
-    for act in ("zo", "tanh"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            K.i8_conv_fused(x, wgt, sgn, tau, encoding=act)
+    # the zo and tanh encodings run, on the CPU without a launch
+    for act, t, codes in (("zo", tau, {0, 1}),
+                          ("tanh", torch.stack([tau, tau]), {-1, 0, 1})):
+        out = K.i8_conv_fused(x, wgt, sgn, t, encoding=act, pool=True)
+        assert out.dtype == torch.int8 and out.shape == (2, 2, 2, 8)
+        assert set(out.unique().tolist()) <= codes
+    assert K.i8_conv_fused.launches == 0
 
 
 # (encoding, thresholds, pool, (b, h, w, c, n)): C = 8, 40 (not a multiple
@@ -519,12 +523,29 @@ def test_float_forward_matches_jax_highest(cf):
     dict(activation="binary_sigmoid"),
     dict(network_type="full-tnn", wbits=2, abits=2, activation="quantized_tanh"),
     dict(network_type="bnn"), dict(network_type="tnn", wbits=2),
-    dict(network_type="qnn", wbits=2)],
-    ids=["full-qnn", "zo", "tanh", "bnn", "tnn", "qnn"])
+    dict(network_type="qnn", wbits=2),
+    dict(network_type="full-qnn", wbits=9, abits=2)],
+    ids=["full-qnn", "zo", "tanh", "bnn", "tnn", "qnn", "full-qnn-wbits9"])
 def test_pack_int8_unported_variants_raise(change):
+    """The variants that raised before the port lowered them (full-qnn, the
+    zo and tanh encodings, the relu network types) now give the JAX
+    pack_int8's leaves and its i8_forward's logits; wbits 9 raises
+    ValueError in both, as int8 cannot hold its grid."""
     cf = MLP_CF.replace(**change)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pack_int8(init_variables(cf, seed=0), cf, device="cpu")
+    variables = init_variables(cf, seed=0)
+    if cf.wbits > 8:
+        for pack in (jax_pack_int8, lambda v, c: pack_int8(v, c, device="cpu")):
+            with pytest.raises(ValueError, match="wbits <= 8"):
+                pack(variables, cf)
+        return
+    jm, tm = jax_pack_int8(variables, cf), pack_int8(variables, cf, device="cpu")
+    _assert_leaves_equal(jm, tm)
+    _, x = _images(8, seed=1, cf=cf)
+    want = np.asarray(JE.i8_forward(jm, jnp.asarray(x)))
+    got = TE.i8_forward(tm, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL,
+                               atol=ATOL_REL * np.abs(want).max())
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
 def test_pack_int8_rejects_float():
