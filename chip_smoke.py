@@ -37,7 +37,11 @@ default and served by ``qnx_torch.serve.ServeEngine``; and the measurement
 path, ``python -m qnx_torch.experiments.{gemm_shootout, xnor_sol_variants,
 vpu_probe}`` and ``python -m qnx_torch.bench.roofline``, through the
 popcount-GEMM formulations F1-F4 and G, kernels B and C at wide N and the
-integer probe H.  Phases:
+integer probe H; and the CLI, ``python3 -m qnx_torch serve`` over artifacts
+of both engines (``int8`` and ``packed`` ``cifar10-bnn``, ``packed``
+``cifar10-tnn``, ``mnist-bnn`` and ``mnist-tnn``), with the native host
+runtime (``qnx_torch.native``) that normalises uint8 requests on the host.
+Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
 2. build: compile the kernels, with the ptxas register and spill report
@@ -77,12 +81,25 @@ integer probe H.  Phases:
    before each path and read just after); the relu path's logits against
    a float64 run of the same layers and the golden within its own
    tolerance;
-5. measure: the measurement path at reduced repeats (8 x 3), counts set to
+5. cli: the native host runtime must build (g++); five full-width
+   artifacts made by the CLI's ``_pack_for_engine`` (buffers equal to the
+   slices' models) and written by ``convert``'s writer, each served by
+   ``python3 -m qnx_torch serve`` (2048 requests, 8 batches of 256) in a
+   process of its own, with every request answered and its kernel launches
+   equal to layers x batches; the loaded artifact's logits on the golden
+   images equal to the in-memory module's; 512 requests through the engine
+   with ``device_normalize=False`` (normalised on the host by the native
+   runtime), in a batch mixing uint8 and float32 chunks, and pre-normalised,
+   each equal to the device's normalisation bit for bit; where h5py is
+   installed, ``python3 -m qnx_torch convert --h5`` of the full-width
+   ``cifar10-bnn`` into both engines, every buffer equal to a direct
+   ``pack_int8`` and ``pack_vgg`` (else a line says it was not run);
+6. measure: the measurement path at reduced repeats (8 x 3), counts set to
    0 just before and read just after: the shootout at its four full shapes
    with every candidate equal to kernel B, the accumulator scan, the probe's
    six modes with the SM clock and SASS counts, the roofline table; each of
    F1-F4, G, H and B and C (at wide N) must have launched;
-6. times: each kernel against its plain version and against one library
+7. times: each kernel against its plain version and against one library
    call (``torch._int_mm`` on the same product, unpacked to int8) at batch
    256 (the packed GEMMs and the formulations at 1024x4096x4096, H at the
    JAX probe's 4096x1024; kernel E on K-major weights made beforehand, as
@@ -94,7 +111,7 @@ integer probe H.  Phases:
    the dense kernels, the integer heads
    and their library calls also as CUDA graph replays, which leave out the
    host's launch;
-7. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
+8. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches, of those paths and of the five paths
    of the other activations and network types.
@@ -126,6 +143,7 @@ graph replays.  Run it as parent, change, change, parent.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -193,7 +211,7 @@ I8_ENCODINGS = {"pm1": ("pm1", 1), "levels1": ("levels", 1),
                 "tanh254": ("tanh", 254)}
 # E's encodings in the served int8 paths (cifar10-bnn pm1, cifar10-tnn
 # levels, cifar10-bnn zo, cifar10-tnn tanh, full-qnn's levels on 4-bit
-# grid weights), the kinds phase 6 times
+# grid weights), the kinds phase 7 times
 I8_SERVED = ("i8conv-pm1", "i8conv-levels1", "i8conv-zo", "i8conv-tanh2",
              "i8conv-levels1-w4")
 
@@ -235,8 +253,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "int_chain": ("qnx_torch/kernels/csrc/int_probe.cu",
                   "experiments/vpu_probe.py:50"),
 }
-# the kernels that the measurement path (phase 5) runs (B and C at wide N);
-# the others run on the slices (phase 4)
+# the kernels that the measurement path (phase 6) runs (B and C at wide N);
+# the others run on the slices (phase 4) and the CLI (phase 5)
 MEASURED = ("xnor_gemm_popcount", "ternary_gemm", "gemm_outer",
             "gemm_outer_acc", "gemm_chunk3d", "gemm_lanered", "xnor_multiacc",
             "int_chain")
@@ -256,36 +274,6 @@ def run(cmd: list[str]) -> str:
 
 def golden(name: str):
     return np.load(DATA / f"torch_port_golden_{name}.npz")
-
-
-def wrappers() -> dict:
-    """Each kernel's wrapper, which counts its launches."""
-    from qnx_torch.kernels import gemm_formulations as G
-    from qnx_torch.kernels import plane_gemm as D
-    from qnx_torch.kernels import xnor_conv_fused as F
-    from qnx_torch.kernels.i8_conv_fused import i8_conv_fused
-    from qnx_torch.kernels.int_probe import int_chain
-    from qnx_torch.kernels.ternary_gemm import ternary_gemm, ternary_head
-    from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount, xnor_head
-
-    return {"xnor_conv3x3_fused": F.xnor_conv_fused,
-            "xnor_dense_fused": F.xnor_gemm_fused,
-            "ternary_dense_fused": F.ternary_gemm_fused,
-            "xnor_gemm_popcount": xnor_gemm_popcount,
-            "ternary_gemm": ternary_gemm,
-            "xnor_head": xnor_head,
-            "ternary_head": ternary_head,
-            "plane_head": D.plane_head,
-            "i8_conv3x3_fused": i8_conv_fused,
-            "ternary_conv3x3_fused": F.ternary_conv_fused,
-            "plane_conv3x3_fused": D.plane_conv_fused,
-            "plane_dense_fused": D.plane_dense_fused,
-            "gemm_outer": G.gemm_outer,
-            "gemm_outer_acc": G.gemm_outer_acc,
-            "gemm_chunk3d": G.gemm_chunk3d,
-            "gemm_lanered": G.gemm_lanered,
-            "xnor_multiacc": G.xnor_multiacc,
-            "int_chain": int_chain}
 
 
 # ---------------------------------------------------------------- operands
@@ -960,7 +948,7 @@ def phase_kernels(torch, err: dict) -> None:
 
 
 DENSE_NAMES = ("xnor_dense_fused", "ternary_dense_fused", "plane_dense_fused")
-# the kernels phase 6 also times as CUDA graph replays
+# the kernels phase 7 also times as CUDA graph replays
 GRAPH_NAMES = (*DENSE_NAMES, *HEADS.values())
 
 
@@ -1087,6 +1075,7 @@ def serve(torch, label: str, model, images, per_batch: dict, plain_forward,
     (``per_batch`` x batches), and the logits against the plain path and
     the golden within ``tol`` (rtol, atol over max |logit|).  Returns the
     launch counts."""
+    from qnx_torch.kernels import launch_counters
     from qnx_torch.serve.engine import ServeEngine, normalize_u8
 
     engine = ServeEngine(model, batch_size=SERVE_BATCH, max_wait_ms=50.0)
@@ -1094,7 +1083,7 @@ def serve(torch, label: str, model, images, per_batch: dict, plain_forward,
     for size in CHUNKS:  # queued before start: the batching is deterministic
         futs += engine.submit_many(images[off:off + size])
         off += size
-    counted = wrappers()
+    counted = launch_counters()
     for w in counted.values():
         w.launches = 0
     engine.start()
@@ -1427,6 +1416,203 @@ def activation_paths() -> list:
              {"plane_conv3x3_fused": 5, "plane_dense_fused": 2})]
 
 
+# the CLI phase's artifacts: (golden name, preset, engine, model type,
+# kernel launches a batch)
+CLI_ARTIFACTS = [
+    ("cifar10_bnn_int8", "cifar10-bnn", "int8", "I8VGG", {"i8_conv3x3_fused": 5}),
+    ("cifar10_bnn", "cifar10-bnn", "packed", "PackedVGG",
+     {"xnor_conv3x3_fused": 5, "xnor_dense_fused": 2}),
+    ("cifar10_tnn", "cifar10-tnn", "packed", "PlaneVGG",
+     {"plane_conv3x3_fused": 5, "plane_dense_fused": 2}),
+    ("mnist_bnn", "mnist-bnn", "packed", "PackedMLP",
+     {"xnor_dense_fused": 2, "xnor_head": 1}),
+    ("mnist_tnn", "mnist-tnn", "packed", "PackedMLP",
+     {"ternary_dense_fused": 2, "ternary_head": 1}),
+]
+CLI_REQUESTS = 2048  # serve's default: 8 batches of SERVE_BATCH
+CLI_CHECK = 512  # requests of the host-normalisation and mixed-batch checks
+
+
+def cli(args: list[str]) -> str:
+    """``python3 -m qnx_torch ARGS`` from the checkout; its stdout."""
+    proc = subprocess.run([sys.executable, "-m", "qnx_torch", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"python3 -m qnx_torch {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def assert_same_buffers(label: str, got, want) -> None:
+    """Every buffer of two modules: same names, dtypes, strides and bytes."""
+    a, b = got.state_dict(), want.state_dict()
+    if list(a) != list(b):
+        raise AssertionError(f"{label}: buffers {list(a)} != {list(b)}")
+    for name in a:
+        if (a[name].dtype, a[name].stride()) != (b[name].dtype, b[name].stride()) \
+                or not a[name].equal(b[name]):
+            raise AssertionError(f"{label}: buffer {name} differs")
+
+
+def serve_bits(torch, model, chunks, device_normalize=True):
+    """Logits of ``chunks`` queued before the start, through the engine with
+    the CLI's forward, as int32 bit patterns."""
+    from qnx_torch.__main__ import _engine_forward
+    from qnx_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(model, batch_size=SERVE_BATCH, max_wait_ms=50.0,
+                         forward=_engine_forward(model),
+                         device_normalize=device_normalize)
+    futs = [f for c in chunks for f in engine.submit_many(c)]
+    with engine:
+        return np.stack([f.result(timeout=600) for f in futs]).view(np.int32)
+
+
+def phase_cli(torch, card: str, models: dict, device: str = "cuda") -> dict:
+    """The CLI: the five artifacts of :data:`CLI_ARTIFACTS` built by
+    ``_pack_for_engine`` from ``init_variables(cf, 0)`` at full width (their
+    buffers equal to the slices' models), written by ``convert``'s writer,
+    each served by ``python3 -m qnx_torch serve`` in a process of its own
+    (every request answered, its kernel launches = layers x batches); the
+    loaded artifact's logits on the golden images equal to the in-memory
+    module's; ``device_normalize=False`` (the native host runtime, which
+    must have built) and a batch mixing uint8 and float32 chunks equal to
+    the device's normalisation bit for bit; and, where h5py is installed,
+    ``convert --h5`` of the full-width ``cifar10-bnn`` into both engines,
+    every buffer equal to a direct ``pack_int8`` and ``pack_vgg``.  Returns
+    the served launch counts."""
+    import importlib.util
+    import tempfile
+
+    from qnx_torch import native
+    from qnx_torch.__main__ import _pack_for_engine, load_artifact, save_artifact
+    from qnx_torch.models.factory import init_variables
+    from qnx_torch.serve.engine import normalize_u8
+    from qnx_torch.utils.config import CONFIGS
+
+    if not native.available():
+        raise AssertionError("the native host runtime (qnx_torch/native) did "
+                             "not build: g++ is expected on this machine")
+    log("cli", "native host runtime built (g++, qnx_torch/native/_build)")
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory(prefix="qnx_torch_cli_") as tmp:
+        for name, preset, engine, type_name, per_batch in CLI_ARTIFACTS:
+            cf = CONFIGS[preset]
+            label = f"{engine} {preset}"
+            model = _pack_for_engine(init_variables(cf, 0), cf, engine, device)
+            if type(model).__name__ != type_name:
+                raise AssertionError(f"{label}: {type(model).__name__}, "
+                                     f"not {type_name}")
+            assert_same_buffers(label, model, models[name])
+            path = str(Path(tmp) / f"{name}.pt")
+            save_artifact(path, model, cf, engine)
+            shape = ",".join(map(str, cf.input_shape))
+            t0 = time.perf_counter()
+            out = cli(["serve", "--model", path, "--batch-size", str(SERVE_BATCH),
+                       "--requests", str(CLI_REQUESTS), "--input-shape", shape,
+                       "--device", device])
+            wall = time.perf_counter() - t0
+            stats = json.loads(out[out.index("{"):])
+            batches = -(-CLI_REQUESTS // SERVE_BATCH)
+            want = {k: v * batches for k, v in per_batch.items()}
+            if (stats["images"], stats["batches"]) != (CLI_REQUESTS, batches):
+                raise AssertionError(f"{label}: served {stats['images']} images "
+                                     f"in {stats['batches']} batches")
+            if stats["launches"] != want:
+                raise AssertionError(f"{label}: launches {stats['launches']} "
+                                     f"!= {want}")
+            for k, v in stats["launches"].items():
+                launches[k] += v
+            log("cli", f"{card} | python3 -m qnx_torch serve {label} "
+                f"({type_name}, {os.path.getsize(path) / 2**20:.1f} MiB "
+                f"artifact): {stats['images']} requests in {stats['batches']} "
+                f"batches of {SERVE_BATCH}: wall_throughput_ips "
+                f"{stats['wall_throughput_ips']:.1f}, throughput_ips "
+                f"{stats['throughput_ips']:.1f}, latency p50 "
+                f"{stats['latency_ms_p50']:.1f} ms; launches "
+                f"{stats['launches']}; process {wall:.1f} s")
+
+            loaded = load_artifact(path, device)["model"]
+            assert_same_buffers(f"{label} artifact", loaded, model)
+            gold = golden(name)
+            with torch.inference_mode():
+                x = normalize_u8(torch.from_numpy(gold["images"]).to(device))
+                got, mem = loaded(x), model(x)
+            if not torch.equal(got, mem):
+                raise AssertionError(f"{label}: the loaded artifact's logits "
+                                     f"differ from the in-memory module's")
+            got = got.cpu().numpy()
+            np.testing.assert_allclose(
+                got, gold["logits"], rtol=LOGIT_RTOL,
+                atol=LOGIT_ATOL_REL * float(np.abs(gold["logits"]).max()))
+            if not (got.argmax(-1) == gold["logits"].argmax(-1)).all():
+                raise AssertionError(f"{label}: argmax differs from the golden")
+
+            u8 = np.random.default_rng(5).integers(
+                0, 256, (CLI_CHECK, *cf.input_shape), dtype=np.uint8)
+            a, b = CLI_CHECK // 5, 3 * CLI_CHECK // 5  # chunks that split
+            chunks = [u8[:a], u8[a:b], u8[b:]]
+            on_device = serve_bits(torch, loaded, chunks)
+            on_host = serve_bits(torch, loaded, chunks, device_normalize=False)
+            f32 = native.u8_to_f32(u8)
+            mixed = serve_bits(torch, loaded, [u8[:a], f32[a:b], u8[b:]])
+            pre = serve_bits(torch, loaded, [f32])
+            for what, bits in (("device_normalize=False", on_host),
+                               ("the mixed batch", mixed),
+                               ("the pre-normalised images", pre)):
+                if not np.array_equal(bits, on_device):
+                    raise AssertionError(f"{label}: {what} differs from the "
+                                         f"device's normalisation")
+            log("cli", f"{label}: artifact buffers and golden logits equal to "
+                f"the in-memory module's; {CLI_CHECK} requests normalised on "
+                f"the host (native), in a mixed uint8/float32 batch and "
+                f"pre-normalised give the device path's logits bit for bit")
+
+        if importlib.util.find_spec("h5py") is None:
+            log("cli", "convert --h5 not run on this machine: h5py is not "
+                "installed (its parity rests on tests/test_torch_keras_h5.py "
+                "and tests/test_torch_cli.py)")
+        else:
+            cli_h5(tmp, {"int8": models["cifar10_bnn_int8"],
+                         "packed": models["cifar10_bnn"]}, device)
+    return launches
+
+
+def cli_h5(tmp: str, direct: dict, device: str) -> None:
+    """``convert --h5`` of the full-width ``cifar10-bnn`` into both engines;
+    every buffer equal to the direct converters' (``direct``: engine ->
+    module built from ``init_variables(cf, 0)``)."""
+    from qnx_torch.__main__ import load_artifact
+    from qnx_torch.convert.keras_h5 import write_legacy_h5
+    from qnx_torch.models.factory import init_variables
+    from qnx_torch.utils.config import CONFIGS
+
+    v = init_variables(CONFIGS["cifar10-bnn"], 0)
+    p, st = v["params"], v["batch_stats"]
+    layers = []
+    for cn, bn in zip([f"conv_{i}" for i in range(6)] + ["dense_0", "dense_1",
+                                                         "dense_out"],
+                      [f"bn_conv_{i}" for i in range(6)] + ["bn_dense_0",
+                                                            "bn_dense_1", "bn_out"]):
+        layers.append((cn, [(f"{cn}/{k}:0", p[cn][k]) for k in ("kernel", "bias")
+                            if k in p[cn]]))
+        layers.append((bn, [(f"{bn}/gamma:0", p[bn]["scale"]),
+                            (f"{bn}/beta:0", p[bn]["bias"]),
+                            (f"{bn}/moving_mean:0", st[bn]["mean"]),
+                            (f"{bn}/moving_variance:0", st[bn]["var"])]))
+    h5 = str(Path(tmp) / "cifar10_bnn.h5")
+    write_legacy_h5(h5, layers)
+    for engine, want in direct.items():
+        out = str(Path(tmp) / f"h5_{engine}.pt")
+        cli(["convert", "--h5", h5, "--config", "cifar10-bnn", "--engine", engine,
+             "--out", out, "--device", device])
+        assert_same_buffers(f"convert --h5 --engine {engine}",
+                            load_artifact(out, device)["model"], want)
+    log("cli", "convert --h5 of the full-width cifar10-bnn (legacy layout): "
+        "the int8 and packed artifacts' buffers equal a direct pack_int8 and "
+        "pack_vgg byte for byte")
+
+
 def phase_measure(torch) -> dict:
     """The measurement path: the three experiments' ``main`` and the
     roofline on the card with :data:`MEASURE_REPEATS`, every count set to 0
@@ -1435,8 +1621,9 @@ def phase_measure(torch) -> dict:
     version in phase 3).  Returns the launch counts."""
     from qnx_torch.bench import roofline
     from qnx_torch.experiments import gemm_shootout, vpu_probe, xnor_sol_variants
+    from qnx_torch.kernels import launch_counters
 
-    counted = wrappers()
+    counted = launch_counters()
     for w in counted.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -1967,6 +2154,8 @@ def main(argv: list[str]) -> int:
     err = dict.fromkeys(KERNELS, 0.0)
     phase_kernels(torch, err)
     models, launches = phase_slices(torch, err)
+    for k, v in phase_cli(torch, card, models).items():
+        launches[k] += v
     measured = phase_measure(torch)
     launches.update({name: measured[name] for name in MEASURED})
     total = phase_times(torch, card, models)

@@ -6,7 +6,10 @@ dispatcher thread drains up to ``batch_size`` images, splitting a chunk that
 does not fit and carrying the rest over, pads the tail to the static batch,
 runs the packed forward on the model's device and resolves per-request
 futures.  uint8 images ship to the device raw (4x fewer host->device bytes
-than f32) and are normalised there with the JAX engine's exact float32 ops.
+than f32) and are normalised there with the JAX engine's exact float32 ops;
+with ``device_normalize=False``, or in a batch that mixes uint8 and float32
+chunks, the native host runtime (:mod:`qnx_torch.native`) normalises the
+uint8 chunks on the host to the same bits.
 
 The JAX engine's ``mesh`` (tensor-parallel serving) is not ported yet.
 """
@@ -21,6 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from qnx_torch.native import u8_to_f32
 
 #: Cap on retained latency samples — the engine runs indefinitely, so stats
 #: use reservoir sampling instead of an unbounded list.
@@ -94,6 +99,12 @@ class ServeEngine:
       mesh: must be None; tensor-parallel serving is not ported yet.
       max_wait_ms: dispatcher linger — how long to wait to fill a batch
         before flushing a partial one.
+      forward: ``forward(model, x)`` on the normalised device batch; None
+        means ``model(x)``.  It runs under ``torch.inference_mode()``.
+      device_normalize: ship an all-uint8 batch raw and normalise it on the
+        device; else (and for a batch that mixes uint8 and float32 chunks)
+        the uint8 chunks are normalised on the host by
+        :func:`qnx_torch.native.u8_to_f32`, to the same bits.
       max_queue: bound on queued request *chunks* (backpressure). When the
         queue is full, ``submit``/``submit_many`` block until there is room
         (or raise ``queue.Full`` after ``timeout`` seconds if one is given).
@@ -101,7 +112,9 @@ class ServeEngine:
     """
 
     def __init__(self, model, batch_size: int = 256, mesh=None,
-                 max_wait_ms: float = 2.0, max_queue: int | None = 1024):
+                 max_wait_ms: float = 2.0, forward=None,
+                 device_normalize: bool = True,
+                 max_queue: int | None = 1024):
         if mesh is not None:
             raise NotImplementedError(
                 "qnx_torch.serve.ServeEngine serves on one device; mesh "
@@ -109,6 +122,8 @@ class ServeEngine:
                 "item 14)")
         self.batch_size = batch_size
         self.max_wait_ms = max_wait_ms
+        self.device_normalize = device_normalize
+        self._forward = forward or (lambda m, x: m(x))
         self.model = model.eval()
         self.device = next(model.buffers()).device
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue or 0)
@@ -232,10 +247,10 @@ class ServeEngine:
     def _run_batch(self, chunks):
         n = self._total
         arrs = [imgs for imgs, _, _ in chunks]
-        if any(a.dtype != np.uint8 for a in arrs):
-            # mixed batch: normalise the uint8 chunks on the host
-            arrs = [normalize_u8(torch.from_numpy(a)).numpy()
-                    if a.dtype == np.uint8 else a for a in arrs]
+        if not (self.device_normalize
+                and all(a.dtype == np.uint8 for a in arrs)):
+            # normalise the uint8 chunks on the host (native runtime)
+            arrs = [u8_to_f32(a) if a.dtype == np.uint8 else a for a in arrs]
         images = arrs[0] if len(arrs) == 1 else np.concatenate(arrs)
         pad = self.batch_size - n
         if pad:
@@ -248,7 +263,8 @@ class ServeEngine:
             x = torch.from_numpy(images).to(self.device)
             if x.dtype == torch.uint8:
                 x = normalize_u8(x)
-            logits = self.model(x).cpu().numpy()  # the copy waits for the device
+            # the copy to the host waits for the device
+            logits = self._forward(self.model, x).cpu().numpy()
         dt_ms = (time.perf_counter() - t0) * 1e3
         done = time.perf_counter()
         self._stats.batches += 1

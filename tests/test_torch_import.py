@@ -1,5 +1,7 @@
 """qnx_torch imports without jax or the JAX package (a CUDA host need not
-have them) and without triton, and builds no kernel at import."""
+have them), without triton, and without h5py, keras or scikit-learn (the
+card's machine has none), and builds no kernel or native library at
+import."""
 import ast
 import subprocess
 import sys
@@ -23,11 +25,14 @@ EXPECTED = {
     "qnx_torch.experiments.gemm_shootout",
     "qnx_torch.experiments.xnor_sol_variants",
     "qnx_torch.experiments.vpu_probe",
+    "qnx_torch.__main__", "qnx_torch.convert.keras_h5",
+    "qnx_torch.data.datasets", "qnx_torch.native", "qnx_torch.native.hostlib",
 }
 
 _PROBE = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "triton", "qnx"):
+for name in ("jax", "jaxlib", "flax", "optax", "triton", "qnx", "h5py",
+             "keras", "sklearn"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import qnx_torch
 names = sorted(m.name for m in pkgutil.walk_packages(qnx_torch.__path__, "qnx_torch."))
@@ -35,6 +40,8 @@ for name in names:
     importlib.import_module(name)
 import qnx_torch.kernels._build as b
 assert b.load.cache_info().currsize == 0  # no kernel was built or loaded
+import qnx_torch.native.hostlib as h
+assert not h._TRIED  # nor the native host runtime
 print("\\n".join(names))
 """
 
