@@ -40,7 +40,11 @@ popcount-GEMM formulations F1-F4 and G, kernels B and C at wide N and the
 integer probe H; and the CLI, ``python3 -m qnx_torch serve`` over artifacts
 of both engines (``int8`` and ``packed`` ``cifar10-bnn``, ``packed``
 ``cifar10-tnn``, ``mnist-bnn`` and ``mnist-tnn``), with the native host
-runtime (``qnx_torch.native``) that normalises uint8 requests on the host.
+runtime (``qnx_torch.native``) that normalises uint8 requests on the host;
+and fake-quant training (``python3 -m qnx_torch train``, cuBLAS and cuDNN
+with TF32 off, no kernel of the repo) of ``cifar10-bnn``, ``cifar10-tnn``,
+``mnist-bnn`` and ``mnist-tnn`` at full width, whose checkpoints
+``convert --ckpt`` carries into both engines and so into the kernels.
 Phases:
 
 1. device: the card, torch, CUDA and nvcc versions;
@@ -94,12 +98,32 @@ Phases:
    installed, ``python3 -m qnx_torch convert --h5`` of the full-width
    ``cifar10-bnn`` into both engines, every buffer equal to a direct
    ``pack_int8`` and ``pack_vgg`` (else a line says it was not run);
-6. measure: the measurement path at reduced repeats (8 x 3), counts set to
+6. train: for each of ``cifar10-bnn``, ``cifar10-tnn`` (abits 2),
+   ``mnist-bnn`` and ``mnist-tnn`` at full width, ``python3 -m qnx_torch
+   train --epochs 1 --convert int8`` (``--convert packed`` for
+   ``cifar10-tnn``) on its 6000-image synthetic twin in a process of its
+   own, the four at once (60 steps at batch 100: every loss finite, every
+   quantized latent kernel in ±H, the BN statistics moved, the metrics
+   log's start, epoch and done records); ``convert --ckpt`` into the packed
+   (bit-plane at abits 2) and int8 engines, the artifact of ``train
+   --convert``'s engine equal to it byte for byte, each served by
+   ``python3 -m qnx_torch serve`` (2048 requests, launches = layers x
+   batches); on the 1000 test images the engines' argmax against the
+   fake-quant model's, equal for abits 1 and at most 1e-3 differing at
+   abits 2, and on 256 of them each layer's codes compared and the first
+   layer whose codes differ named; ``python3 -m qnx_torch eval --engine
+   fake|int8|packed`` of each checkpoint, each in a process of its own,
+   its accuracy equal to the one the same models give in this process;
+   ``train --epochs 2 --resume`` of ``mnist-bnn``; each config's
+   ``train_step`` at batch 100 (CUDA events: ms a step, the forward with
+   its loss, the backward and the optimizer each timed alone, images/s,
+   peak memory);
+7. measure: the measurement path at reduced repeats (8 x 3), counts set to
    0 just before and read just after: the shootout at its four full shapes
    with every candidate equal to kernel B, the accumulator scan, the probe's
    six modes with the SM clock and SASS counts, the roofline table; each of
    F1-F4, G, H and B and C (at wide N) must have launched;
-7. times: each kernel against its plain version and against one library
+8. times: each kernel against its plain version and against one library
    call (``torch._int_mm`` on the same product, unpacked to int8) at batch
    256 (the packed GEMMs and the formulations at 1024x4096x4096, H at the
    JAX probe's 4096x1024; kernel E on K-major weights made beforehand, as
@@ -111,7 +135,7 @@ Phases:
    the dense kernels, the integer heads
    and their library calls also as CUDA graph replays, which leave out the
    host's launch;
-8. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
+9. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches, of those paths and of the five paths
    of the other activations and network types.
@@ -1435,12 +1459,7 @@ CLI_CHECK = 512  # requests of the host-normalisation and mixed-batch checks
 
 def cli(args: list[str]) -> str:
     """``python3 -m qnx_torch ARGS`` from the checkout; its stdout."""
-    proc = subprocess.run([sys.executable, "-m", "qnx_torch", *args], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"python3 -m qnx_torch {' '.join(args)} exited "
-                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
-    return proc.stdout
+    return cli_all({0: args})[0][1]
 
 
 def assert_same_buffers(label: str, got, want) -> None:
@@ -1506,21 +1525,9 @@ def phase_cli(torch, card: str, models: dict, device: str = "cuda") -> dict:
             assert_same_buffers(label, model, models[name])
             path = str(Path(tmp) / f"{name}.pt")
             save_artifact(path, model, cf, engine)
-            shape = ",".join(map(str, cf.input_shape))
             t0 = time.perf_counter()
-            out = cli(["serve", "--model", path, "--batch-size", str(SERVE_BATCH),
-                       "--requests", str(CLI_REQUESTS), "--input-shape", shape,
-                       "--device", device])
+            stats = serve_artifact(label, path, cf, per_batch, device)
             wall = time.perf_counter() - t0
-            stats = json.loads(out[out.index("{"):])
-            batches = -(-CLI_REQUESTS // SERVE_BATCH)
-            want = {k: v * batches for k, v in per_batch.items()}
-            if (stats["images"], stats["batches"]) != (CLI_REQUESTS, batches):
-                raise AssertionError(f"{label}: served {stats['images']} images "
-                                     f"in {stats['batches']} batches")
-            if stats["launches"] != want:
-                raise AssertionError(f"{label}: launches {stats['launches']} "
-                                     f"!= {want}")
             for k, v in stats["launches"].items():
                 launches[k] += v
             log("cli", f"{card} | python3 -m qnx_torch serve {label} "
@@ -1611,6 +1618,368 @@ def cli_h5(tmp: str, direct: dict, device: str) -> None:
     log("cli", "convert --h5 of the full-width cifar10-bnn (legacy layout): "
         "the int8 and packed artifacts' buffers equal a direct pack_int8 and "
         "pack_vgg byte for byte")
+
+
+# the train phase's configs: (preset, dataset, {engine: (model type, kernel
+# launches a batch)}); the int8 MLPs' dense layers run on torch._int_mm
+TRAIN_CONFIGS = [
+    ("cifar10-bnn", "synthetic-cifar",
+     {"packed": ("PackedVGG", {"xnor_conv3x3_fused": 5, "xnor_dense_fused": 2}),
+      "int8": ("I8VGG", {"i8_conv3x3_fused": 5})}),
+    ("cifar10-tnn", "synthetic-cifar",
+     {"packed": ("PlaneVGG", {"plane_conv3x3_fused": 5, "plane_dense_fused": 2}),
+      "int8": ("I8VGG", {"i8_conv3x3_fused": 5})}),
+    ("mnist-bnn", "synthetic-mnist",
+     {"packed": ("PackedMLP", {"xnor_dense_fused": 2, "xnor_head": 1}),
+      "int8": ("I8MLP", {})}),
+    ("mnist-tnn", "synthetic-mnist",
+     {"packed": ("PackedMLP", {"ternary_dense_fused": 2, "ternary_head": 1}),
+      "int8": ("I8MLP", {})}),
+]
+TRAIN_CONVERT = {"cifar10-tnn": "packed"}  # train --convert's engine; else int8
+TRAIN_RESUME = "mnist-bnn"  # the config whose run is resumed for a 2nd epoch
+TRAIN_EVAL_BATCH = 512  # eval's default batch, used in this process too
+TRAIN_CHECK = 256  # test images compared between the fake-quant model and engines
+TRAIN_LEVEL_SHARE = 1e-3  # abits > 1: largest share of differing codes / argmax
+TRAIN_STEP_BATCH = 100
+TRAIN_STEP_TIMING = dict(steps=20, repeats=3)
+
+
+def cli_all(args: dict) -> dict:
+    """``python3 -m qnx_torch ARGS`` for each key's arguments, each in a
+    process of its own, all started at once (they share the card); each
+    key's ``(seconds, stdout)``.  Any failure kills the others and raises."""
+    procs = {key: (subprocess.Popen([sys.executable, "-m", "qnx_torch", *a],
+                                    cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True),
+                   time.perf_counter()) for key, a in args.items()}
+    done = {}
+    try:
+        for key, (proc, t0) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            done[key] = (time.perf_counter() - t0, out)
+            if proc.returncode != 0:
+                raise AssertionError(f"python3 -m qnx_torch {' '.join(args[key])}"
+                                     f" exited {proc.returncode}:\n{err[-4000:]}")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return done
+
+
+def metrics_records(path: Path) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_trained(label: str, cf, run_dir: Path, epochs: int, resumed: bool,
+                  steps: int) -> list:
+    """The train CLI's outputs: start, epoch and done records (a second set
+    after a resume), a finite loss on every step, the step count; every
+    quantized latent kernel in ±H; every BN's running statistics moved from
+    their initial 0 and 1; ``steps`` a epoch.  Returns the records."""
+    from qnx_torch.train.checkpoint import load_checkpoint
+
+    recs = metrics_records(run_dir / "metrics.jsonl")
+    events = [r["event"] for r in recs]
+    want = ["start", "epoch", "done"] * (2 if resumed else 1)
+    if events != want:
+        raise AssertionError(f"{label}: metrics.jsonl events {events} != {want}")
+    if resumed and not (recs[3]["resume"] and recs[4]["epoch"] == epochs - 1):
+        raise AssertionError(f"{label}: the resumed run did not train epoch "
+                             f"{epochs - 1}: {recs[3:]}")
+    for r in recs[1::3]:
+        losses = np.asarray(r["train_losses"])
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{label}: epoch {r['epoch']}: {len(losses)} "
+                                 f"steps, losses finite: {np.isfinite(losses).all()}")
+    if recs[-1]["step"] != epochs * steps:
+        raise AssertionError(f"{label}: step {recs[-1]['step']} after {epochs} epochs")
+    with open(run_dir / "train_state.config.json") as f:
+        if json.load(f)["epochs_done"] != epochs:
+            raise AssertionError(f"{label}: the train state is not at epoch {epochs}")
+    variables, saved = load_checkpoint(str(run_dir / "ckpt"))
+    if saved != cf.replace(epochs=epochs):
+        raise AssertionError(f"{label}: the checkpoint's config is {saved}")
+    for name, q in variables["quant"].items():
+        k = np.abs(variables["params"][name]["kernel"]).max()
+        if k > q["H"]:
+            raise AssertionError(f"{label}: {name}'s latent kernel reaches {k} > H "
+                                 f"{q['H']}")
+    for name, st in variables["batch_stats"].items():
+        if (st["mean"] == 0).all() or (st["var"] == 1).all():
+            raise AssertionError(f"{label}: {name}'s running statistics did not move")
+    return recs
+
+
+def fake_codes(torch, cf, module, x) -> tuple:
+    """The fake-quant model's logits and each hidden layer's codes, from its
+    BatchNorms' outputs: ±1 for binary_tanh, the level index of
+    quantized_relu otherwise."""
+    from qnx_torch.ops.quant import quantized_relu
+    from qnx_torch.train.layers import BatchNorm
+
+    codes, hooks = {}, []
+
+    def code(y):
+        if cf.abits == 1:
+            return torch.where(y > 0, 1, -1).to(torch.int32)
+        return torch.round(quantized_relu(y, cf.abits) / 2.0 ** (1 - cf.abits)).to(
+            torch.int32)
+
+    for name, layer in module.named_children():
+        if isinstance(layer, BatchNorm) and name != "bn_out":
+            hooks.append(layer.register_forward_hook(
+                lambda mod, args, out, name=name: codes.__setitem__(name, code(out))))
+    logits = module(x)
+    for h in hooks:
+        h.remove()
+    return logits, list(codes.values())
+
+
+def engine_codes(torch, model, x, fake: list) -> list:
+    """Each hidden layer's codes in an engine's model, as :func:`fake_codes`
+    gives them (``fake``, for the channel counts): ±1 from packed bits,
+    level indices from bit planes, int8 codes as they are."""
+    from qnx_torch.nn.inference import PackedMLP, PackedVGG, PlaneVGG
+    from qnx_torch.nn.int8_engine import I8MLP
+    from qnx_torch.ops.packing import unpack_bits
+
+    mlp = isinstance(model, (PackedMLP, I8MLP))
+    layers = [model.first, *model.hidden] if mlp else \
+        [model.first, *model.convs, *model.denses]
+    out = x.reshape(x.shape[0], -1) if mlp else x
+    codes = []
+    for i, layer in enumerate(layers):
+        if not mlp and i == 6:  # flatten before dense_0, planes leading
+            out = out.reshape(*out.shape[:-3], -1)
+        out = layer(out)
+        n = fake[i].shape[-1]
+        if isinstance(model, PlaneVGG):
+            codes.append(plane_levels(torch, out, n))
+        elif isinstance(model, (PackedVGG, PackedMLP)):
+            codes.append(unpack_bits(out, n, dtype=torch.int32))
+        else:
+            codes.append(out.to(torch.int32))
+    return codes
+
+
+def phase_train(torch, card: str, device: str = "cuda") -> dict:
+    """Fake-quant training of the four full-width configs of
+    :data:`TRAIN_CONFIGS` on their synthetic twins, each through the CLI:
+    ``train --epochs 1 --convert ENGINE`` (:data:`TRAIN_CONVERT`) in a
+    process of its own, the four at once (one epoch of 6000 images at batch
+    100: 60 steps, every loss finite, every quantized latent kernel in ±H,
+    the BN statistics moved), ``convert --ckpt`` into both engines (the
+    artifact of ``train --convert``'s engine equal to it), each served by
+    ``python3 -m qnx_torch serve`` (launches = layers x batches); on the
+    test images the engines' argmax against the fake-quant model's (equal
+    for abits 1; at most 1e-3 differing for abits 2, with the first layer
+    whose codes differ named); ``eval --engine fake|int8|packed`` of each
+    checkpoint in processes of their own, each accuracy equal to this
+    process's; ``train --epochs 2 --resume`` of one; and the step time,
+    images/s and peak memory of each config's ``train_step`` at batch 100.
+    Returns the served launch counts."""
+    import tempfile
+
+    from qnx_torch.__main__ import _engine_forward, load_artifact, main as qnx_main
+    from qnx_torch.data.datasets import load_dataset
+    from qnx_torch.models.factory import build_model, load_variables
+    from qnx_torch.train.checkpoint import load_checkpoint
+    from qnx_torch.utils.config import CONFIGS
+
+    def correct(fwd, model, x, y) -> tuple:
+        """``eval``'s count of right answers, batch by batch; the argmax."""
+        with torch.inference_mode():
+            pred = torch.cat([fwd(model, x[i:i + TRAIN_EVAL_BATCH]).argmax(-1)
+                              for i in range(0, len(x), TRAIN_EVAL_BATCH)])
+        return int((pred.cpu() == y).sum()), pred
+
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory(prefix="qnx_torch_train_") as tmp:
+        trained = cli_all({preset: [
+            "train", "--config", preset, "--dataset", dataset, "--epochs", "1",
+            "--out", str(Path(tmp) / preset), "--convert",
+            TRAIN_CONVERT.get(preset, "int8"), "--device", device]
+            for preset, dataset, _ in TRAIN_CONFIGS})
+        accuracy = {}  # (preset, engine) -> this process's count of right answers
+        test_size = {}
+        for preset, dataset, engines in TRAIN_CONFIGS:
+            cf = CONFIGS[preset].replace(dataset=dataset)
+            run_dir = Path(tmp) / preset
+            ds = load_dataset(dataset)
+            steps = -(-len(ds.x_train) // cf.batch_size)
+            recs = check_trained(preset, cf, run_dir, 1, resumed=False, steps=steps)
+            log("train", f"{card} | python3 -m qnx_torch train --config {preset} "
+                f"--dataset {dataset} --epochs 1: {recs[-1]['step']} steps at "
+                f"batch {cf.batch_size}, loss {recs[1]['train_losses'][0]:.4f} -> "
+                f"{recs[1]['train_losses'][-1]:.4f} (all finite), test accuracy "
+                f"{recs[1]['test_accuracy']:.4f}; fit {recs[-1]['seconds']:.1f} s, "
+                f"process {trained[preset][0]:.1f} s (the four run at once); latent "
+                f"kernels in ±H, BN statistics moved")
+
+            test_size[preset] = len(ds.y_test)
+            x_all = torch.from_numpy(ds.x_test).to(device)
+            y_all = torch.from_numpy(ds.y_test).long()
+            x = x_all[:TRAIN_CHECK]
+            variables, saved = load_checkpoint(str(run_dir / "ckpt"))
+            module = load_variables(build_model(saved), variables).to(device)
+            accuracy[preset, "fake"], fake_pred = correct(
+                lambda m, xb: m(xb, train=False), module, x_all, y_all)
+            with torch.inference_mode():
+                _, fake = fake_codes(torch, saved, module, x)
+            for engine, (type_name, per_batch) in engines.items():
+                label = f"{engine} {preset} (trained)"
+                path = str(run_dir / f"{engine}.pt")
+                qnx_main(["convert", "--ckpt", str(run_dir / "ckpt"), "--engine",
+                          engine, "--out", path, "--device", device])
+                model = load_artifact(path, device)["model"]
+                if type(model).__name__ != type_name:
+                    raise AssertionError(f"{label}: {type(model).__name__}, not "
+                                         f"{type_name}")
+                if engine == TRAIN_CONVERT.get(preset, "int8"):
+                    assert_same_buffers(f"{label}: convert --ckpt against train "
+                                        f"--convert", model, load_artifact(
+                                            str(run_dir / f"model.{engine}.pt"),
+                                            device)["model"])
+                    log("train", f"{label}: the artifact of train --convert {engine} "
+                        f"equals convert --ckpt's byte for byte")
+                served = serve_artifact(label, path, cf, per_batch, device)
+                for k, v in served["launches"].items():
+                    launches[k] += v
+                log("train", f"python3 -m qnx_torch serve {label}: "
+                    f"{served['images']} requests in {served['batches']} batches, "
+                    f"launches {served['launches']}")
+                accuracy[preset, engine], pred = correct(
+                    _engine_forward(model), model, x_all, y_all)
+                with torch.inference_mode():
+                    codes = engine_codes(torch, model, x, fake)
+                differ = int((pred != fake_pred).sum())
+                shares = [float((a != b).float().mean()) for a, b in zip(codes, fake)]
+                first = next(((i, s) for i, s in enumerate(shares) if s), None)
+                where = ("every hidden layer's codes equal" if first is None else
+                         f"first layer whose codes differ: {first[0]} "
+                         f"(share {first[1]:.3e})")
+                log("train", f"{label}: argmax differs from the fake-quant model's "
+                    f"on {differ} of {len(pred)} test images; on {TRAIN_CHECK} of "
+                    f"them, {where}")
+                limit = 0 if cf.abits == 1 else TRAIN_LEVEL_SHARE * len(pred)
+                if differ > limit or (cf.abits > 1 and first is not None
+                                      and first[1] > TRAIN_LEVEL_SHARE):
+                    raise AssertionError(f"{label}: {differ} argmax differ, {where}")
+
+        evals = cli_all({key: ["eval", "--ckpt", str(Path(tmp) / key[0] / "ckpt"),
+                               "--engine", key[1], "--batch-size",
+                               str(TRAIN_EVAL_BATCH), "--device", device]
+                         for key in accuracy})
+        for (preset, engine), (wall, out) in evals.items():
+            m = re.search(r"test accuracy \[(\w+)\]: [0-9.]+ \((\d+)/(\d+)\)", out)
+            n = test_size[preset]
+            got = None if m is None else (m[1], int(m[2]), int(m[3]))
+            if got != (engine, accuracy[preset, engine], n):
+                raise AssertionError(f"eval --engine {engine} of {preset}: printed "
+                                     f"{out.strip()!r}, this process counts "
+                                     f"{accuracy[preset, engine]}/{n}")
+            log("train", f"python3 -m qnx_torch eval --engine {engine} {preset}: "
+                f"{got[1]}/{n} right, equal to this process's count; process "
+                f"{wall:.1f} s (the {len(evals)} run at once)")
+
+        run_dir = Path(tmp) / TRAIN_RESUME
+        cf = CONFIGS[TRAIN_RESUME].replace(dataset="synthetic-mnist")
+        cli_all({TRAIN_RESUME: ["train", "--config", TRAIN_RESUME, "--dataset",
+                                "synthetic-mnist", "--epochs", "2", "--out",
+                                str(run_dir), "--resume", "--device", device]})
+        recs = check_trained(f"{TRAIN_RESUME} resumed", cf, run_dir, 2, resumed=True,
+                             steps=-(-len(load_dataset("synthetic-mnist").x_train)
+                                     // cf.batch_size))
+        log("train", f"train --epochs 2 --resume of {TRAIN_RESUME}: restored after "
+            f"epoch 0 at step {recs[2]['step']}, trained epoch {recs[4]['epoch']} "
+            f"to step {recs[-1]['step']} (all losses finite)")
+    for preset, dataset, _ in TRAIN_CONFIGS:
+        time_train_step(torch, card, CONFIGS[preset].replace(dataset=dataset), device)
+    return launches
+
+
+def serve_artifact(label: str, path: str, cf, per_batch: dict, device: str) -> dict:
+    """``python3 -m qnx_torch serve`` of an artifact, CLI_REQUESTS requests:
+    every request answered, kernel launches = layers x batches; the
+    printed stats."""
+    shape = ",".join(map(str, cf.input_shape))
+    out = cli(["serve", "--model", path, "--batch-size", str(SERVE_BATCH),
+               "--requests", str(CLI_REQUESTS), "--input-shape", shape,
+               "--device", device])
+    stats = json.loads(out[out.index("{"):])
+    batches = -(-CLI_REQUESTS // SERVE_BATCH)
+    want = {k: v * batches for k, v in per_batch.items()}
+    if (stats["images"], stats["batches"]) != (CLI_REQUESTS, batches):
+        raise AssertionError(f"{label}: served {stats['images']} images in "
+                             f"{stats['batches']} batches")
+    if stats["launches"] != want:
+        raise AssertionError(f"{label}: launches {stats['launches']} != {want}")
+    return stats
+
+
+def time_train_step(torch, card: str, cf, device: str) -> None:
+    """One config's ``train_step`` at batch 100 on the card: CUDA events
+    around runs of steps, the median per step of the repeats, images/s, and
+    the peak memory from the state's creation on; and each part alone,
+    timed the same way: the training forward with its loss, the backward
+    (``autograd.grad`` through one retained graph) and the optimizer
+    (``apply_gradients``: lr_mult, Adam, clip, on fixed gradients)."""
+    from qnx_torch.data.datasets import synthetic
+    from qnx_torch.train.loop import (apply_gradients, create_train_state,
+                                      param_grads, train_step)
+
+    steps, repeats = TRAIN_STEP_TIMING["steps"], TRAIN_STEP_TIMING["repeats"]
+    ds = synthetic(cf.input_shape, n_train=TRAIN_STEP_BATCH, n_test=1)
+    x = torch.from_numpy(ds.x_train).to(device)
+    y = torch.from_numpy(ds.y_train).long().to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = create_train_state(cf, 0, 60, device)
+
+    def forward():
+        return state.loss_fn(state.module(x, train=True), y)
+
+    def step():
+        return train_step(state, x, y)[1]
+
+    def run(fn) -> list[float]:
+        for _ in range(3):
+            fn()
+        ms = []
+        for _ in range(repeats):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(steps):
+                fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end) / steps)
+        return ms
+
+    ms = run(step)
+    if not torch.isfinite(step()["loss"]):
+        raise AssertionError(f"{cf}: the timed steps' loss is not finite")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    med = statistics.median(ms)
+    fwd = statistics.median(run(forward))
+    loss = forward()
+    params = list(state.module.parameters())
+    bwd = statistics.median(run(lambda: torch.autograd.grad(loss, params,
+                                                            retain_graph=True)))
+    grads = param_grads(state.module, loss)
+    opt = statistics.median(run(lambda: apply_gradients(state, grads)))
+    log("train", f"{card} | train_step {cf.architecture} {cf.network_type} abits "
+        f"{cf.abits} width {cf.width if cf.architecture == 'vgg' else cf.dim} at "
+        f"batch {TRAIN_STEP_BATCH}: {med:.3f} ms/step (median of {repeats} x "
+        f"{steps} steps, {min(ms):.3f}-{max(ms):.3f}), "
+        f"{TRAIN_STEP_BATCH / med * 1e3:.0f} images/s, peak memory {peak:.1f} MiB; "
+        f"alone: forward + loss {fwd:.3f} ms, backward {bwd:.3f} ms, optimizer "
+        f"(lr_mult, Adam, clip) {opt:.3f} ms; their sum {fwd + bwd + opt:.3f}")
 
 
 def phase_measure(torch) -> dict:
@@ -2155,6 +2524,8 @@ def main(argv: list[str]) -> int:
     phase_kernels(torch, err)
     models, launches = phase_slices(torch, err)
     for k, v in phase_cli(torch, card, models).items():
+        launches[k] += v
+    for k, v in phase_train(torch, card).items():
         launches[k] += v
     measured = phase_measure(torch)
     launches.update({name: measured[name] for name in MEASURED})

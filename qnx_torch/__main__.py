@@ -1,5 +1,10 @@
 """qnx_torch CLI, the port of :mod:`qnx.__main__`:
 
+    python -m qnx_torch train   --config cifar10-bnn ... [--device cuda|cpu]
+    python -m qnx_torch eval    --ckpt runs/latest/ckpt \\
+        [--engine int8|packed|fake] [--dataset NAME] [--device cuda|cpu]
+    python -m qnx_torch convert --ckpt runs/latest/ckpt \\
+        --engine int8|packed --out model.pt [--device cuda|cpu]
     python -m qnx_torch convert --h5 weights.h5 --config cifar10-bnn \\
         --engine int8|packed --out model.pt [--device cuda|cpu]
     python -m qnx_torch serve   --model model.pt [--batch-size 256] \\
@@ -7,10 +12,11 @@
     python -m qnx_torch bench roofline [--device cuda|cpu]
 
 Every command runs on the CUDA card unless ``--device cpu`` is given, and
-raises when the card is asked for and missing.  ``train``, ``eval`` and
-``convert --ckpt`` load a training checkpoint and come with fake-quant
-training (ROADMAP.md §1 item 12); ``bench suite``, ``bench scaling`` and
-the headline bench wait for items 15 and 6.
+raises when the card is asked for and missing.  ``train`` is
+``python -m qnx_torch.train`` (fake-quant training; the checkpoint
+``OUT/ckpt`` is what ``eval`` and ``convert --ckpt`` read).  ``bench
+suite``, ``bench scaling`` and the headline bench wait for ROADMAP.md §1
+items 15 and 6.
 """
 from __future__ import annotations
 
@@ -24,6 +30,12 @@ ARTIFACT_FORMAT = "qnx_torch.packed_model"
 ARTIFACT_VERSION = 1
 
 _DEVICES = ("cuda", "cpu")
+
+
+def _cmd_train(argv):
+    from qnx_torch.train.__main__ import main
+
+    return main(argv)
 
 
 def _pack_for_engine(variables, cf, engine, device="cuda"):
@@ -98,31 +110,81 @@ def _cmd_convert(argv):
         "(h5py reader, re-quantize latent weights, fold BN, bit-pack)"))
     p.add_argument("--h5", required=False, help="Keras .h5 weight file")
     p.add_argument("--ckpt", required=False,
-                   help="training checkpoint dir (not ported yet)")
-    p.add_argument("--config", required=True,
-                   help="preset name (see qnx_torch.utils.config.CONFIGS)")
+                   help="weights checkpoint of train (OUT/ckpt); its "
+                        "sidecar gives the config")
+    p.add_argument("--config", required=False,
+                   help="preset name (see qnx_torch.utils.config.CONFIGS); "
+                        "required with --h5")
     p.add_argument("--engine", choices=["int8", "packed"], default="int8")
     p.add_argument("--out", required=True)
     p.add_argument("--device", choices=_DEVICES, default="cuda")
     args = p.parse_args(argv)
 
+    from qnx_torch.convert.pack_model import _check_device
     from qnx_torch.utils.config import CONFIGS
 
-    cf = CONFIGS[args.config]
-    if args.ckpt:
-        raise SystemExit("convert --ckpt loads a training checkpoint, which "
-                         "comes with fake-quant training (ROADMAP.md §1 item "
-                         "12); use --h5")
-    if not args.h5:
-        p.error("--h5 is required")
-    from qnx_torch.convert.keras_h5 import variables_from_keras_h5
-    from qnx_torch.convert.pack_model import _check_device
-
+    if bool(args.h5) == bool(args.ckpt):
+        p.error("one of --h5 / --ckpt is required")
+    if args.h5 and not args.config:
+        p.error("--h5 needs --config")
     device = _check_device(args.device)
-    variables = variables_from_keras_h5(args.h5, cf)
+    if args.h5:
+        from qnx_torch.convert.keras_h5 import variables_from_keras_h5
+
+        cf = CONFIGS[args.config]
+        variables = variables_from_keras_h5(args.h5, cf)
+    else:
+        from qnx_torch.train.checkpoint import load_checkpoint
+
+        variables, cf = load_checkpoint(args.ckpt)
     model = _pack_for_engine(variables, cf, args.engine, device)
     save_artifact(args.out, model, cf, args.engine)
     print(f"wrote {args.engine} artifact: {args.out}")
+    return 0
+
+
+def _cmd_eval(argv):
+    p = argparse.ArgumentParser(prog="qnx_torch eval", description=(
+        "test accuracy of a training checkpoint: the fake-quant model, or "
+        "the int8 or packed engine's model converted from it"))
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--engine", choices=["fake", "int8", "packed"],
+                   default="int8")
+    p.add_argument("--dataset", default=None, help="override cf.dataset")
+    p.add_argument("--batch-size", type=int, default=512)
+    p.add_argument("--device", choices=_DEVICES, default="cuda")
+    args = p.parse_args(argv)
+
+    import torch
+
+    from qnx_torch.convert.pack_model import _check_device
+    from qnx_torch.data.datasets import load_dataset
+    from qnx_torch.train.checkpoint import load_checkpoint
+
+    device = _check_device(args.device)
+    variables, cf = load_checkpoint(args.ckpt)
+    if args.dataset:
+        cf = cf.replace(dataset=args.dataset)
+    ds = load_dataset(cf.dataset)
+    x, y = ds.x_test, ds.y_test
+
+    if args.engine == "fake":
+        from qnx_torch.models.factory import build_model, load_variables
+
+        model = load_variables(build_model(cf), variables).to(device)
+        fwd = lambda m, xb: m(xb, train=False)
+    else:
+        model = _pack_for_engine(variables, cf, args.engine, device)
+        fwd = _engine_forward(model)
+    correct = 0
+    with torch.inference_mode():
+        for i in range(0, len(x), args.batch_size):
+            xb = torch.from_numpy(x[i:i + args.batch_size]).to(device)
+            pred = fwd(model, xb).argmax(-1).cpu().numpy()
+            correct += int((pred == y[i:i + args.batch_size]).sum())
+    acc = correct / len(x)
+    print(f"{cf.dataset} test accuracy [{args.engine}]: {acc:.4f} "
+          f"({correct}/{len(x)})")
     return 0
 
 
@@ -180,7 +242,9 @@ def _cmd_bench(argv):
 
 
 COMMANDS = {
+    "train": _cmd_train,
     "convert": _cmd_convert,
+    "eval": _cmd_eval,
     "serve": _cmd_serve,
     "bench": _cmd_bench,
 }
@@ -194,9 +258,7 @@ def main(argv=None):
     cmd, rest = argv[0], argv[1:]
     if cmd not in COMMANDS:
         print(__doc__)
-        raise SystemExit(f"unknown command: {cmd}" + (
-            " (train and eval come with fake-quant training, ROADMAP.md §1 "
-            "item 12)" if cmd in ("train", "eval") else ""))
+        raise SystemExit(f"unknown command: {cmd}")
     return COMMANDS[cmd](rest)
 
 

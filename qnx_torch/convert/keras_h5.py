@@ -30,7 +30,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from qnx_torch.models.factory import glorot_scale
+from qnx_torch.ops.quant import glorot_scale
 from qnx_torch.utils.config import Config
 
 

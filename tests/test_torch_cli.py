@@ -215,15 +215,26 @@ def test_engine_forward_rejects_unknown_models():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--config", "mnist-bnn"], "item 12"),
-    (["eval", "--ckpt", "x"], "item 12"),
+    (["train", "--config", "mnist-bnn", "--device", "cuda"], "item 12"),
+    (["eval", "--ckpt", "x", "--device", "cuda"], "item 12"),
     (["convert", "--ckpt", "x", "--config", "mnist-bnn", "--out", "y",
       "--device", "cpu"], "item 12"),
     (["bench", "suite"], "item 15"),
     (["bench", "scaling"], "item 15"),
     (["bench"], "item 6"),
 ])
-def test_unported_commands_name_their_roadmap_item(argv, item, capsys):
+def test_unported_commands_name_their_roadmap_item(argv, item, capsys, tmp_path):
+    """The bench commands still to port exit naming their ROADMAP item;
+    train, eval and convert --ckpt (item 12) are ported and no longer do:
+    here they stop at the missing card or the missing checkpoint (train's
+    output directory under ``tmp_path``, never the checkout)."""
+    if item == "item 12":
+        if argv[0] == "train":
+            argv = [*argv, "--out", str(tmp_path / "run")]
+        with pytest.raises((RuntimeError, FileNotFoundError)) as err:
+            cli.main(argv)
+        assert "item 12" not in str(err.value)
+        return
     with pytest.raises(SystemExit, match=item):
         cli.main(argv)
 

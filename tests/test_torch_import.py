@@ -27,6 +27,9 @@ EXPECTED = {
     "qnx_torch.experiments.vpu_probe",
     "qnx_torch.__main__", "qnx_torch.convert.keras_h5",
     "qnx_torch.data.datasets", "qnx_torch.native", "qnx_torch.native.hostlib",
+    "qnx_torch.train", "qnx_torch.train.layers", "qnx_torch.train.loop",
+    "qnx_torch.train.checkpoint", "qnx_torch.train.__main__",
+    "qnx_torch.utils.metrics",
 }
 
 _PROBE = """

@@ -20,7 +20,8 @@ from qnx.nn.inference import vgg_forward as jax_vgg_forward
 from qnx.nn.int8_engine import i8_forward as jax_i8_forward
 from qnx_torch.convert import keras_h5 as K
 from qnx_torch.convert.pack_model import pack_int8, pack_mlp, pack_vgg
-from qnx_torch.models.factory import glorot_scale, init_variables
+from qnx_torch.models.factory import init_variables
+from qnx_torch.ops.quant import glorot_scale
 from qnx_torch.nn.inference import mlp_forward, vgg_forward
 from qnx_torch.nn.int8_engine import i8_forward
 from qnx_torch.utils.config import Config
