@@ -138,7 +138,26 @@ Phases:
 9. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches, of those paths and of the five paths
-   of the other activations and network types.
+   of the other activations and network types;
+10. parallel: ``ServeEngine(mesh=...)`` over worlds of ranks, each a
+    process of its own on this card (``qnx_torch.parallel.launch``): meshes
+    1x2, 1x4 and 2x2 over gloo (CUDA tensors, the ring's send and recv
+    staged through pinned host buffers, ``gloo-host``) and 1x1 over NCCL.
+    Each serves 600 requests, then 20 full batches queued as one chunk (its
+    wall img/s), of the full-width ``mnist-bnn`` and ``cifar10-bnn`` on the
+    ring (kernel B once a chunk, m chunks a hidden dense layer; the VGG's
+    convs, kernel A, on every rank) and of ``mnist-tnn`` on the replicated
+    path; every answer equal to the one-rank engine's bit for bit,
+    ``forward_path`` as expected, the launches summed over ranks equal to
+    the path's; the bring-up (a DP+TP train step, a TP int8 forward through
+    kernel E) equal on every rank and within one step's tolerance of one
+    process at the same mesh shape; ms a batch (CUDA events on rank 0, the
+    host clock across ranks); kernel B at each ring chunk's shape held
+    equal to its plain version and timed against ``torch._int_mm``;
+11. suite: ``python3 -m qnx_torch bench suite`` (every row, with its
+    spread) and ``bench scaling`` (the modeled rows; ``measure_mesh`` on
+    1, 2 and 4 ranks, logits equal to one rank's), each must exit 0 with
+    every row.
 
 Any failure raises (non-zero exit).  The last lines are a JSON summary of
 the kernels, the card's ``name, power.limit``, and the result object.
@@ -2395,6 +2414,261 @@ def stages_plane(torch, card: str, label: str, model, rng) -> None:
     engine_rate(card, label, model, rng, (32, 32, 3))
 
 
+# ---------------------------------------------------------------------------
+# phase 11: parallel (the (data, model) mesh: ServeEngine(mesh=...), the
+# ring on kernel B, the bring-up), every rank a process on this one card
+# ---------------------------------------------------------------------------
+
+#: (ranks, model degree): meshes 1x2, 1x4 and 2x2 over gloo on the one card
+PARALLEL_WORLDS = ((2, 2), (4, 4), (4, 2))
+#: the served models under a mesh, with the path each must take
+PARALLEL_PATHS = {"mnist_bnn": "ring", "cifar10_bnn": "ring",
+                  "mnist_tnn": "replicated"}
+PARALLEL_TIME_ITERS = 10  # forwards timed per world, after serving
+PARALLEL_RATE_BATCHES = 20  # full batches served as one chunk: the img/s
+WORLD_SECONDS = 400  # a world's limit (its collectives time out at 90 s)
+
+
+def parallel_launches(label: str, path: str, ranks: int, mp: int,
+                      batches: int) -> dict:
+    """The launches a path makes serving ``batches`` batches, summed over
+    ``ranks``: on the ring every rank launches kernel B once a chunk, m
+    chunks a hidden dense layer, and runs the replicated convs and head;
+    on the replicated path every rank runs the whole model on its slice;
+    a world of one serves on the single path."""
+    per_batch = {"mnist_bnn": {"xnor_dense_fused": 2, "xnor_head": 1},
+                 "cifar10_bnn": {"xnor_conv3x3_fused": 5, "xnor_dense_fused": 2},
+                 "mnist_tnn": {"ternary_dense_fused": 2, "ternary_head": 1}}[label]
+    if path == "ring":
+        per_batch = dict(per_batch)
+        per_batch["xnor_gemm_popcount"] = per_batch.pop("xnor_dense_fused") * mp
+    return {k: v * batches * ranks for k, v in per_batch.items()}
+
+
+def ring_chunks(label: str, dp: int, mp: int) -> list:
+    """(M, Kw/m, N/m, layers) of each ring chunk kernel B runs at batch
+    SERVE_BATCH: the MLP's two hidden layers (4096 x 4096), the VGG's
+    dense_0 (8192 -> 1024) and dense_1 (1024 -> 1024)."""
+    m = SERVE_BATCH // dp
+    if label == "mnist_bnn":
+        return [(m, 128 // mp, 4096 // mp, 2)]
+    return [(m, 256 // mp, 1024 // mp, 1), (m, 32 // mp, 1024 // mp, 1)]
+
+
+def time_ring_chunks(torch, card: str, err: dict, rng, dp: int, mp: int) -> None:
+    """Kernel B alone at each ring chunk's shape: held equal to its plain
+    version there (at the ring's k = 32 Kw, and on the first chunk also at
+    k = 32 Kw - 5 with the pad bits 0), then timed against one
+    ``torch._int_mm`` on the same int8 product, with its bound (CUDA
+    events, 20 calls, median of 7)."""
+    from qnx_torch.bench.roofline import H100_PEAKS
+    from qnx_torch.experiments.gemm_shootout import random_words
+    from qnx_torch.kernels.xnor_gemm import (xnor_gemm_popcount,
+                                             xnor_gemm_popcount_ref)
+
+    for label in ("mnist_bnn", "cifar10_bnn"):
+        for i, (m, kw, n, layers) in enumerate(ring_chunks(label, dp, mp)):
+            for k in (32 * kw, 32 * kw - 5) if i == 0 else (32 * kw,):
+                a = cuda(torch, random_words(rng, m, k))
+                b = cuda(torch, random_words(rng, n, k, along_rows=True))
+                compare(torch, err, "xnor_gemm_popcount",
+                        xnor_gemm_popcount(a, b, k), xnor_gemm_popcount_ref(a, b, k),
+                        False, f"mesh {dp}x{mp} {label} ring chunk ({m}, {kw}, {n}) "
+                        f"k {k}")
+            kern = time_ms(torch, lambda: xnor_gemm_popcount(a, b, 32 * kw), 20)
+            lib = time_ms(torch, int_mm_call(torch, rng, m, 32 * kw, n), 20)
+            ops_ms = m * n * 32 * kw / H100_PEAKS["int8_macs"] * 1e3
+            bytes_ms = 4 * (m * kw + kw * n + m * n) / H100_PEAKS["hbm_bytes"] * 1e3
+            log("parallel", f"{card} | mesh {dp}x{mp} {label} ring chunk "
+                f"(M {m}, Kw {kw}, N {n}) x {layers} layer(s) x {mp} chunks: "
+                f"kernel B {fmt(kern)}; library torch._int_mm ({m}, {32 * kw}, "
+                f"{n}) {fmt(lib)}; bound {max(ops_ms, bytes_ms):.5f} ms "
+                f"(operations {ops_ms:.5f}, bytes {bytes_ms:.5f})")
+
+
+def check_bringup(label: str, got: list, ref: dict) -> None:
+    """Every rank's bring-up scalars equal, and within one step's tolerance
+    of the one-process run at the same mesh shape (``ref``): the loss 1e-6
+    relative, the accuracy equal, the parameters' checksum within 1e-3
+    lr_start times the sum of its weights, the logits' checksum equal."""
+    from qnx_torch.parallel.bringup import bringup_configs, checksum_weight
+    from qnx_torch.models.factory import init_variables
+
+    keys = ("loss", "accuracy", "params_checksum", "logits_checksum")
+    for key in keys:
+        if len({r[key] for r in got}) != 1:
+            raise AssertionError(f"{label}: ranks differ in {key}: "
+                                 f"{[r[key] for r in got]}")
+    r0 = got[0]
+    cf, _ = bringup_configs(*ref["mesh"])
+    tol = 1e-3 * cf.lr_start * checksum_weight(init_variables(cf, 0)["params"])
+    if (abs(r0["loss"] - ref["loss"]) > 1e-6 * abs(ref["loss"])
+            or r0["accuracy"] != ref["accuracy"]
+            or abs(r0["params_checksum"] - ref["params_checksum"]) > tol
+            or r0["logits_checksum"] != ref["logits_checksum"]):
+        raise AssertionError(f"{label}: bring-up {r0} against the one-process "
+                             f"run {ref} (params tolerance {tol:.4g})")
+    log("parallel", f"{label}: bring-up on mesh {r0['mesh']}, every rank "
+        f"{ {k: r0[k] for k in keys} }; one process at that shape "
+        f"{ {k: ref[k] for k in keys} } (params checksum tolerance {tol:.4g})")
+
+
+def phase_parallel(torch, card: str, models: dict, err: dict) -> dict:
+    """``ServeEngine(mesh=...)`` of the full-width ``mnist-bnn`` and
+    ``cifar10-bnn`` (ring) and ``mnist-tnn`` (replicated), 600 requests each
+    and then PARALLEL_RATE_BATCHES full batches as one chunk (the img/s),
+    and the bring-up, on meshes 1x2, 1x4 and 2x2 over gloo (every rank a
+    process on this card) and 1x1 over NCCL; every answer equal to the
+    one-rank engine's bit for bit; kernel B held to its plain version at
+    every ring chunk's shape (into ``err``).  Returns the launches of those
+    runs, summed over ranks."""
+    import copy
+
+    from qnx_torch.parallel.bringup import bringup_workloads
+    from qnx_torch.parallel.launch import run_world
+    from qnx_torch.serve.engine import ServeEngine
+    from qnx_torch.utils.config import CIFAR10_BNN, MNIST_BNN, MNIST_TNN
+
+    cfs = {"mnist_bnn": MNIST_BNN, "cifar10_bnn": CIFAR10_BNN, "mnist_tnn": MNIST_TNN}
+    reqs = {k: requests(cfs[k], golden(k)) for k in PARALLEL_PATHS}
+    cpu_models = {k: copy.deepcopy(models[k]).cpu() for k in PARALLEL_PATHS}
+    ref = {}
+    for k in PARALLEL_PATHS:  # the one-rank engine (its launches not counted)
+        with ServeEngine(models[k], batch_size=SERVE_BATCH) as eng:
+            ref[k] = eng.predict(reqs[k])
+    serve = {"models": cpu_models, "requests": reqs, "batch_size": SERVE_BATCH,
+             "chunks": CHUNKS, "time_iters": PARALLEL_TIME_ITERS,
+             "rate_batches": PARALLEL_RATE_BATCHES}
+    launches = dict.fromkeys(KERNELS, 0)
+    rng = np.random.default_rng(13)
+    for ranks, mp, backend in ((1, 1, "nccl"), *((r, m, "gloo")
+                                                 for r, m in PARALLEL_WORLDS)):
+        dp = ranks // mp
+        steps = [("serve", serve), ("bringup", {})]
+        t0 = time.perf_counter()
+        res = run_world("sequence", {"steps": steps}, ranks, mp, device="cuda",
+                        backend=backend, timeout=WORLD_SECONDS)
+        wall = time.perf_counter() - t0
+        label = f"mesh {dp}x{mp} ({ranks} ranks, {backend})"
+        r0 = res[0]
+        log("parallel", f"{card} | {label}: backend {r0['backend']}, transport "
+            f"{r0['transport']}, devices {sorted({r['device'] for r in res})}; "
+            f"the world's processes {wall:.1f} s")
+        for label_k, want_path in PARALLEL_PATHS.items():
+            path = want_path if ranks > 1 else "single"
+            got = [r["steps"][0][label_k] for r in res]
+            s0 = got[0]["stats"]
+            if {g["forward_path"] for g in got} != {path} or s0["forward_path"] != path:
+                raise AssertionError(f"{label} {label_k}: forward_path "
+                                     f"{[g['forward_path'] for g in got]}, want {path}")
+            if (s0["transport"], s0["backend"], s0["world"]) != (
+                    r0["transport"], backend, ranks):
+                raise AssertionError(f"{label} {label_k}: stats {s0}")
+            rate = got[0]["rate"]
+            cycled = ref[label_k][np.arange(len(rate["logits"])) % len(ref[label_k])]
+            for what, have, want in (("600 requests", got[0]["logits"], ref[label_k]),
+                                     ("full batches", rate["logits"], cycled)):
+                if not np.array_equal(have, want):
+                    d = float(np.abs(have - want).max())
+                    raise AssertionError(f"{label} {label_k} {what}: answers differ "
+                                         f"from the one-rank engine's (max |d| {d:.3g})")
+            if rate["stats"]["batches"] != PARALLEL_RATE_BATCHES:
+                raise AssertionError(f"{label} {label_k}: rate stats {rate['stats']}")
+            summed = Counter()
+            for g in got:
+                summed.update(g["launches"])
+            want = parallel_launches(label_k, path, ranks, mp,
+                                     s0["batches"] + PARALLEL_RATE_BATCHES)
+            if dict(summed) != want:
+                raise AssertionError(f"{label} {label_k}: launches {dict(summed)} "
+                                     f"!= {want}")
+            for k, v in summed.items():
+                launches[k] += v
+            log("parallel", f"{card} | {label} {label_k}: forward_path {path}, "
+                f"{s0['images']} requests in {s0['batches']} batches and "
+                f"{PARALLEL_RATE_BATCHES} full batches, answers "
+                f"equal to the one-rank engine's bit for bit; launches summed "
+                f"over ranks {dict(summed)}; a batch of {SERVE_BATCH} on rank 0: "
+                f"{got[0]['device_ms']:.4f} ms CUDA events, "
+                f"{got[0]['host_ms']:.4f} ms host clock across ranks "
+                f"({SERVE_BATCH / got[0]['device_ms'] * 1e3:.1f} img/s); engine "
+                f"{rate['stats']['wall_throughput_ips']:.1f} img/s wall over "
+                f"{PARALLEL_RATE_BATCHES} full batches queued as one chunk")
+        brought = [r["steps"][1] for r in res]
+        for r in brought:
+            for k, v in r["step_launches"].items():
+                launches[k] += v
+        check_bringup(label, brought,
+                      bringup_workloads(None, device="cuda", shape=(dp, mp)))
+        if ranks > 1:
+            time_ring_chunks(torch, card, err, rng, dp, mp)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: suite (python -m qnx_torch bench suite | scaling)
+# ---------------------------------------------------------------------------
+
+SUITE_CONFIGS = {"cifar10-bnn int8", "cifar10-bnn popcount", "cifar10-tnn int8",
+                 "cifar10-tnn bitplane", "mnist-bnn int8", "mnist-bnn popcount",
+                 "mnist-tnn int8", "mnist-tnn popcount"}
+
+
+def bench_cli(which: str) -> str:
+    """``python3 -m qnx_torch bench WHICH`` in a process of its own; its
+    stdout, or a raise with its stderr."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "qnx_torch", "bench", which],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise AssertionError(f"bench {which} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    log("suite", f"python3 -m qnx_torch bench {which}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return proc.stdout
+
+
+def phase_suite(card: str) -> None:
+    """The bench suite's rows (each engine and its two float twins in one
+    interleaved group, with spread; the serving row) and the scaling
+    report (the modeled rows and ``measure_mesh`` on this card), each from
+    its CLI; every row must be there."""
+    rows = [json.loads(l) for l in bench_cli("suite").splitlines()
+            if l.startswith("{")]
+    got = {r["config"] for r in rows}
+    serving = [r for r in rows if "serve" in r["config"]]
+    if not SUITE_CONFIGS <= got or len(serving) != 1 or len(rows) != 9:
+        raise AssertionError(f"bench suite rows: {sorted(got)}")
+    for r in rows:
+        if "serve" in r["config"]:
+            log("suite", f"{r['device']} | {r['config']}: {r['requests']} "
+                f"requests at batch {r['batch']}: {r['wall_throughput_ips']:.1f} "
+                f"img/s wall ({r['throughput_ips']:.1f} over busy time), p50 "
+                f"{r['latency_ms_p50']:.2f} ms, p99 {r['latency_ms_p99']:.2f} ms; "
+                f"host-to-device copy of the uint8 batch "
+                f"{r['h2d_mbps_pageable']:.1f} MB/s pageable, "
+                f"{r['h2d_mbps_pinned']:.1f} MB/s pinned")
+        else:
+            log("suite", f"{r['device']} | {r['config']} batch {r['batch']}: "
+                f"{r['ms_per_batch']:.4f} ms (median {r['ms_median']:.4f}, "
+                f"spread {r['spread']:.3f}{', unreliable' if r.get('unreliable') else ''}) "
+                f"= {r['images_per_s']:.1f} img/s; {r['vs_f32_strict']:.3f}x "
+                f"the strict-f32 twin, {r['vs_tf32']:.3f}x the TF32 twin")
+    report = json.loads(bench_cli("scaling").strip().splitlines()[-1])
+    mesh = report["mesh"]
+    if (len(report["dp_model"]) != 4 or len(report["tp_model"]) != 5
+            or [r["ranks"] for r in mesh] != [1, 2, 4]
+            or not all(r["exact_vs_1rank"] for r in mesh)):
+        raise AssertionError(f"bench scaling report: {report}")
+    for r in report["dp_model"] + report["tp_model"]:
+        log("suite", f"modeled: {json.dumps(r)}")
+    for r in mesh:
+        log("suite", f"{r['device']} | measure_mesh {r['ranks']} rank(s), mesh "
+            f"{r['mesh']}, {r['backend']} ({r['transport']}), devices "
+            f"{r['devices']}: logits equal to one rank's; {r['device_ms']:.4f} ms "
+            f"a forward (CUDA events, rank 0), {r['host_ms']:.4f} ms host clock")
+
+
 def ab_shapes(kind: str) -> list:
     """The shapes ``--ab`` times a kind at: the dense kinds (``dense``,
     ``ternary_dense``, ``plane_dense-P-T``) at the VGG's dense layers and
@@ -2518,21 +2792,43 @@ def main(argv: list[str]) -> int:
     if argv:
         raise SystemExit(f"usage: python3 chip_smoke.py [--ab KINDS DIR ...]; "
                          f"got {argv}")
+    laps = [("", time.perf_counter())]
+
+    def lap(phase: str) -> None:
+        laps.append((phase, time.perf_counter()))
+
     card = phase_device(torch)
     phase_build()
+    lap("device+build")
     err = dict.fromkeys(KERNELS, 0.0)
     phase_kernels(torch, err)
+    lap("kernels")
     models, launches = phase_slices(torch, err)
+    lap("slices")
     for k, v in phase_cli(torch, card, models).items():
         launches[k] += v
+    lap("cli")
     for k, v in phase_train(torch, card).items():
         launches[k] += v
+    lap("train")
     measured = phase_measure(torch)
     launches.update({name: measured[name] for name in MEASURED})
+    lap("measure")
     total = phase_times(torch, card, models)
+    lap("times")
     phase_twin(torch, card, models["cifar10_bnn_int8"],
                models["cifar10_qnn_relu_int8"])
+    lap("twin")
     phase_stages(torch, card, models)
+    lap("stages")
+    for k, v in phase_parallel(torch, card, models, err).items():
+        launches[k] += v
+    lap("parallel")
+    phase_suite(card)
+    lap("suite")
+    log("phases", ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
+                            in zip(laps, laps[1:]))
+        + f"; in all {laps[-1][1] - laps[0][1]:.1f} s")
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "qnx") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 

@@ -10,13 +10,16 @@
     python -m qnx_torch serve   --model model.pt [--batch-size 256] \\
         [--requests 2048] [--input-shape 32,32,3] [--device cuda|cpu]
     python -m qnx_torch bench roofline [--device cuda|cpu]
+    python -m qnx_torch bench suite    [--device cuda|cpu]
+    python -m qnx_torch bench scaling  [--device cuda|cpu] [--backend gloo|nccl]
 
 Every command runs on the CUDA card unless ``--device cpu`` is given, and
 raises when the card is asked for and missing.  ``train`` is
 ``python -m qnx_torch.train`` (fake-quant training; the checkpoint
 ``OUT/ckpt`` is what ``eval`` and ``convert --ckpt`` read).  ``bench
-suite``, ``bench scaling`` and the headline bench wait for ROADMAP.md §1
-items 15 and 6.
+scaling`` starts its worlds of ranks as processes of their own
+(:mod:`qnx_torch.parallel.launch`).  The headline bench waits for
+ROADMAP.md §1 item 6.
 """
 from __future__ import annotations
 
@@ -227,17 +230,31 @@ def _cmd_serve(argv):
 
 def _cmd_bench(argv):
     which = argv[0] if argv else "headline"
-    if which != "roofline":
+    if which not in ("roofline", "suite", "scaling"):
         raise SystemExit(
-            f"bench {which}: not ported yet (the suite and scaling are "
-            f"ROADMAP.md §1 item 15, the headline bench item 6); "
-            f"bench roofline is")
-    p = argparse.ArgumentParser(prog="qnx_torch bench roofline")
+            f"bench {which}: not ported yet (the headline bench is ROADMAP.md "
+            f"§1 item 6); bench roofline, suite and scaling are")
+    p = argparse.ArgumentParser(prog=f"qnx_torch bench {which}")
     p.add_argument("--device", choices=_DEVICES, default="cuda")
+    if which == "scaling":
+        p.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     args = p.parse_args(argv[1:])
-    from qnx_torch.bench.roofline import main
+    if which == "roofline":
+        from qnx_torch.bench.roofline import main
 
-    main(device=args.device)
+        main(device=args.device)
+    elif which == "suite":
+        from qnx_torch.bench.microbench import resolve_device
+        from qnx_torch.bench.suite import main
+
+        resolve_device(args.device)
+        main(device=args.device)
+    else:
+        from qnx_torch.bench.microbench import resolve_device
+        from qnx_torch.bench.scaling import main
+
+        resolve_device(args.device)
+        main(device=args.device, backend=args.backend)
     return 0
 
 

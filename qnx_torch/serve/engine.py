@@ -11,7 +11,18 @@ with ``device_normalize=False``, or in a batch that mixes uint8 and float32
 chunks, the native host runtime (:mod:`qnx_torch.native`) normalises the
 uint8 chunks on the host to the same bits.
 
-The JAX engine's ``mesh`` (tensor-parallel serving) is not ported yet.
+With a ``mesh`` (:func:`qnx_torch.parallel.mesh.make_mesh`) the engine
+spans the world's ranks.  The JAX engine is one controller driving every
+device; here the ranks are processes, so each batch forms once: rank 0
+owns the queue and the dispatcher and broadcasts each static batch (uint8
+or float32, padded as on one device) over the world with a stop flag, the
+other ranks follow it, and rank 0 answers.  On a rank other than 0 the
+constructor runs the follower loop and returns when rank 0's ``stop()``
+broadcasts the flag; that engine serves nothing.  The forward is the ring
+TP path (:func:`qnx_torch.parallel.tp_forward.make_tp_forward`) where the
+model takes it, else the data-parallel replicated path; the stats name it
+(``forward_path``: ``single``, ``ring`` or ``replicated``) with the
+backend and the transport.
 """
 from __future__ import annotations
 
@@ -26,6 +37,10 @@ import numpy as np
 import torch
 
 from qnx_torch.native import u8_to_f32
+
+#: the follower protocol's header: stop flag, dtype code, ndim, the dims
+_HEADER = 8
+_DTYPES = (torch.uint8, torch.float32)
 
 #: Cap on retained latency samples — the engine runs indefinitely, so stats
 #: use reservoir sampling instead of an unbounded list.
@@ -96,11 +111,14 @@ class ServeEngine:
     Args:
       model: packed ``nn.Module`` (images -> logits), already on its device.
       batch_size: static device batch (requests are padded up to it).
-      mesh: must be None; tensor-parallel serving is not ported yet.
+      mesh: None (one process), or the world's (data, model)
+        ``DeviceMesh``; module docstring.
       max_wait_ms: dispatcher linger — how long to wait to fill a batch
         before flushing a partial one.
       forward: ``forward(model, x)`` on the normalised device batch; None
-        means ``model(x)``.  It runs under ``torch.inference_mode()``.
+        means ``model(x)``, or under a mesh the ring TP forward where the
+        model takes it.  A given forward runs on the replicated path under
+        a mesh.  It runs under ``torch.inference_mode()``.
       device_normalize: ship an all-uint8 batch raw and normalise it on the
         device; else (and for a batch that mixes uint8 and float32 chunks)
         the uint8 chunks are normalised on the host by
@@ -115,27 +133,67 @@ class ServeEngine:
                  max_wait_ms: float = 2.0, forward=None,
                  device_normalize: bool = True,
                  max_queue: int | None = 1024):
-        if mesh is not None:
-            raise NotImplementedError(
-                "qnx_torch.serve.ServeEngine serves on one device; mesh "
-                "(tensor-parallel) serving is not ported yet (ROADMAP.md §1 "
-                "item 14)")
         self.batch_size = batch_size
         self.max_wait_ms = max_wait_ms
         self.device_normalize = device_normalize
-        self._forward = forward or (lambda m, x: m(x))
         self.model = model.eval()
         self.device = next(model.buffers()).device
+        self.mesh = mesh
+        self.forward_path, self.backend, self.transport = "single", None, None
+        self._forward = forward or (lambda m, x: m(x))
+        if mesh is not None:
+            self._init_mesh(forward)
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue or 0)
         self._carry = None   # split-chunk remainder (dispatcher-only)
         self._total = 0
         self._stats = ServeStats()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        self._released = False  # the followers got the stop flag
+        if not self.leader:
+            self._follow()
+
+    def _init_mesh(self, forward):
+        import torch.distributed as dist
+
+        from qnx_torch.parallel.mesh import transport
+        from qnx_torch.parallel.tp_forward import (make_tp_forward,
+                                                   replicated_forward)
+
+        if not dist.is_initialized():
+            raise RuntimeError("ServeEngine(mesh=...) serves over the world's "
+                               "ranks: join it first (qnx_torch.parallel.mesh."
+                               "initialize_distributed) and pass make_mesh()")
+        self.backend = dist.get_backend()
+        self.transport = transport(None, self.device)
+        # nccl moves CUDA tensors only; gloo the host's (the batch starts there)
+        self._comm = self.device if self.backend == "nccl" else torch.device("cpu")
+        if dist.get_world_size() == 1:
+            return  # one rank: the single path, through the protocol
+        tp = make_tp_forward(self.model, self.mesh) if forward is None else None
+        if tp is not None:
+            self.forward_path = "ring"
+            self.model, self._forward = tp
+        else:
+            self.forward_path = "replicated"
+            mesh = self.mesh
+            self._forward = lambda m, x: replicated_forward(m, x, mesh, forward)
+
+    @property
+    def leader(self) -> bool:
+        """Rank 0 of a mesh, or the engine of one process: it owns the
+        queue and answers."""
+        if self.mesh is None:
+            return True
+        import torch.distributed as dist
+
+        return dist.get_rank() == 0
 
     # ---------------- public API ----------------
 
     def start(self):
+        if not self.leader:
+            return self  # a follower has served and stopped already
         self._stop.clear()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -149,6 +207,9 @@ class ServeEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self.mesh is not None and self.leader and not self._released:
+            self._released = True
+            self._broadcast_header(None)  # the followers' stop flag
         pending = []
         if self._carry is not None:
             pending.append(self._carry)
@@ -171,6 +232,9 @@ class ServeEngine:
         """Enqueue a chunk of images as ONE queue item.  A full queue blocks
         (backpressure); ``timeout`` seconds turns the block into
         ``queue.Full``."""
+        if not self.leader:
+            raise RuntimeError("a follower rank serves no requests; submit "
+                               "to rank 0's engine")
         if self._stop.is_set():
             raise RuntimeError("engine is stopped")
         images = np.asarray(images)
@@ -186,7 +250,16 @@ class ServeEngine:
         return np.stack([f.result(timeout=300) for f in futs])
 
     def stats(self) -> dict:
-        return self._stats.summary()
+        """The batches' figures (``ServeStats.summary``), the path the
+        forward took, and under a mesh the backend, transport and world."""
+        out = self._stats.summary()
+        out["forward_path"] = self.forward_path
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            out.update(backend=self.backend, transport=self.transport,
+                       world=dist.get_world_size())
+        return out
 
     def __enter__(self):
         return self.start()
@@ -259,12 +332,11 @@ class ServeEngine:
         t0 = time.perf_counter()
         if self._stats.first_dispatch is None:
             self._stats.first_dispatch = t0
-        with torch.inference_mode():
-            x = torch.from_numpy(images).to(self.device)
-            if x.dtype == torch.uint8:
-                x = normalize_u8(x)
-            # the copy to the host waits for the device
-            logits = self._forward(self.model, x).cpu().numpy()
+        x = torch.from_numpy(images)
+        if self.mesh is not None:
+            x = self._broadcast_batch(x)
+        # the copy to the host waits for the device
+        logits = self._compute(x).cpu().numpy()
         dt_ms = (time.perf_counter() - t0) * 1e3
         done = time.perf_counter()
         self._stats.batches += 1
@@ -279,3 +351,49 @@ class ServeEngine:
                 fut.set_result(logits[off])
                 off += 1
         self._stats.last_answer = time.perf_counter()
+
+    # ---------------- the ranks of a mesh ----------------
+
+    def _compute(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward of one static batch, on every rank alike."""
+        with torch.inference_mode():
+            x = x.to(self.device)
+            if x.dtype == torch.uint8:
+                x = normalize_u8(x)
+            return self._forward(self.model, x)
+
+    def _broadcast_header(self, x: torch.Tensor | None) -> torch.Tensor:
+        from qnx_torch.parallel.mesh import broadcast
+
+        header = torch.zeros(_HEADER, dtype=torch.int64)
+        if x is None:
+            header[0] = 1
+        else:
+            header[1] = _DTYPES.index(x.dtype)
+            header[2] = x.dim()
+            header[3:3 + x.dim()] = torch.tensor(x.shape)
+        return broadcast(header.to(self._comm), 0).cpu()
+
+    def _broadcast_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0: the batch to every rank, after its header."""
+        from qnx_torch.parallel.mesh import broadcast
+
+        self._broadcast_header(x)
+        return broadcast(x.to(self._comm), 0)
+
+    def _follow(self):
+        """A follower rank: receive each batch rank 0 broadcasts and run the
+        forward with it (its collectives need every rank), until the stop
+        flag."""
+        from qnx_torch.parallel.mesh import broadcast
+
+        while True:
+            header = broadcast(torch.zeros(_HEADER, dtype=torch.int64,
+                                           device=self._comm), 0).cpu()
+            if header[0]:
+                self._released = True
+                return
+            shape = header[3:3 + int(header[2])].tolist()
+            x = broadcast(torch.empty(shape, dtype=_DTYPES[int(header[1])],
+                                      device=self._comm), 0)
+            self._compute(x)

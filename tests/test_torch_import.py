@@ -30,6 +30,12 @@ EXPECTED = {
     "qnx_torch.train", "qnx_torch.train.layers", "qnx_torch.train.loop",
     "qnx_torch.train.checkpoint", "qnx_torch.train.__main__",
     "qnx_torch.utils.metrics",
+    "qnx_torch.parallel", "qnx_torch.parallel.mesh",
+    "qnx_torch.parallel.sharding", "qnx_torch.parallel.overlap",
+    "qnx_torch.parallel.tp_forward", "qnx_torch.parallel.bringup",
+    "qnx_torch.parallel.launch", "qnx_torch.experiments.multiproc_worker",
+    "qnx_torch.utils.profiling", "qnx_torch.bench.suite",
+    "qnx_torch.bench.scaling",
 }
 
 _PROBE = """

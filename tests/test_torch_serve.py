@@ -167,5 +167,7 @@ def test_uint8_ingest_matches_the_jax_engine(variables, model, device_normalize)
 
 
 def test_mesh_is_still_refused(model):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """A mesh is served now (tests/test_torch_parallel.py), but only over a
+    joined world: without one the engine refuses it."""
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         ServeEngine(model, mesh=object())

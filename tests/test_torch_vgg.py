@@ -244,11 +244,12 @@ def test_uint8_normalisation_is_the_jax_engines_bit_for_bit():
 
 
 def test_unported_variants_raise():
-    """The mesh still raises; quantized_tanh, which raised before the
-    bit-plane engine lowered it, builds in tanh mode (its parity with JAX is
-    in tests/test_torch_activations.py); pack_vgg still refuses abits > 1."""
+    """A mesh, served since the port has parallelism, still raises without
+    a joined world; quantized_tanh, which raised before the bit-plane
+    engine lowered it, builds in tanh mode (its parity with JAX is in
+    tests/test_torch_activations.py); pack_vgg still refuses abits > 1."""
     model = pack_vgg(init_variables(SMALL_CF, seed=0), SMALL_CF, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="mesh"):
         ServeEngine(model, mesh=object())
     cf = SMALL_CF.replace(network_type="full-tnn", wbits=2, abits=2,
                           activation="quantized_tanh")
