@@ -51,7 +51,10 @@ Phases:
 2. build: compile the kernels, with the ptxas register and spill report
    and the SASS counts per K step of the tensor-core kernels' K loops (the
    A, A', D and E convs and the A, A' and D dense layers: IGMMA, POPC,
-   LOP3, LDGSTS, ...); each must issue IGMMA and no POPC or IMMA there;
+   LOP3, LDGSTS, ...; kernels B and C at wide N: BGMMA); the int8 ones must
+   issue IGMMA and no POPC or IMMA there, B and C the single-bit BGMMA and
+   no more POPC than their operand popcounts take (32 a thread a step for
+   B, 16 for C: none per word pair);
 3. kernels: each of the eighteen kernels against its plain PyTorch version
    on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
@@ -71,6 +74,11 @@ Phases:
    threshold directions and int32-extreme thresholds, and with the border
    term at 2, 3 and 8 planes (2, 6 and 254 thresholds); A, A' and D's
    convs with C not a multiple of 128 (40, 96, 160);
+   kernels B and C at wide N on the single-bit tensor cores at Kw = 2, 3,
+   8, 9 and 128 with k = 32 Kw and 32 Kw - 5, N = 1, 10, 33 up to 4096, M =
+   3 to 1024, at every ring chunk of every mesh of phase 10, with
+   all-ones and all-zero words (s = +-k) and C with nnz off the mask's
+   count and sign bits outside the mask;
    F1-F4 and G at every geometry the shootout sweeps on ragged M and K
    with N = 1, 10, 33, 128, the MNIST head and 1024x4096x4096 (a geometry
    that does not fit is logged as such); H in each mode and compiled
@@ -121,8 +129,11 @@ Phases:
 7. measure: the measurement path at reduced repeats (8 x 3), counts set to
    0 just before and read just after: the shootout at its four full shapes
    with every candidate equal to kernel B, the accumulator scan, the probe's
-   six modes with the SM clock and SASS counts, the roofline table; each of
-   F1-F4, G, H and B and C (at wide N) must have launched;
+   six modes with the SM clock and SASS counts, the tensor-core probe
+   (``qnx_torch.bench.tc_probe``: the single-bit and the int8 ``wgmma``'s
+   MACs a second on tiles in shared memory, each equal to its plain
+   version), the roofline table; each of F1-F4, G, H and B and C (at wide
+   N) must have launched;
 8. times: each kernel against its plain version and against one library
    call (``torch._int_mm`` on the same product, unpacked to int8) at batch
    256 (the packed GEMMs and the formulations at 1024x4096x4096, H at the
@@ -132,7 +143,7 @@ Phases:
    256 and 1024, with CUDA events, and the relu ``qnn`` VGG against the
    same twin in the same turns; E in each served encoding (pm1, levels,
    zo, tanh, grid weights) and D's conv with the border term and without;
-   the dense kernels, the integer heads
+   the dense kernels, the integer heads, B and C at wide N
    and their library calls also as CUDA graph replays, which leave out the
    host's launch;
 9. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
@@ -153,7 +164,8 @@ Phases:
     kernel E) equal on every rank and within one step's tolerance of one
     process at the same mesh shape; ms a batch (CUDA events on rank 0, the
     host clock across ranks); kernel B at each ring chunk's shape held
-    equal to its plain version and timed against ``torch._int_mm``;
+    equal to its plain version and timed against ``torch._int_mm``, per
+    call and as CUDA graph replays;
 11. suite: ``python3 -m qnx_torch bench suite`` (every row, with its
     spread) and ``bench scaling`` (the modeled rows; ``measure_mesh`` on
     1, 2 and 4 ranks, logits equal to one rank's), each must exit 0 with
@@ -178,7 +190,9 @@ layers, at the VGG's two dense shapes and the MLPs' hidden shape; ``head``,
 ``PackedDenseLogits``, ``TernaryDenseLogits`` and ``PlaneDenseLogits`` with
 P planes, their int32 s and their logits, at the MLPs' and the abits-3
 VGG's head shapes; ``forward-PATH`` for the whole forward of the path
-``mnist_bnn``, ``mnist_tnn`` or ``cifar10_tnn_a3``) at batch 256 on the
+``mnist_bnn``, ``mnist_tnn`` or ``cifar10_tnn_a3``; ``popcount`` and
+``ternary`` for kernels B and C at wide N, at 1024x4096x4096 and at the
+ring chunks of meshes 1x2 and 1x4, each at its own M) at batch 256 on the
 same seeded operands (E's K-major weights made beforehand where the
 checkout's wrapper takes them), per call and (but for a forward) as CUDA
 graph replays.  Run it as parent, change, change, parent.
@@ -500,20 +514,24 @@ class Case:
     macs: int
     mkn: tuple | None
     lib: dict = field(default_factory=dict)
+    peak: str = "int8_macs"
+    ops_per_mac: int = 1
 
     def bound(self, out) -> tuple[float, float]:
-        """(ms of the MACs at the int8 peak, ms of the bytes: each input
-        read once and the output written once), the least time the card
-        could take, from the peaks of
+        """(ms of the MACs at the peak of the tensor cores the kernel runs
+        on, ms of the bytes: each input read once and the output written
+        once), the least time the card could take, from the peaks of
         :data:`qnx_torch.bench.roofline.H100_PEAKS`.  Every kernel's product
         takes ±1 activations or the levels of up to 8 {0,1} planes
         (unsigned, below 2^8) against ±1 or ternary weights, which the int8
         tensor cores' s8 x s8 and u8 x s8 MMA take, so each counts one int8
-        MAC per real MAC whatever its planes."""
+        MAC per real MAC whatever its planes; kernels B and C at wide N run
+        on the single-bit tensor cores at their measured rate, B one
+        AND-popcount MAC a MAC, C two (against mask and mask & sign)."""
         from qnx_torch.bench.roofline import H100_PEAKS
 
         nbytes = sum(t.numel() * t.element_size() for t in [*self.inputs, out])
-        return (self.macs / H100_PEAKS["int8_macs"] * 1e3,
+        return (self.macs * self.ops_per_mac / H100_PEAKS[self.peak] * 1e3,
                 nbytes / H100_PEAKS["hbm_bytes"] * 1e3)
 
 
@@ -524,6 +542,7 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
     from qnx_torch.kernels import ternary_gemm as T
     from qnx_torch.kernels import xnor_conv_fused as F
     from qnx_torch.kernels import xnor_gemm as X
+    from qnx_torch.ops.packing import pack_bits_np
 
     if kind.split("-")[0] in HEADS:
         return head_case(torch, rng, kind, b, shape)
@@ -566,6 +585,7 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
                     (b * h * w, k, n))
     k_in, n = shape
     work = dict(macs=b * k_in * n, mkn=(b, k_in, n))
+    kind, *fill = kind.split("-")  # popcount-ones|apart, ternary-nnz
     if kind in ("dense", "popcount"):
         xp, wp, k, sgn, tau = dense_operands(torch, rng, b, k_in, n)
         if kind == "dense":
@@ -573,9 +593,13 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
                         lambda: F.xnor_gemm_fused(xp, wp, k, sgn, tau),
                         lambda: F.xnor_gemm_fused_ref(xp, wp, k, sgn, tau), True,
                         [xp, wp, sgn, tau], **work)
+        if fill:  # all-ones words, pad bits 0: s = k, or -k against all-zero
+            xp, wp = (cuda(torch, pack_bits_np(np.full(s, v, np.float32), axis))
+                      for s, v, axis in (((b, k_in), 1.0, -1),
+                                         ((k_in, n), 1.0 if fill == ["ones"] else -1.0, 0)))
         return Case("xnor_gemm_popcount", lambda: X.xnor_gemm_popcount(xp, wp, k),
                     lambda: X.xnor_gemm_popcount_ref(xp, wp, k), False,
-                    [xp, wp], **work)
+                    [xp, wp], **work, peak="b1_macs")
     xp, mask, sign, nnz, sgn, tau = ternary_operands(torch, rng, b, k_in, n)
     work["lib"] = dict(weights="ternary")
     if kind == "ternary_dense":
@@ -583,9 +607,14 @@ def make_case(torch, rng, kind: str, b: int, shape) -> Case:
                     lambda: F.ternary_gemm_fused(xp, mask, sign, nnz, sgn, tau),
                     lambda: F.ternary_gemm_fused_ref(xp, mask, sign, nnz, sgn, tau),
                     True, [xp, mask, sign, nnz, sgn, tau], **work)
+    if fill:  # nnz off the mask's count, sign bits outside the mask
+        noise = rng.integers(I32_MIN, I32_MAX, tuple(sign.shape), dtype=np.int32,
+                             endpoint=True)
+        sign = sign | (cuda(torch, noise) & ~mask)
+        nnz = nnz + cuda(torch, rng.integers(-9, 10, n).astype(np.int32))
     return Case("ternary_gemm", lambda: T.ternary_gemm(xp, mask, sign, nnz),
                 lambda: T.ternary_gemm_ref(xp, mask, sign, nnz), False,
-                [xp, mask, sign, nnz], **work)
+                [xp, mask, sign, nnz], **work, peak="b1_macs", ops_per_mac=2)
 
 
 def plane_case(torch, rng, kind: str, b: int, shape) -> Case:
@@ -720,6 +749,32 @@ RAGGED_SHAPES = [(3, (100, 1)), (37, (153, 10)), (130, (1000, 33)),
                  (257, (4000, 128)), (256, (4096, 10)), (1024, (4096, 4096))]
 
 
+# (M, (K, N)) of kernels B and C at wide N: Kw = 2, 3, 8, 9, 17, 128 with k
+# = 32 Kw and 32 Kw - 5, N = 1, 10, 33, 130, 300, 4096, M = 3 to 1024
+POPCOUNT_SHAPES = [(3, (64, 1)), (37, (91, 10)), (37, (96, 10)), (130, (251, 33)),
+                   (130, (256, 33)), (257, (283, 128)), (257, (288, 130)),
+                   (1000, (544, 300)), (64, (59, 4096)), (5, (4091, 33)),
+                   (1024, (4091, 4096))]
+
+
+def popcount_cases() -> list:
+    """Kernels B and C at wide N: at :data:`POPCOUNT_SHAPES`, at every ring
+    chunk of the meshes phase 10 serves (k = 32 Kw, and 32 Kw - 5), with
+    all-ones and all-zero words, and C with nnz off the mask's count and
+    sign bits outside the mask."""
+    shapes = list(POPCOUNT_SHAPES)
+    for ranks, mp in PARALLEL_WORLDS:
+        for label in ("mnist_bnn", "cifar10_bnn"):
+            for m, kw, n, _ in ring_chunks(label, ranks // mp, mp):
+                shapes += [(m, (32 * kw, n)), (m, (32 * kw - 5, n))]
+    shapes = list(dict.fromkeys(shapes))
+    cases = [(kind, m, s) for m, s in shapes for kind in ("popcount", "ternary")]
+    cases += [(kind, m, s) for m, s in ((37, (91, 10)), (130, (256, 33)),
+                                        (1024, (4096, 4096)))
+              for kind in ("popcount-ones", "popcount-apart", "ternary-nnz")]
+    return cases
+
+
 def head_cases() -> list:
     """The three integer heads, their int32 s and their logits, at the MLPs'
     and the abits-3 VGG's head shapes at batch 32 and 256 (D's with 1, 2, 3
@@ -840,20 +895,41 @@ def phase_build() -> None:
         if any(w in line for w in ("registers", "spill", "Compiling", "arning",
                                    "Performance")):
             log("build", line.strip())
-    for name, (whole, loop, steps) in mma_sass(_build.library_path()).items():
+    sass = mma_sass(_build.library_path())
+    for name, (whole, loop, steps) in sass.items():
         per_step = {op: round(c / steps, 2) for op, c in sorted(loop.items())}
         log("build", f"SASS {name}: K loop ({steps} steps an iteration) per "
             f"step {per_step}; whole function " + ", ".join(
                 f"{op} {whole[op]}" for op in (*MMA_OPS, "POPC", "LOP3")))
-        # every instance's K loop: wgmma, no popcount, no mma.sync
-        if not loop["IGMMA"] or loop["POPC"] or loop["IMMA"]:
+        popc_cap = POPCOUNT_GEMM_POPC.get(name[:1]) if "popcount_gemm" in name else None
+        if popc_cap is not None:
+            # B and C: single-bit wgmma, POPC only for the operand sums
+            if (not loop["BGMMA"] or loop["IGMMA"] or loop["IMMA"]
+                    or loop["POPC"] > popc_cap * steps):
+                raise AssertionError(f"SASS {name}: the K loop is not a single-bit "
+                                     f"wgmma loop with at most {popc_cap} POPC a "
+                                     f"step ({dict(loop)})")
+        # every int8 instance's K loop: wgmma, no popcount, no mma.sync
+        elif not loop["IGMMA"] or loop["POPC"] or loop["IMMA"]:
             raise AssertionError(f"SASS {name}: the K loop is not a wgmma loop "
                                  f"({dict(loop)})")
+    missing = [label for label in (f"{op} popcount_gemm copies of {v} B"
+                                   for op in POPCOUNT_GEMM_POPC for v in (4, 16))
+               if sass and label not in sass]
+    if missing:
+        raise AssertionError(f"SASS: no K loop found for {missing}")
 
 
 # SASS opcodes reported per K step of the tensor-core convs: the MMAs
-# (mma.sync is IMMA, wgmma on integers IGMMA) and the rest
-MMA_OPS = ("IMMA", "HGMMA", "IGMMA")
+# (mma.sync is IMMA, wgmma on integers IGMMA, on single bits BGMMA; a
+# wgmma.commit_group shows as an HGMMA on RZ) and the rest
+MMA_OPS = ("IMMA", "HGMMA", "IGMMA", "BGMMA")
+# the single-bit wgmma a warp issues per K step of kernels B and C
+# (popcount_gemm.cu: four k256 of each product), and the POPC a thread may
+# issue a step for the operand popcounts (B: a row of 32 words of x or w;
+# C: half a row of mask & sign), by label initial
+POPCOUNT_GEMM_K256 = {"B": 4, "C": 8}
+POPCOUNT_GEMM_POPC = {"B": 32, "C": 16}
 SASS_OPS = (*MMA_OPS, "POPC", "LOP3", "SHF", "IMAD", "IADD3", "LDSM", "LDS",
             "STS", "LDGSTS", "BAR", "WARPGROUP")
 
@@ -864,13 +940,14 @@ E_K32_PER_STEP = 4
 
 
 def mma_sass(library: Path) -> dict:
-    """{kernel instance (A, A' or D's planes, conv or dense, and KW; E's
-    copy width): (opcode Counter of the function, of its K loop, K steps an
-    iteration of that loop)} of each expand_mma_conv3x3_kernel,
-    expand_mma_dense_kernel and i8_conv3x3_kernel instance in the built
-    library, or {} without ``cuobjdump``.  The K loop is the innermost backward branch's range that
-    holds the most MMAs; a step issues KW IGMMA (wgmma) a warp, E's
-    E_K32_PER_STEP, or 16 times as many IMMA (mma.sync)."""
+    """{kernel instance (A, A' or D's planes, conv or dense, and KW; E's,
+    B's and C's copy width): (opcode Counter of the function, of its K loop,
+    K steps an iteration of that loop)} of each expand_mma_conv3x3_kernel,
+    expand_mma_dense_kernel, i8_conv3x3_kernel and popcount_gemm_kernel
+    instance in the built library, or {} without ``cuobjdump``.  The K loop
+    is the innermost backward branch's range that holds the most MMAs; a
+    step issues KW IGMMA (wgmma) a warp, E's E_K32_PER_STEP, B's and C's
+    POPCOUNT_GEMM_K256 BGMMA, or 16 times as many IMMA (mma.sync)."""
     from qnx_torch.experiments.vpu_probe import _cuobjdump
 
     tool = _cuobjdump()
@@ -884,7 +961,7 @@ def mma_sass(library: Path) -> dict:
         if head:
             name = (head.group(1) if any(k in head.group(1) for k in (
                 "expand_mma_conv3x3_kernel", "expand_mma_dense_kernel",
-                "i8_conv3x3_kernel")) else None)
+                "i8_conv3x3_kernel", "popcount_gemm_kernel")) else None)
             if name:
                 funcs[name] = []
             continue
@@ -909,6 +986,9 @@ def mma_sass(library: Path) -> dict:
         *first, last = (int(v) for v in re.findall(r"Li(\d+)E", name))
         if "i8_conv3x3_kernel" in name:
             label, k32 = f"E copies of {last} B", E_K32_PER_STEP
+        elif "popcount_gemm_kernel" in name:  # <kTernary, kVec>
+            op = "C" if "Lb1E" in name else "B"
+            label, k32 = f"{op} popcount_gemm copies of {last} B", POPCOUNT_GEMM_K256[op]
         else:
             ops = ("D P=" + str(first[0] or "any")
                    + (" corr" if "Lb1E" in name else "")  # kBorderTerm
@@ -967,7 +1047,7 @@ def phase_kernels(torch, err: dict) -> None:
               for kind in i8]
     cases += i8_activation_cases()
     cases += (ternary_vgg_cases() + plane_cases() + dense_cases() + head_cases()
-              + measured_cases())
+              + popcount_cases() + measured_cases())
     splits_seen = set()
     for kind, b, shape in cases:
         case = make_case(torch, rng, kind, b, shape)
@@ -992,7 +1072,7 @@ def phase_kernels(torch, err: dict) -> None:
 
 DENSE_NAMES = ("xnor_dense_fused", "ternary_dense_fused", "plane_dense_fused")
 # the kernels phase 7 also times as CUDA graph replays
-GRAPH_NAMES = (*DENSE_NAMES, *HEADS.values())
+GRAPH_NAMES = (*DENSE_NAMES, *HEADS.values(), "xnor_gemm_popcount", "ternary_gemm")
 
 
 def dense_split(torch, name: str, m: int, shape) -> int | None:
@@ -2007,7 +2087,7 @@ def phase_measure(torch) -> dict:
     just before and read just after.  The shootout holds every candidate
     against kernel B at its full shapes (B is held against its plain
     version in phase 3).  Returns the launch counts."""
-    from qnx_torch.bench import roofline
+    from qnx_torch.bench import roofline, tc_probe
     from qnx_torch.experiments import gemm_shootout, vpu_probe, xnor_sol_variants
     from qnx_torch.kernels import launch_counters
 
@@ -2018,11 +2098,14 @@ def phase_measure(torch) -> dict:
     shoot = gemm_shootout.main(**MEASURE_REPEATS)
     sol = xnor_sol_variants.main(**MEASURE_REPEATS)
     probe = vpu_probe.main(iters=16, repeats=3)
+    tc = tc_probe.main()  # each mode equal to its plain version first
     roof = roofline.main(**MEASURE_REPEATS)
     launches = {name: w.launches for name, w in counted.items()}
     log("measure", f"{len(shoot)} shootout rows ({sum(not r['fits'] for r in shoot)} "
         f"do not fit, every other equal to kernel B), {len(sol)} scan rows, "
-        f"{len(probe)} probe modes, {len(roof)} roofline rows in "
+        f"{len(probe)} probe modes, tensor-core probe "
+        + ", ".join(f"{r['mode']} {r['macs_per_s']:.4g} MAC/s" for r in tc)
+        + f" (b1 over s8 {tc[0]['b1_over_s8']:.3f}), {len(roof)} roofline rows in "
         f"{time.perf_counter() - t0:.1f} s; launches {launches}")
     missing = [name for name in MEASURED if not launches[name]]
     if missing:
@@ -2459,8 +2542,10 @@ def time_ring_chunks(torch, card: str, err: dict, rng, dp: int, mp: int) -> None
     """Kernel B alone at each ring chunk's shape: held equal to its plain
     version there (at the ring's k = 32 Kw, and on the first chunk also at
     k = 32 Kw - 5 with the pad bits 0), then timed against one
-    ``torch._int_mm`` on the same int8 product, with its bound (CUDA
-    events, 20 calls, median of 7)."""
+    ``torch._int_mm`` on the same int8 product, with its bound (the MACs at
+    the measured single-bit rate, or the bytes): CUDA events, 20 calls,
+    median of 7, and as CUDA graph replays, which leave the host's launch
+    out (a chunk's device time is under it)."""
     from qnx_torch.bench.roofline import H100_PEAKS
     from qnx_torch.experiments.gemm_shootout import random_words
     from qnx_torch.kernels.xnor_gemm import (xnor_gemm_popcount,
@@ -2475,15 +2560,19 @@ def time_ring_chunks(torch, card: str, err: dict, rng, dp: int, mp: int) -> None
                         xnor_gemm_popcount(a, b, k), xnor_gemm_popcount_ref(a, b, k),
                         False, f"mesh {dp}x{mp} {label} ring chunk ({m}, {kw}, {n}) "
                         f"k {k}")
-            kern = time_ms(torch, lambda: xnor_gemm_popcount(a, b, 32 * kw), 20)
-            lib = time_ms(torch, int_mm_call(torch, rng, m, 32 * kw, n), 20)
-            ops_ms = m * n * 32 * kw / H100_PEAKS["int8_macs"] * 1e3
+            call = lambda: xnor_gemm_popcount(a, b, 32 * kw)
+            lib_call = int_mm_call(torch, rng, m, 32 * kw, n)
+            kern, lib = time_ms(torch, call, 20), time_ms(torch, lib_call, 20)
+            g = graph_ms(call, lib_call)
+            ops_ms = m * n * 32 * kw / H100_PEAKS["b1_macs"] * 1e3
             bytes_ms = 4 * (m * kw + kw * n + m * n) / H100_PEAKS["hbm_bytes"] * 1e3
             log("parallel", f"{card} | mesh {dp}x{mp} {label} ring chunk "
                 f"(M {m}, Kw {kw}, N {n}) x {layers} layer(s) x {mp} chunks: "
                 f"kernel B {fmt(kern)}; library torch._int_mm ({m}, {32 * kw}, "
-                f"{n}) {fmt(lib)}; bound {max(ops_ms, bytes_ms):.5f} ms "
-                f"(operations {ops_ms:.5f}, bytes {bytes_ms:.5f})")
+                f"{n}) {fmt(lib)}; CUDA graph replays: kernel B "
+                f"{fmt_graph(g['kernel'])}, library {fmt_graph(g['library'])}; "
+                f"bound {max(ops_ms, bytes_ms):.5f} ms (single-bit operations "
+                f"{ops_ms:.5f}, bytes {bytes_ms:.5f})")
 
 
 def check_bringup(label: str, got: list, ref: dict) -> None:
@@ -2674,10 +2763,16 @@ def ab_shapes(kind: str) -> list:
     ``ternary_dense``, ``plane_dense-P-T``) at the VGG's dense layers and
     the MLPs' hidden layer, the head kinds (``head``, ``ternary_head``,
     ``plane_head-P``) at their head shape, the int32 s and the logits, the
-    conv kinds at the five VGG convs; a ``forward-PATH`` kind at its path."""
+    conv kinds at the five VGG convs; a ``forward-PATH`` kind at its path;
+    kernels B and C at wide N (``popcount``, ``ternary``) at (M, (K, N)):
+    1024x4096x4096 and the ring chunks of meshes 1x2 and 1x4."""
     prefix = kind.split("-")[0]
     if prefix == "forward":
         return [kind.split("-", 1)[1]]
+    if prefix in WIDE_KINDS:
+        return [SCAN] + [(m, (32 * kw, n)) for mp in (2, 4)
+                         for label in ("mnist_bnn", "cifar10_bnn")
+                         for m, kw, n, _ in ring_chunks(label, 1, mp)]
     if prefix in ("dense", "ternary_dense", "plane_dense"):
         return [*DENSE_SHAPES, MLP_HIDDEN]
     if prefix in HEADS:
@@ -2703,6 +2798,9 @@ def forward_case(torch, name: str):
     gold = golden(name)
     x = normalize_u8(cuda(torch, requests(cf, gold)[:TIME_BATCH]))
     return pack(init_variables(cf, seed=0), cf), x, gold["logits"]
+
+
+WIDE_KINDS = ("popcount", "ternary")  # --ab kinds whose shapes carry their M
 
 
 def ab_child(kinds: str, root: str) -> int:
@@ -2735,7 +2833,9 @@ def ab_child(kinds: str, root: str) -> int:
                     got, gold, rtol=LOGIT_RTOL,
                     atol=LOGIT_ATOL_REL * float(np.abs(gold).max())))
             else:
-                case = make_case(torch, rng, kind, TIME_BATCH, shape)
+                m, shape = (shape if kind.split("-")[0] in WIDE_KINDS
+                            else (TIME_BATCH, shape))
+                case = make_case(torch, rng, kind, m, shape)
                 kern = case.kern
                 row["equal"] &= bool(torch.equal(kern(), case.plain()))
             row["ms"].append(statistics.median(time_ms(torch, kern, 20)))
@@ -2765,7 +2865,8 @@ def ab(kinds: str, roots: list[str]) -> int:
             continue
         for kind, row in json.loads(proc.stdout.strip().splitlines()[-1]).items():
             shapes = ab_shapes(kind)
-            print(f"{card} | run {i} {root}: {kind} at batch {TIME_BATCH}, "
+            batch = "M as given" if kind.split("-")[0] in WIDE_KINDS else TIME_BATCH
+            print(f"{card} | run {i} {root}: {kind} at batch {batch}, "
                   f"shapes {shapes}: per call " + ", ".join(
                       f"{t:.4f}" for t in row["ms"]) + f" ms, sum "
                   f"{sum(row['ms']):.4f} ms; "

@@ -4,17 +4,21 @@
 For each hot kernel of the port this measures the marginal time
 (:mod:`qnx_torch.bench.microbench`, CUDA events, L2-warm) and holds it
 against the least time one H100 could take for the same work: the larger of
-its MACs at the int8 tensor-core rate and its bytes (each input read once,
-the output written once) at the device-memory rate, the bound
-``chip_smoke.py`` uses.  Every packed kernel's product fits the int8 tensor
-cores (±1 or level activations against ±1 or ternary weights), so each is
-held to that rate.  A second, labelled column holds the popcount kernels to
-the popc issue rate that ``qnx_torch.experiments.vpu_probe`` measured, the
-ceiling of a kernel that stays on the CUDA cores.  The fused dense
+its MACs at the rate of the tensor cores it runs on and its bytes (each
+input read once, the output written once) at the device-memory rate, the
+bound ``chip_smoke.py`` uses.  Every packed kernel's product fits the int8
+tensor cores (±1 or level activations against ±1 or ternary weights), so
+each is held to that rate, but kernels B and C at wide N, which run on the
+single-bit tensor cores: B one AND-popcount MAC a MAC, C two (against mask
+and against mask & sign), at the rate ``qnx_torch.bench.tc_probe``
+measured.  A second, labelled column holds the popcount kernels that stay on
+the CUDA cores to the popc issue rate that ``qnx_torch.experiments.vpu_probe``
+measured.  The fused dense
 kernels of A, A' and D (on the int8 tensor cores since they were
 redesigned) run in a few microseconds at the served batch of 256, less than
 a host launch through their Python wrappers, so they and their library
-call are timed as CUDA graph replays.
+call are timed as CUDA graph replays; so are B and C, whose calls at
+1024x4096x4096 take less device time than a host launch.
 
     python -m qnx_torch.bench.roofline          # table on stdout, JSON rows on stderr
 
@@ -39,6 +43,12 @@ H100_PEAKS = {
     "int8_macs": 1979e12 / 2,
     "bf16_macs": 989e12 / 2,
     "hbm_bytes": 3.35e12,
+    # single-bit MACs (wgmma m64n128k256 .b1.b1.and.popc) per second of the
+    # whole card, measured: qnx_torch.bench.tc_probe at 2048 -> 8192
+    # iterations on tiles in shared memory, 30,256 a clock a SM at the
+    # 1,980 MHz nvidia-smi read, 7.95x the s8 wgmma's 9.943e14 in the same
+    # run (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+    "b1_macs": 7.9076e15,
     # popc instructions per second of the whole card, measured: the `pc`
     # mode of qnx_torch.experiments.vpu_probe (kernel H) issued 15.84 popc
     # per clock per SM at the 1,980 MHz SM clock nvidia-smi read during the
@@ -108,15 +118,15 @@ def _nbytes(*tensors) -> int:
 
 
 def _measure(results: list, name: str, fn, inputs: list, macs: int, peak_key: str,
-             iters, repeats, device, popc_per_mac: float = 0.0,
-             graph: bool = False) -> None:
+             iters, repeats, device, ops_per_mac: float = 1.0,
+             popc_per_mac: float = 0.0, graph: bool = False) -> None:
     """Time ``fn()`` (``graph``: as CUDA graph replays) and append its
     :class:`KernelResult`; bytes are the inputs' and the output's."""
     out = fn()
     t = time_fn_marginal(fn, iters=iters, repeats=repeats, device=device,
                          graph=graph)
     results.append(KernelResult(name, t, macs, _nbytes(*inputs, out), peak_key,
-                                popc_per_mac=popc_per_mac))
+                                ops_per_mac=ops_per_mac, popc_per_mac=popc_per_mac))
 
 
 def measure_kernels(batch: int = 1024, iters: int | None = None,
@@ -126,7 +136,9 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
                     dense_batch: int = DENSE_BATCH,
                     device="cuda") -> list[KernelResult]:
     """Measure the port's hot kernels at the JAX report's shapes: kernels
-    B and C at ``batch`` x ``gemm_k`` x ``gemm_n``, E, A and A' at
+    B and C at ``batch`` x ``gemm_k`` x ``gemm_n`` (on the single-bit
+    tensor cores), beside G with one accumulator (B's former CUDA-core
+    layout, held to the popc ceiling too), E, A and A' at
     ``conv_shapes`` (default :data:`CONV_SHAPES`), beside ``torch._int_mm``
     on the same int8 products (the library GEMM alone, no gather, epilogue
     or pool: the counterpart of the JAX report's XLA rows) and a bf16
@@ -135,6 +147,7 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
     the fused dense kernels of A, A' and D (two planes, three thresholds)
     at ``dense_batch`` x ``dense_shapes`` (default :data:`DENSE_SHAPES`)
     beside ``torch._int_mm``, all four as CUDA graph replays."""
+    from qnx_torch.kernels.gemm_formulations import xnor_multiacc
     from qnx_torch.kernels.i8_conv_fused import i8_conv_fused, k_major
     from qnx_torch.kernels.plane_gemm import plane_dense_fused
     from qnx_torch.kernels.ternary_gemm import ternary_gemm
@@ -164,14 +177,18 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
              lambda: torch._int_mm(a8, b8t.t()), [a8, b8t], m * k * n,
              "int8_macs", **timing)
     xp, wp = dev(pack_bits_np(x8, -1)), dev(pack_bits_np(w8, 0))
-    _measure(out, f"popcount GEMM B {m}x{k}x{n}",
+    # B and C run under a host launch: CUDA graph replays
+    _measure(out, f"popcount GEMM B {m}x{k}x{n} [b1 tensor cores]",
              lambda: xnor_gemm_popcount(xp, wp, k), [xp, wp], m * k * n,
-             "int8_macs", popc_per_mac=1 / 32, **timing)
+             "b1_macs", graph=True, **timing)
+    _measure(out, f"popcount GEMM G nacc=1 {m}x{k}x{n} [CUDA cores: B's former "
+             f"layout]", lambda: xnor_multiacc(xp, wp, k, nacc=1), [xp, wp],
+             m * k * n, "int8_macs", popc_per_mac=1 / 32, **timing)
     wt = np.where(rng.random((k, n)) < 0.3, 0, w8).astype(np.float32)
     mask, sign, nnz = map(dev, pack_ternary_np(wt, 0))
-    _measure(out, f"ternary two-plane GEMM C {m}x{k}x{n}",
+    _measure(out, f"ternary two-plane GEMM C {m}x{k}x{n} [b1 tensor cores]",
              lambda: ternary_gemm(xp, mask, sign, nnz), [xp, mask, sign, nnz],
-             m * k * n, "int8_macs", popc_per_mac=1 / 32, **timing)
+             m * k * n, "b1_macs", ops_per_mac=2, graph=True, **timing)
 
     # the VGG's convs: the library GEMM alone, then E, A and A' fused
     for hw, cin, cout, pool, tag in CONV_SHAPES if conv_shapes is None else conv_shapes:

@@ -3,17 +3,19 @@
 
 At the JAX file's three shapes, at full size, and at the MNIST MLP head's
 (256 x 4096 x 10), it runs kernel B (the
-baseline, :func:`qnx_torch.kernels.xnor_gemm.xnor_gemm_popcount`), every
+baseline, :func:`qnx_torch.kernels.xnor_gemm.xnor_gemm_popcount`, on the
+single-bit tensor cores: :data:`BASELINE_ROUTE`), every
 geometry of the four formulations F1-F4
-(:mod:`qnx_torch.kernels.gemm_formulations`) and, as context, one
-``torch._int_mm`` on the unpacked ±1 int8 operands (a library GEMM with no
-packing).  Every candidate's output must equal B's; a geometry whose
-shared-memory strips do not fit prints as "does not fit", and any other
-error propagates.  Times are marginal and interleaved
+(:mod:`qnx_torch.kernels.gemm_formulations`, the CUDA cores) and, as
+context, one ``torch._int_mm`` on the unpacked ±1 int8 operands (a library
+GEMM with no packing).  Every candidate's output must equal B's; a geometry
+whose shared-memory strips do not fit prints as "does not fit", and any
+other error propagates.  Times are marginal and interleaved
 (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`); each row
-gives ms, TMAC/s, and the share of two bounds: the MACs at the int8
-tensor-core rate and the popc ceiling
-(:data:`qnx_torch.bench.roofline.H100_PEAKS`).
+gives ms, TMAC/s, and its share of the bounds of the units it runs on
+(:data:`qnx_torch.bench.roofline.H100_PEAKS`): F1-F4 the MACs at the int8
+tensor-core rate and the popc ceiling, the library the int8 rate, B the
+measured single-bit rate; a share that does not apply is None.
 
     python -m qnx_torch.experiments.gemm_shootout
 """
@@ -37,6 +39,8 @@ SHAPES = [("conv1-like", 262144, 1152, 128),
           ("dense-mlp", 4096, 4096, 4096),
           ("mnist-head", 256, 4096, 10)]
 BASELINE = "B popcount_gemm"
+BASELINE_ROUTE = ("wgmma m64n128k256 .b1.b1.and.popc, the single-bit tensor cores "
+                  "(csrc/popcount_gemm.cu)")
 LIBRARY = "torch._int_mm ±1 int8 (library, unpacked)"
 
 
@@ -109,11 +113,14 @@ def run_shape(name: str, m: int, k: int, n: int, *, iters: int, repeats: int,
                                         device=device, graph=graph)
     int8_s = macs / H100_PEAKS["int8_macs"]
     popc_s = macs / WORD / H100_PEAKS["popc_ops"]
+    b1_s = macs / H100_PEAKS["b1_macs"]
     for cname, r in res.items():
+        cuda_cores = cname not in (BASELINE, LIBRARY)
         rows.append({"shape": name, "candidate": cname, "fits": True,
                      "equal": True, "ms": r["t"] * 1e3, "tmacs": macs / r["t"] / 1e12,
-                     "int8_share": int8_s / r["t"],
-                     "popc_share": None if cname == LIBRARY else popc_s / r["t"],
+                     "int8_share": None if cname == BASELINE else int8_s / r["t"],
+                     "popc_share": popc_s / r["t"] if cuda_cores else None,
+                     "b1_share": b1_s / r["t"] if cname == BASELINE else None,
                      "spread": r["spread"], "unreliable": r["unreliable"],
                      "l2_warm": warm, "graph": graph})
     return rows
@@ -122,10 +129,12 @@ def run_shape(name: str, m: int, k: int, n: int, *, iters: int, repeats: int,
 def format_row(row: dict) -> str:
     if not row["fits"]:
         return f"{row['shape']:12s} {row['candidate']:44s}: does not fit ({row['note']})"
-    popc = "-" if row["popc_share"] is None else f"{row['popc_share']:.3f}"
+    share = lambda v, digits: "-" if v is None else f"{v:.{digits}f}"
     return (f"{row['shape']:12s} {row['candidate']:44s}: {row['ms']:9.4f} ms "
-            f"{row['tmacs']:7.2f} TMAC/s  int8-bound share {row['int8_share']:.4f}  "
-            f"popc-ceiling share {popc}  spread {row['spread']:.3f}"
+            f"{row['tmacs']:7.2f} TMAC/s  int8-bound share "
+            f"{share(row['int8_share'], 4)}  popc-ceiling share "
+            f"{share(row['popc_share'], 3)}  b1-bound share "
+            f"{share(row['b1_share'], 4)}  spread {row['spread']:.3f}"
             f"{'  UNRELIABLE' if row['unreliable'] else ''}"
             f"{'  L2-warm' if row['l2_warm'] else ''}"
             f"{'  CUDA graph' if row['graph'] else ''}  equal to B")
@@ -135,7 +144,8 @@ def main(shapes=SHAPES, iters: int = 16, repeats: int = 5, device="cuda") -> lis
     device = resolve_device(device)
     print(f"# gemm shootout on {device_label(device)}; marginal ms, interleaved, "
           f"{iters} calls x {repeats} rounds; L2-warm where the operands fit in "
-          f"50 MB", flush=True)
+          f"50 MB; the baseline {BASELINE} runs {BASELINE_ROUTE}, F1-F4 the "
+          f"CUDA cores", flush=True)
     rows = []
     for name, m, k, n in shapes:
         shape_rows = run_shape(name, m, k, n, iters=iters, repeats=repeats,

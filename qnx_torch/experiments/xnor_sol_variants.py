@@ -2,13 +2,17 @@
 of ``experiments/xnor_sol_variants.py``).
 
 Does the accumulator dependency chain limit the popcount loop?  At the JAX
-file's 1024 x 4096 x 4096 it runs kernel B (``base``), B's layout with 2
-and 4 independent accumulators per output (kernel G,
-:func:`qnx_torch.kernels.gemm_formulations.xnor_multiacc`) and the ternary
-kernel C at the JAX file's density (30% zeros), checks G against B first,
-then times all four interleaved.  One JSON row per variant, fastest first,
-with the JAX file's keys; ``vops_per_s_1e12`` counts the CUDA-core integer
-operations per packed word (xor, popc, add; and, for C, the mask's and).
+file's 1024 x 4096 x 4096 it runs the CUDA-core layout kernel B had until it
+moved to the single-bit tensor cores, with 1 (``acc1``, the baseline), 2 and
+4 independent accumulators per output (kernel G,
+:func:`qnx_torch.kernels.gemm_formulations.xnor_multiacc`), and beside them
+the tensor-core kernels B (``b_tensor_core``) and C
+(``ternary_tensor_core``, at the JAX file's density, 30% zeros); checks
+``acc2``, ``acc4`` and B against ``acc1`` first, then times all five
+interleaved as CUDA graph replays.  One JSON row per variant, fastest
+first, with the JAX file's keys; ``vops_per_s_1e12`` counts the CUDA-core
+integer operations per packed word (xor, popc, add), None for the
+tensor-core rows.
 
     python -m qnx_torch.experiments.xnor_sol_variants
 """
@@ -40,37 +44,42 @@ def main(m: int = M, k: int = K, n: int = N, iters: int = 16, repeats: int = 5,
     xp, wp = dev(pack_bits_np(x, -1)), dev(pack_bits_np(w, 0))
     mask, sign, nnz = map(dev, pack_ternary_np(wt, 0))
     targets = {
-        "base": (lambda a, b: xnor_gemm_popcount(a, b, k), (xp, wp)),
+        "acc1": (lambda a, b: xnor_multiacc(a, b, k, nacc=1), (xp, wp)),
         "acc2": (lambda a, b: xnor_multiacc(a, b, k, nacc=2), (xp, wp)),
         "acc4": (lambda a, b: xnor_multiacc(a, b, k, nacc=4), (xp, wp)),
-        "ternary": (lambda a, b: ternary_gemm(a, b, sign, nnz), (xp, mask)),
+        "b_tensor_core": (lambda a, b: xnor_gemm_popcount(a, b, k), (xp, wp)),
+        "ternary_tensor_core": (lambda a, b: ternary_gemm(a, b, sign, nnz),
+                                (xp, mask)),
     }
-    # correctness first
-    ref = xnor_gemm_popcount(xp, wp, k)
-    for name in ("acc2", "acc4"):
+    # correctness first, against the CUDA-core baseline
+    ref = xnor_multiacc(xp, wp, k, nacc=1)
+    for name in ("acc2", "acc4", "b_tensor_core"):
         fn, args = targets[name]
         if not torch.equal(fn(*args), ref):
-            raise AssertionError(f"{name}: output differs from base's")
+            raise AssertionError(f"{name}: output differs from acc1's")
     warm = l2_warm(xp, wp, ref)
     del ref
 
+    # graph replays: the tensor-core rows take less device time than a
+    # host launch through their wrappers
     res = time_fns_marginal_interleaved(targets, iters=iters, repeats=repeats,
-                                        device=device)
+                                        device=device, graph=True)
     macs = m * k * n
     rows = []
     for name, r in res.items():
-        ops_per_word = 4.0 if name == "ternary" else 3.0
+        cuda_cores = name.startswith("acc")  # xor, popc, add a word
         rows.append({
             "variant": name,
             "ms": r["t"] * 1e3,
             "tmacs": macs / r["t"] / 1e12,
             "spread": r["spread"],
-            "vops_per_s_1e12": macs / 32.0 * ops_per_word / r["t"] / 1e12,
+            "vops_per_s_1e12": (macs / 32.0 * 3.0 / r["t"] / 1e12 if cuda_cores
+                                else None),
             "unreliable": r["unreliable"],
         })
     rows.sort(key=lambda row: row["ms"])
     print(f"# xnor_sol_variants {m}x{k}x{n} on {device_label(device)}; marginal, "
-          f"interleaved, {iters} calls x {repeats} rounds"
+          f"interleaved, CUDA graph replays, {iters} calls x {repeats} rounds"
           f"{'; L2-warm: the operands fit in 50 MB' if warm else ''}", flush=True)
     for row in rows:
         print(json.dumps(row), flush=True)

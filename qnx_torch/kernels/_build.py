@@ -47,6 +47,7 @@ _SIGNATURES = {
     "qnx_gemm_lanered": [_P] * 3 + [_I] * 6 + [_P],
     "qnx_xnor_multiacc": [_P] * 3 + [_I] * 5 + [_P],
     "qnx_int_chain": [_P] * 3 + [_I] * 3 + [_P],
+    "qnx_tc_probe": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

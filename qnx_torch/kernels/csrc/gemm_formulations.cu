@@ -24,9 +24,9 @@
 //                          Kw words split across the lanes (coalesced loads
 //                          of x and wt), lanes reduced by __reduce_add_sync.
 //   multiacc<NACC>         experiments/xnor_sol_variants.py:xnor_multiacc
-//                          (G): B's lane-per-column layout
-//                          (popcount_rows.cuh) with NACC independent
-//                          accumulators per output.
+//                          (G): the lane-per-column layout B had on the CUDA
+//                          cores (popcount_rows.cuh) with NACC independent
+//                          accumulators per output; NACC = 1 is that layout.
 //
 // Every one is bound by popc issue, one popc per 32 MACs, at 16 popc per
 // clock per SM (compute capability 9.0); xor and add issue beside it.  The
@@ -369,7 +369,7 @@ cudaError_t launch_lanered(const unsigned* xp, const unsigned* wt, int* out,
 
 // ------------------------------------------------------------- G multiacc
 
-// B's grid and block (dense_grid, (32, kWarpsPerBlock)): one lane per
+// B's former grid and block (dense_grid, (32, kWarpsPerBlock)): one lane per
 // column, kDenseRows rows per thread; word i adds into accumulator i % NACC
 // (a ragged tail into the first), summed at the end.
 template <int NACC>
@@ -469,6 +469,7 @@ int qnx_gemm_lanered(const void* xp, const void* wp, void* out, int m, int kw,
 
 int qnx_xnor_multiacc(const void* xp, const void* wp, void* out, int m, int kw,
                       int n, int k, int nacc, void* stream) {
+  if (nacc == 1) return launch_multiacc<1>(QNX_ARGS);
   if (nacc == 2) return launch_multiacc<2>(QNX_ARGS);
   if (nacc == 4) return launch_multiacc<4>(QNX_ARGS);
   return cudaErrorInvalidValue;

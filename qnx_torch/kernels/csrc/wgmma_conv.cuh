@@ -3,7 +3,9 @@
 // i8_conv_fused.cu (kernel E) share: cp.async copies into shared memory,
 // wgmma.mma_async on K-major shared-memory tiles (the packed kernels' in
 // the canonical no-swizzle layout, E's with the 128-byte swizzle), and the
-// quad-major order of the GEMM rows.
+// quad-major order of the GEMM rows.  The binary popcount GEMM
+// (popcount_gemm.cu) and the tensor-core probe (tc_probe.cu) take the
+// copies, the swizzled tiles and the single-bit wgmma from here too.
 //
 // Rows (M) are output pixels in quad-major order: four consecutive rows are
 // one 2x2 window, so a fused 2x2 pool is two __shfl_xor_sync over the lanes
@@ -111,17 +113,18 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* smem) {
                  (kSwizzleAlign - 1));
 }
 
-// d (64 rows of this warpgroup x 128 channels) += a * b, 32 k, both from
-// shared-memory tiles: u8 x s8 (kU8) or s8 x s8.  Accumulator 4j + 2r + e
-// of lane (g = lane / 4, t = lane % 4) of warp w of the warpgroup is row
-// 16 w + g + 8 r, channel 8 j + 2 t + e.
+// d (64 rows of this warpgroup x 128 channels) += a * b, both from
+// shared-memory tiles: 32 k of u8 x s8 (kU8) or s8 x s8, or 256 k of single
+// bits, AND then popcount (wgmma_b1_k256).  Either reads 32 bytes of each
+// K-major row.  Accumulator 4j + 2r + e of lane (g = lane / 4, t = lane % 4)
+// of warp w of the warpgroup is row 16 w + g + 8 r, channel 8 j + 2 t + e.
 #define QNX_D8(i)                                                          \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),              \
       "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-#define QNX_WGMMA_M64N128K32(TYPES)                                          \
+#define QNX_WGMMA_M64N128(SHAPE_TYPES)                                       \
   asm volatile(                                                              \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32." TYPES " {"              \
+      "wgmma.mma_async.sync.aligned.m64n128" SHAPE_TYPES " {"                \
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
@@ -134,12 +137,17 @@ template <bool kU8>
 __device__ __forceinline__ void wgmma_k32(int (&d)[64], uint64_t desc_a,
                                           uint64_t desc_b) {
   if constexpr (kU8) {
-    QNX_WGMMA_M64N128K32("u8.s8");
+    QNX_WGMMA_M64N128("k32.s32.u8.s8");
   } else {
-    QNX_WGMMA_M64N128K32("s8.s8");
+    QNX_WGMMA_M64N128("k32.s32.s8.s8");
   }
 }
-#undef QNX_WGMMA_M64N128K32
+
+__device__ __forceinline__ void wgmma_b1_k256(int (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  QNX_WGMMA_M64N128("k256.s32.b1.b1.and.popc");
+}
+#undef QNX_WGMMA_M64N128
 #undef QNX_D8
 
 // The pixel of GEMM row m: window (bi, qy, qx), position p in it (rows

@@ -17,8 +17,8 @@ exactly, through another schedule, written by hand for Hopper in
   loads, the chunk's popcounts summed;
 * :func:`gemm_lanered` (F4, ``v_lanered``): the dot form against the
   transposed weights ``wpt`` (N, Kw), the words split across a warp's lanes;
-* :func:`xnor_multiacc` (G): B's lane-per-column layout with ``nacc``
-  independent accumulators.
+* :func:`xnor_multiacc` (G): the lane-per-column layout B had on the CUDA
+  cores with ``nacc`` independent accumulators; ``nacc=1`` is that layout.
 
 One plain version serves all five: :func:`xnor_gemm_popcount_ref`.  Each
 wrapper runs it only for a CPU tensor; for a CUDA tensor it launches its
@@ -47,7 +47,7 @@ CHUNK3D_GEOMETRIES = ((64, 64, 4), (64, 64, 8), (64, 64, 16), (128, 128, 4),
 #: (rows, cols) per warp of :func:`gemm_lanered`
 LANERED_GEOMETRIES = ((1, 16), (1, 8), (4, 8))
 #: accumulators per output of :func:`xnor_multiacc`
-NACCS = (2, 4)
+NACCS = (1, 2, 4)
 #: shared memory one block of an H100 may opt in to (227 KiB)
 SMEM_LIMIT = 232448
 
@@ -137,7 +137,8 @@ def gemm_lanered(xp: torch.Tensor, wpt: torch.Tensor, k: int, rows: int = 1,
 
 def xnor_multiacc(xp: torch.Tensor, wp: torch.Tensor, k: int,
                   nacc: int = 2) -> torch.Tensor:
-    """G: kernel B's layout with ``nacc`` independent accumulators."""
+    """G: kernel B's former CUDA-core layout with ``nacc`` independent
+    accumulators (1: that layout)."""
     if not _check("xnor_multiacc", xp, wp, 0, (nacc,), tuple((a,) for a in NACCS)):
         return xnor_gemm_popcount_ref(xp, wp, k)
     return _launch("qnx_xnor_multiacc", xnor_multiacc, xp, wp, wp.shape[1], k, nacc)

@@ -8,7 +8,10 @@ sign bits:
     s[m, n] = nnz[n] - 2 * sum_kw popcount(mask[kw, n] & (xp[m, kw] ^ sign[kw, n]))
 
 Two wrappers launch two CUDA kernels: :func:`ternary_gemm`, the GEMM of
-``csrc/popcount_gemm.cu`` at wide N (the measurement path), and
+``csrc/popcount_gemm.cu`` at wide N (the measurement path) on the
+single-bit tensor cores, ``s = nnz - 2 P_m - 2 c_ms + 4 P_ms`` with P_m,
+P_ms the AND-popcount products of x against mask and against mask & sign
+and c_ms the column popcount of mask & sign, and
 :func:`ternary_head`, ``csrc/popcount_head.cu``'s ternary logit head
 (``TernaryDenseLogits``: int32 s or the logits ``a * s + c`` in one launch,
 on the weight planes K-major).  Each launches its kernel for a CUDA tensor
@@ -21,7 +24,7 @@ import torch
 
 from qnx_torch.ops.packing import WORD, unpack_bits
 from . import _build
-from .xnor_gemm import affine, check_head, head_out, k_major
+from .xnor_gemm import affine, check_and_products, check_head, head_out, k_major
 
 
 def ternary_gemm_ref(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
@@ -59,6 +62,7 @@ def ternary_gemm(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
       nnz:  (N,) int32 nonzero count of each weight column.
     """
     check_planes("ternary_gemm", xp, mask, sign, nnz)
+    check_and_products("ternary_gemm", xp.shape[1])
     if not _build.check_operands("ternary_gemm", xp, mask=mask, sign=sign, nnz=nnz):
         return ternary_gemm_ref(xp, mask, sign, nnz)
     (m, kw), n = xp.shape, mask.shape[1]

@@ -7,7 +7,9 @@ with k the true (unpadded) reduction length; pad bits are 0 in both
 operands, so they XOR to 0.  Two wrappers launch two CUDA kernels:
 
 * :func:`xnor_gemm_popcount`, ``csrc/popcount_gemm.cu``: the GEMM at wide N
-  (the measurement path);
+  (the TP ring's chunks and the measurement path) on the single-bit tensor
+  cores, ``s = k - 2 (rx + cw) + 4 P`` with P the AND-popcount product and
+  rx, cw the operands' row and column popcounts;
 * :func:`xnor_head`, ``csrc/popcount_head.cu``: the binary logit head
   (``PackedDenseLogits``), int32 s or the logits ``a * s + c`` in one
   launch, on the weights K-major (:func:`k_major`).
@@ -43,6 +45,15 @@ def xnor_gemm_popcount_ref(xp: torch.Tensor, wp: torch.Tensor,
     return _dot_to_s(x @ w, kw, k)
 
 
+def check_and_products(name: str, kw: int) -> None:
+    """The single-bit tensor-core GEMMs (``csrc/popcount_gemm.cu``) add
+    ``4 P`` with P up to ``32 kw``: refuse a Kw whose ``128 kw`` does not
+    fit an int32."""
+    if 4 * WORD * kw >= 2**31:
+        raise ValueError(f"{name}: Kw={kw} words: 4 P up to {4 * WORD * kw} does "
+                         "not fit the kernel's int32 sums")
+
+
 def xnor_gemm_popcount(xp: torch.Tensor, wp: torch.Tensor, k: int) -> torch.Tensor:
     """Packed binary GEMM -> (M, N) int32 exact ±1 dot products.
 
@@ -55,6 +66,7 @@ def xnor_gemm_popcount(xp: torch.Tensor, wp: torch.Tensor, k: int) -> torch.Tens
     if wp.dim() != 2 or wp.shape[0] != kw:
         raise ValueError(f"xnor_gemm_popcount: xp {tuple(xp.shape)} and wp "
                          f"{tuple(wp.shape)} disagree on Kw")
+    check_and_products("xnor_gemm_popcount", kw)
     n = wp.shape[1]
     if not _build.check_operands("xnor_gemm_popcount", xp, wp=wp):
         return xnor_gemm_popcount_ref(xp, wp, k)

@@ -169,6 +169,10 @@ def test_shootout_on_the_cpu_route():
     assert by_name["outer-128x128"]["fits"] and by_name["outer-128x128"]["equal"]
     assert all(np.isfinite(r["ms"]) for r in rows if r["fits"])
     assert by_name[gemm_shootout.LIBRARY]["popc_share"] is None
+    # B runs on the single-bit tensor cores: held to their measured rate only
+    base = by_name[gemm_shootout.BASELINE]
+    assert base["popc_share"] is None and base["int8_share"] is None
+    assert base["b1_share"] > 0 and by_name["outer-128x128"]["b1_share"] is None
 
 
 def test_experiments_raise_without_a_card():
@@ -187,7 +191,10 @@ def test_sol_variants_on_the_cpu_route():
     from qnx_torch.experiments import xnor_sol_variants
 
     rows = xnor_sol_variants.main(m=24, k=160, n=40, iters=2, repeats=1, device="cpu")
-    assert {r["variant"] for r in rows} == {"base", "acc2", "acc4", "ternary"}
+    assert {r["variant"] for r in rows} == {"acc1", "acc2", "acc4", "b_tensor_core",
+                                            "ternary_tensor_core"}
     for r in rows:
         assert set(r) >= {"variant", "ms", "tmacs", "spread", "vops_per_s_1e12"}
+        # CUDA-core integer operations only where the variant runs there
+        assert (r["vops_per_s_1e12"] is None) == r["variant"].endswith("tensor_core")
     assert [r["ms"] for r in rows] == sorted(r["ms"] for r in rows)
