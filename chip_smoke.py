@@ -51,10 +51,11 @@ Phases:
 2. build: compile the kernels, with the ptxas register and spill report
    and the SASS counts per K step of the tensor-core kernels' K loops (the
    A, A', D and E convs and the A, A' and D dense layers: IGMMA, POPC,
-   LOP3, LDGSTS, ...; kernels B and C at wide N: BGMMA); the int8 ones must
-   issue IGMMA and no POPC or IMMA there, B and C the single-bit BGMMA and
-   no more POPC than their operand popcounts take (32 a thread a step for
-   B, 16 for C: none per word pair);
+   LOP3, LDGSTS, ...; kernels B and C at wide N, F4 and G: BGMMA); the int8
+   ones must issue IGMMA and no POPC or IMMA there, B, C, F4 and G the
+   single-bit BGMMA and no more POPC than their operand popcounts take (32
+   a thread a step for B, F4 and G, 16 for C: none per word pair), F4 its
+   tiles by TMA (UTMALDG) and no LDGSTS (B's transposing copies);
 3. kernels: each of the eighteen kernels against its plain PyTorch version
    on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
@@ -81,7 +82,10 @@ Phases:
    count and sign bits outside the mask;
    F1-F4 and G at every geometry the shootout sweeps on ragged M and K
    with N = 1, 10, 33, 128, the MNIST head and 1024x4096x4096 (a geometry
-   that does not fit is logged as such); H in each mode and compiled
+   that does not fit is logged as such), F4 and G (single-bit tensor
+   cores) also at Kw = 2, 3, 9, 17 (F4's padded route), N = 130, the
+   shootout's four full shapes and with all-ones and all-zero words; H in
+   each mode and compiled
    length with the int32 extremes in both operands: packed words, planes,
    int32 s and int8 codes must be equal;
 4. slice: for each path, 600 uint8 requests through the engine; every
@@ -143,9 +147,10 @@ Phases:
    256 and 1024, with CUDA events, and the relu ``qnn`` VGG against the
    same twin in the same turns; E in each served encoding (pm1, levels,
    zo, tanh, grid weights) and D's conv with the border term and without;
-   the dense kernels, the integer heads, B and C at wide N
+   the dense kernels, the integer heads, B and C at wide N, F4 and G
    and their library calls also as CUDA graph replays, which leave out the
-   host's launch;
+   host's launch; B, every geometry of F4 and G and ``_int_mm`` at
+   1024x4096x4096 in one interleaved group, graph replays and per call;
 9. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches, of those paths and of the five paths
@@ -192,7 +197,9 @@ P planes, their int32 s and their logits, at the MLPs' and the abits-3
 VGG's head shapes; ``forward-PATH`` for the whole forward of the path
 ``mnist_bnn``, ``mnist_tnn`` or ``cifar10_tnn_a3``; ``popcount`` and
 ``ternary`` for kernels B and C at wide N, at 1024x4096x4096 and at the
-ring chunks of meshes 1x2 and 1x4, each at its own M) at batch 256 on the
+ring chunks of meshes 1x2 and 1x4, each at its own M; a formulation's
+kind, ``lanered-n128-s3`` or ``multiacc-2``, at 1024x4096x4096) at batch
+256 on the
 same seeded operands (E's K-major weights made beforehand where the
 checkout's wrapper takes them), per call and (but for a forward) as CUDA
 graph replays.  Run it as parent, change, change, parent.
@@ -249,10 +256,9 @@ MLP_HIDDEN = (4096, 4096)
 MLP_HEAD = (4096, 10)
 PLANE_HEAD = (1024, 10)
 SCAN = (1024, (4096, 4096))  # the JAX package's packed GEMM scan shape
-# each formulation's kind timed at SCAN: the wrappers' default geometries,
-# and G's faster accumulator count
+# each formulation's kind timed at SCAN: the wrappers' default geometries
 MEASURED_TIMED = ("outer-128x128", "outer_acc-128x128x16", "chunk3d-64x64x4",
-                  "lanered-1x16", "multiacc-4")
+                  "lanered-n128-s3", "multiacc-2")
 PROBE_SHAPE = (4096, 1024)  # vpu_probe's BLOCK (256, 1024) x GRID 16
 # the measurement phase's reduced repeats (the experiments' defaults are
 # 16 x 5 and, for the probe, 64 x 3)
@@ -527,7 +533,10 @@ class Case:
         tensor cores' s8 x s8 and u8 x s8 MMA take, so each counts one int8
         MAC per real MAC whatever its planes; kernels B and C at wide N run
         on the single-bit tensor cores at their measured rate, B one
-        AND-popcount MAC a MAC, C two (against mask and mask & sign)."""
+        AND-popcount MAC a MAC, C two (against mask and mask & sign); the
+        formulations F1-F4 and G compute B's function, so B's bound is
+        theirs (F4 and G run on those cores; F1-F3, on the CUDA cores, are
+        held to their popc ceiling in the shootout too)."""
         from qnx_torch.bench.roofline import H100_PEAKS
 
         nbytes = sum(t.numel() * t.element_size() for t in [*self.inputs, out])
@@ -703,7 +712,7 @@ def head_case(torch, rng, kind: str, b: int, shape) -> Case:
 
 # kind prefix of make_case -> the KERNELS name, also its wrapper's in
 # qnx_torch.kernels.gemm_formulations; the geometry follows the prefix as
-# BMxBN[xBK|xKC], RxC or NACC
+# BMxBN[xBK|xKC], nBN-sSTAGES (gemm_formulations.lanered_name) or NACC
 FORMULATIONS = {"outer": "gemm_outer", "outer_acc": "gemm_outer_acc",
                 "chunk3d": "gemm_chunk3d", "lanered": "gemm_lanered",
                 "multiacc": "xnor_multiacc"}
@@ -711,10 +720,13 @@ FORMULATIONS = {"outer": "gemm_outer", "outer_acc": "gemm_outer_acc",
 
 def measured_case(torch, rng, kind: str, m, shape) -> Case:
     """A :class:`Case` of the measurement path's kernels: a formulation of
-    the popcount GEMM, ``outer-256x128`` or ``multiacc-2`` (shape (K, N),
-    seeded words with zero pad bits, the plain version kernel B's), or
-    ``int_chain-MODE-REPS`` (shape of the elements, the int32 extremes in
-    both operands; no library call computes it)."""
+    the popcount GEMM, ``outer-256x128``, ``lanered-n128-s3`` or
+    ``multiacc-2`` (shape (K, N), seeded words with zero pad bits, or (K, N,
+    "ones" | "apart"): all-ones words against all-ones or all-zero ones, s =
+    +-k; the plain version kernel B's; bound at the single-bit tensor cores'
+    rate, since each computes B's function, whose least time on the card is
+    B's), or ``int_chain-MODE-REPS`` (shape of the elements, the int32
+    extremes in both operands; no library call computes it)."""
     from qnx_torch.experiments.gemm_shootout import random_words
     from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels import int_probe as P
@@ -732,15 +744,22 @@ def measured_case(torch, rng, kind: str, m, shape) -> Case:
         return Case("int_chain", lambda: P.int_chain(x, y, mode, reps),
                     lambda: P.int_chain_ref(x, y, mode, reps), False, [x, y], 0, None)
     name = FORMULATIONS[prefix]
-    g = [int(v) for v in geometry.split("x")]
-    k, n = shape
-    xp = cuda(torch, random_words(rng, m, k))
-    wp = cuda(torch, random_words(rng, n, k, along_rows=True))
+    g = [int(v) for v in re.findall(r"\d+", geometry)]
+    k, n, *fill = shape
+    if fill:  # all-ones words, pad bits 0: s = k, or -k against all-zero
+        from qnx_torch.ops.packing import pack_bits_np
+
+        xp, wp = (cuda(torch, pack_bits_np(np.full(s, v, np.float32), axis))
+                  for s, v, axis in (((m, k), 1.0, -1),
+                                     ((k, n), 1.0 if fill == ["ones"] else -1.0, 0)))
+    else:
+        xp = cuda(torch, random_words(rng, m, k))
+        wp = cuda(torch, random_words(rng, n, k, along_rows=True))
     w = wp.t().contiguous() if prefix == "lanered" else wp
     fn = getattr(G, name)
     return Case(name, lambda: fn(xp, w, k, *g),
                 lambda: xnor_gemm_popcount_ref(xp, wp, k), False, [xp, w],
-                m * k * n, (m, k, n))
+                m * k * n, (m, k, n), peak="b1_macs")
 
 
 # (M, (K, N)): ragged M and K (k % 32 != 0), N = 1, 10, 33, 128, the MNIST
@@ -796,19 +815,41 @@ def head_cases() -> list:
     return cases
 
 
+# (M, (K, N)) at which F4 and G (on the single-bit tensor cores) are also
+# held: Kw = 2, 3, 9, 17 (F4's padded route: Kw % 4 != 0; RAGGED_SHAPES has
+# Kw = 5 and 125 too), two K steps with N = 130, and the shootout's four
+# full shapes (qnx_torch/experiments/gemm_shootout.py:SHAPES)
+TC_FORMULATION_SHAPES = [(5, (64, 1)), (37, (91, 10)), (130, (283, 33)),
+                         (9, (540, 130)), (200, (2048, 130)),
+                         (262144, (1152, 128)), (65536, (2304, 256)),
+                         (4096, (4096, 4096)), (256, (4096, 10))]
+
+
+def tc_formulation_kinds() -> list:
+    """Every compiled geometry of F4 and of G."""
+    from qnx_torch.kernels import gemm_formulations as G
+
+    return ([G.lanered_name(bn, st) for bn, st in G.LANERED_GEOMETRIES]
+            + [f"multiacc-{a}" for a in G.NACCS])
+
+
 def measured_cases() -> list:
     """F1-F4 and G at every geometry the shootout sweeps, on
-    :data:`RAGGED_SHAPES` (zero pad bits); H in every mode at every compiled
-    length on a ragged count of elements."""
+    :data:`RAGGED_SHAPES` (zero pad bits); F4 and G also at
+    :data:`TC_FORMULATION_SHAPES` and with all-ones and all-zero words; H
+    in every mode at every compiled length on a ragged count of elements."""
     from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels.int_probe import MODES, REPS
 
     kinds = [f"outer-{bm}x{bn}" for bm, bn in G.OUTER_GEOMETRIES]
     kinds += [f"outer_acc-{bm}x{bn}x{bk}" for bm, bn, bk in G.OUTER_ACC_GEOMETRIES]
     kinds += [f"chunk3d-{bm}x{bn}x{kc}" for bm, bn, kc in G.CHUNK3D_GEOMETRIES]
-    kinds += [f"lanered-{r}x{c}" for r, c in G.LANERED_GEOMETRIES]
-    kinds += [f"multiacc-{a}" for a in G.NACCS]
+    kinds += tc_formulation_kinds()
     cases = [(kind, m, s) for kind in kinds for m, s in RAGGED_SHAPES]
+    cases += [(kind, m, s) for kind in tc_formulation_kinds()
+              for m, s in TC_FORMULATION_SHAPES]
+    cases += [(kind, m, (k, 33, fill)) for kind in tc_formulation_kinds()
+              for m, k in ((37, 91), (130, 4096)) for fill in ("ones", "apart")]
     return cases + [(f"int_chain-{mode}-{reps}", None, (37, 29))
                     for mode in MODES for reps in REPS]
 
@@ -901,37 +942,67 @@ def phase_build() -> None:
         log("build", f"SASS {name}: K loop ({steps} steps an iteration) per "
             f"step {per_step}; whole function " + ", ".join(
                 f"{op} {whole[op]}" for op in (*MMA_OPS, "POPC", "LOP3")))
-        popc_cap = POPCOUNT_GEMM_POPC.get(name[:1]) if "popcount_gemm" in name else None
+        popc_cap = POPCOUNT_GEMM_POPC.get(name.split()[0]) if "popcount_gemm" in name else None
         if popc_cap is not None:
-            # B and C: single-bit wgmma, POPC only for the operand sums
+            # B, C, F4 and G: single-bit wgmma, POPC only for the operand sums
             if (not loop["BGMMA"] or loop["IGMMA"] or loop["IMMA"]
                     or loop["POPC"] > popc_cap * steps):
                 raise AssertionError(f"SASS {name}: the K loop is not a single-bit "
                                      f"wgmma loop with at most {popc_cap} POPC a "
                                      f"step ({dict(loop)})")
+            # F4: both tiles by TMA, none of the staged fill's LDGSTS
+            if name.startswith("F4") and (not loop["UTMALDG"] or loop["LDGSTS"]):
+                raise AssertionError(f"SASS {name}: the K loop does not load its "
+                                     f"tiles by TMA alone ({dict(loop)})")
         # every int8 instance's K loop: wgmma, no popcount, no mma.sync
         elif not loop["IGMMA"] or loop["POPC"] or loop["IMMA"]:
             raise AssertionError(f"SASS {name}: the K loop is not a wgmma loop "
                                  f"({dict(loop)})")
-    missing = [label for label in (f"{op} popcount_gemm copies of {v} B"
-                                   for op in POPCOUNT_GEMM_POPC for v in (4, 16))
-               if sass and label not in sass]
+    missing = [label for label in popcount_gemm_labels() if sass and label not in sass]
     if missing:
         raise AssertionError(f"SASS: no K loop found for {missing}")
 
 
 # SASS opcodes reported per K step of the tensor-core convs: the MMAs
 # (mma.sync is IMMA, wgmma on integers IGMMA, on single bits BGMMA; a
-# wgmma.commit_group shows as an HGMMA on RZ) and the rest
+# wgmma.commit_group shows as an HGMMA on RZ) and the rest (a TMA load is
+# UTMALDG, an mbarrier wait a SYNCS)
 MMA_OPS = ("IMMA", "HGMMA", "IGMMA", "BGMMA")
-# the single-bit wgmma a warp issues per K step of kernels B and C
-# (popcount_gemm.cu: four k256 of each product), and the POPC a thread may
-# issue a step for the operand popcounts (B: a row of 32 words of x or w;
-# C: half a row of mask & sign), by label initial
-POPCOUNT_GEMM_K256 = {"B": 4, "C": 8}
-POPCOUNT_GEMM_POPC = {"B": 32, "C": 16}
+# the single-bit wgmma a warp issues per K step of the popcount_gemm.cuh
+# instances (four k256 of each product), and the POPC a thread may issue a
+# step for the operand popcounts (B, F4, G: a row of 32 words of x or w; C:
+# half a row of mask & sign), by label's first word
+POPCOUNT_GEMM_K256 = {"B": 4, "C": 8, "F4": 4, "G": 4}
+POPCOUNT_GEMM_POPC = {"B": 32, "C": 16, "F4": 32, "G": 32}
 SASS_OPS = (*MMA_OPS, "POPC", "LOP3", "SHF", "IMAD", "IADD3", "LDSM", "LDS",
-            "STS", "LDGSTS", "BAR", "WARPGROUP")
+            "STS", "LDGSTS", "UTMALDG", "SYNCS", "BAR", "WARPGROUP")
+
+
+def popcount_gemm_label(name: str) -> str:
+    """The label of a popcount_gemm.cuh kernel instance from its mangled
+    name: ``popcount_gemm_tma_kernel<kBN, kStages>`` is F4's, by its
+    columns and stages; ``popcount_gemm_kernel<kTernary, kVec, kNacc, kBN,
+    kStages>`` B's and C's at wide N by their copy width, G's by its sets
+    (G with one set is B's instance)."""
+    args = [int(v) for _, v in re.findall(r"L([bi])(\d+)E", name)]
+    if "popcount_gemm_tma_kernel" in name:
+        bn, stages = args
+        return f"F4 popcount_gemm n{bn} s{stages}"
+    ternary, vec, nacc, bn, stages = args
+    if nacc > 1:
+        return f"G popcount_gemm nacc={nacc} n{bn} s{stages} copies of {vec} B"
+    return f"{'C' if ternary else 'B'} popcount_gemm copies of {vec} B"
+
+
+def popcount_gemm_labels() -> list:
+    """Every popcount_gemm_kernel instance the library must hold."""
+    from qnx_torch.kernels import gemm_formulations as G
+
+    labels = [f"{op} popcount_gemm copies of {v} B" for op in "BC" for v in (4, 16)]
+    labels += [f"F4 popcount_gemm n{bn} s{st}" for bn, st in G.LANERED_GEOMETRIES]
+    return labels + [f"G popcount_gemm nacc={a} n{bn} s{st} copies of {v} B"
+                     for a, (bn, st) in G.MULTIACC_TILING.items() if a > 1
+                     for v in (4, 16)]
 
 
 # the wgmma k32 a warp issues per K step of kernel E (i8_conv_fused.cu's
@@ -941,13 +1012,15 @@ E_K32_PER_STEP = 4
 
 def mma_sass(library: Path) -> dict:
     """{kernel instance (A, A' or D's planes, conv or dense, and KW; E's,
-    B's and C's copy width): (opcode Counter of the function, of its K loop,
+    B's and C's copy width; F4's and G's tiling, :func:`popcount_gemm_label`):
+    (opcode Counter of the function, of its K loop,
     K steps an iteration of that loop)} of each expand_mma_conv3x3_kernel,
-    expand_mma_dense_kernel, i8_conv3x3_kernel and popcount_gemm_kernel
-    instance in the built library, or {} without ``cuobjdump``.  The K loop
-    is the innermost backward branch's range that holds the most MMAs; a
-    step issues KW IGMMA (wgmma) a warp, E's E_K32_PER_STEP, B's and C's
-    POPCOUNT_GEMM_K256 BGMMA, or 16 times as many IMMA (mma.sync)."""
+    expand_mma_dense_kernel, i8_conv3x3_kernel, popcount_gemm_kernel and
+    popcount_gemm_tma_kernel instance in the built library, or {} without
+    ``cuobjdump``.  The K loop is the innermost backward branch's range
+    that holds the most MMAs; a step issues KW IGMMA (wgmma) a warp, E's
+    E_K32_PER_STEP, the popcount_gemm instances' POPCOUNT_GEMM_K256 BGMMA,
+    or 16 times as many IMMA (mma.sync)."""
     from qnx_torch.experiments.vpu_probe import _cuobjdump
 
     tool = _cuobjdump()
@@ -961,7 +1034,8 @@ def mma_sass(library: Path) -> dict:
         if head:
             name = (head.group(1) if any(k in head.group(1) for k in (
                 "expand_mma_conv3x3_kernel", "expand_mma_dense_kernel",
-                "i8_conv3x3_kernel", "popcount_gemm_kernel")) else None)
+                "i8_conv3x3_kernel", "popcount_gemm_kernel",
+                "popcount_gemm_tma_kernel")) else None)
             if name:
                 funcs[name] = []
             continue
@@ -981,14 +1055,14 @@ def mma_sass(library: Path) -> dict:
                  if op == "BRA" and lo is not None and lo < hi]
         if not loops or not max(loops)[0]:
             continue
-        mma, _, lo, hi = max(loops)  # the most MMAs, then the shortest range
+        _, _, lo, hi = max(loops)  # the most MMAs, then the shortest range
         loop = Counter(op for a, op, _ in code if lo <= a <= hi and op in SASS_OPS)
         *first, last = (int(v) for v in re.findall(r"Li(\d+)E", name))
         if "i8_conv3x3_kernel" in name:
             label, k32 = f"E copies of {last} B", E_K32_PER_STEP
-        elif "popcount_gemm_kernel" in name:  # <kTernary, kVec>
-            op = "C" if "Lb1E" in name else "B"
-            label, k32 = f"{op} popcount_gemm copies of {last} B", POPCOUNT_GEMM_K256[op]
+        elif "popcount_gemm" in name:
+            label = popcount_gemm_label(name)
+            k32 = POPCOUNT_GEMM_K256[label.split()[0]]
         else:
             ops = ("D P=" + str(first[0] or "any")
                    + (" corr" if "Lb1E" in name else "")  # kBorderTerm
@@ -997,7 +1071,9 @@ def mma_sass(library: Path) -> dict:
             layer = "dense" if "expand_mma_dense_kernel" in name else "conv"
             label, k32 = f"{ops} {layer} KW={last}", last
         per_step = 16 * k32 if loop["IMMA"] else k32
-        out[label] = (Counter(op for _, op, _ in code), loop, max(1, mma // per_step))
+        # steps from the MMAs proper: a wgmma.commit_group is an HGMMA too
+        steps = (loop["IMMA"] + loop["IGMMA"] + loop["BGMMA"]) // per_step
+        out[label] = (Counter(op for _, op, _ in code), loop, max(1, steps))
     return out
 
 
@@ -1072,7 +1148,8 @@ def phase_kernels(torch, err: dict) -> None:
 
 DENSE_NAMES = ("xnor_dense_fused", "ternary_dense_fused", "plane_dense_fused")
 # the kernels phase 7 also times as CUDA graph replays
-GRAPH_NAMES = (*DENSE_NAMES, *HEADS.values(), "xnor_gemm_popcount", "ternary_gemm")
+GRAPH_NAMES = (*DENSE_NAMES, *HEADS.values(), "xnor_gemm_popcount", "ternary_gemm",
+               "gemm_lanered", "xnor_multiacc")
 
 
 def dense_split(torch, name: str, m: int, shape) -> int | None:
@@ -2229,6 +2306,7 @@ def phase_times(torch, card: str, models: dict) -> dict:
                 f"{l2 / 1e9 / statistics.median(kt):.2f} TB/s at the "
                 f"kernel's median")
 
+    time_scan_group(torch, card)
     for name, model in models.items():
         shape = (b, 32, 32, 3) if name.startswith("cifar") else (b, 28, 28, 1)
         x = cuda(torch, np.random.default_rng(12).uniform(-1, 1, shape)
@@ -2246,6 +2324,57 @@ def phase_times(torch, card: str, models: dict) -> dict:
                f"{v['library_graph_ms']:.4f} ms" if k in GRAPH_NAMES else "")
             for k, v in total.items()))
     return total
+
+
+def time_scan_group(torch, card: str) -> None:
+    """Kernel B, every compiled geometry of F4 and of G, and one
+    ``torch._int_mm`` on the same product, at :data:`SCAN` on the same
+    seeded words, in one interleaved group, as CUDA graph replays and per
+    call (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`,
+    marginal medians); each held equal to B first.  F4 against B is what
+    B's transposing weight copies cost against TMA boxes; G against B what
+    independent wgmma groups give."""
+    from qnx_torch.bench.microbench import time_fns_marginal_interleaved
+    from qnx_torch.bench.roofline import H100_PEAKS
+    from qnx_torch.experiments.gemm_shootout import random_words
+    from qnx_torch.kernels import gemm_formulations as G
+    from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
+
+    m, (k, n) = SCAN
+    rng = np.random.default_rng(13)
+    xp = cuda(torch, random_words(rng, m, k))
+    wp = cuda(torch, random_words(rng, n, k, along_rows=True))
+    wpt = wp.t().contiguous()
+    targets = {"B": (lambda: xnor_gemm_popcount(xp, wp, k), ())}
+    for bn, st in G.LANERED_GEOMETRIES:
+        targets[f"F4 {G.lanered_name(bn, st)}"] = (
+            lambda g=(bn, st): G.gemm_lanered(xp, wpt, k, *g), ())
+    for a in G.NACCS:
+        targets[f"G multiacc-{a}"] = (lambda a=a: G.xnor_multiacc(xp, wp, k, nacc=a), ())
+    ref = targets["B"][0]()
+    for name, (fn, _) in targets.items():
+        if not torch.equal(fn(), ref):
+            raise AssertionError(f"scan group: {name} differs from kernel B")
+    targets["library"] = (int_mm_call(torch, rng, m, k, n), ())
+    ops_ms = m * k * n / H100_PEAKS["b1_macs"] * 1e3
+    bytes_ms = sum(t.numel() * 4 for t in (xp, wp, ref)) / H100_PEAKS["hbm_bytes"] * 1e3
+    bound = max(ops_ms, bytes_ms)
+    out = {name: {} for name in targets}
+    for mode, graph in (("graph", True), ("call", False)):
+        res = time_fns_marginal_interleaved(targets, iters=20, repeats=7, graph=graph)
+        for name, r in res.items():
+            out[name][mode] = r["median"] * 1e3
+            out[name][mode + "_fmt"] = fmt_graph(dict(r, t=r["t"] * 1e3,
+                                                      median=r["median"] * 1e3))
+    lib = out["library"]
+    for name, r in out.items():
+        log("times", f"{card} | scan group {m}x{k}x{n} (B, F4, G, _int_mm "
+            f"interleaved): {name} graph replays {r['graph_fmt']}; per call "
+            f"{r['call_fmt']}; over _int_mm {r['graph'] / lib['graph']:.3f} "
+            f"(replays), {r['call'] / lib['call']:.3f} (per call); over B "
+            f"{r['graph'] / out['B']['graph']:.3f} (replays); bound {bound:.4f} ms "
+            f"(b1 MACs {ops_ms:.4f}, bytes {bytes_ms:.4f}), "
+            f"{bound / r['graph']:.3f} of it")
 
 
 def graph_ms(kern: Callable, lib: Callable, iters: int = 20, repeats: int = 7) -> dict:
@@ -2765,10 +2894,14 @@ def ab_shapes(kind: str) -> list:
     ``plane_head-P``) at their head shape, the int32 s and the logits, the
     conv kinds at the five VGG convs; a ``forward-PATH`` kind at its path;
     kernels B and C at wide N (``popcount``, ``ternary``) at (M, (K, N)):
-    1024x4096x4096 and the ring chunks of meshes 1x2 and 1x4."""
+    1024x4096x4096 and the ring chunks of meshes 1x2 and 1x4; a
+    formulation (``lanered-n128-s3``, ``multiacc-2``, ...) at
+    1024x4096x4096."""
     prefix = kind.split("-")[0]
     if prefix == "forward":
         return [kind.split("-", 1)[1]]
+    if prefix in FORMULATIONS:
+        return [SCAN]
     if prefix in WIDE_KINDS:
         return [SCAN] + [(m, (32 * kw, n)) for mp in (2, 4)
                          for label in ("mnist_bnn", "cifar10_bnn")
@@ -2800,7 +2933,12 @@ def forward_case(torch, name: str):
     return pack(init_variables(cf, seed=0), cf), x, gold["logits"]
 
 
-WIDE_KINDS = ("popcount", "ternary")  # --ab kinds whose shapes carry their M
+WIDE_KINDS = ("popcount", "ternary")  # --ab kinds with ring chunks
+
+
+def carries_m(kind: str) -> bool:
+    """Whether the :func:`ab_shapes` of ``kind`` carry their M."""
+    return kind.split("-")[0] in (*WIDE_KINDS, *FORMULATIONS)
 
 
 def ab_child(kinds: str, root: str) -> int:
@@ -2833,8 +2971,7 @@ def ab_child(kinds: str, root: str) -> int:
                     got, gold, rtol=LOGIT_RTOL,
                     atol=LOGIT_ATOL_REL * float(np.abs(gold).max())))
             else:
-                m, shape = (shape if kind.split("-")[0] in WIDE_KINDS
-                            else (TIME_BATCH, shape))
+                m, shape = shape if carries_m(kind) else (TIME_BATCH, shape)
                 case = make_case(torch, rng, kind, m, shape)
                 kern = case.kern
                 row["equal"] &= bool(torch.equal(kern(), case.plain()))
@@ -2865,7 +3002,7 @@ def ab(kinds: str, roots: list[str]) -> int:
             continue
         for kind, row in json.loads(proc.stdout.strip().splitlines()[-1]).items():
             shapes = ab_shapes(kind)
-            batch = "M as given" if kind.split("-")[0] in WIDE_KINDS else TIME_BATCH
+            batch = "M as given" if carries_m(kind) else TIME_BATCH
             print(f"{card} | run {i} {root}: {kind} at batch {batch}, "
                   f"shapes {shapes}: per call " + ", ".join(
                       f"{t:.4f}" for t in row["ms"]) + f" ms, sum "

@@ -8,16 +8,17 @@ its MACs at the rate of the tensor cores it runs on and its bytes (each
 input read once, the output written once) at the device-memory rate, the
 bound ``chip_smoke.py`` uses.  Every packed kernel's product fits the int8
 tensor cores (±1 or level activations against ±1 or ternary weights), so
-each is held to that rate, but kernels B and C at wide N, which run on the
-single-bit tensor cores: B one AND-popcount MAC a MAC, C two (against mask
-and against mask & sign), at the rate ``qnx_torch.bench.tc_probe``
-measured.  A second, labelled column holds the popcount kernels that stay on
-the CUDA cores to the popc issue rate that ``qnx_torch.experiments.vpu_probe``
-measured.  The fused dense
-kernels of A, A' and D (on the int8 tensor cores since they were
+each is held to that rate, but kernels B, C and G at wide N, which run on
+the single-bit tensor cores: B and G one AND-popcount MAC a MAC, C two
+(against mask and against mask & sign), at the rate
+``qnx_torch.bench.tc_probe`` measured.  A second, labelled column holds a
+popcount kernel on the CUDA cores to the popc issue rate that
+``qnx_torch.experiments.vpu_probe`` measured; no row here runs there since
+G moved to the tensor cores (the shootout's F1-F3 still do).  The fused
+dense kernels of A, A' and D (on the int8 tensor cores since they were
 redesigned) run in a few microseconds at the served batch of 256, less than
 a host launch through their Python wrappers, so they and their library
-call are timed as CUDA graph replays; so are B and C, whose calls at
+call are timed as CUDA graph replays; so are B, C and G, whose calls at
 1024x4096x4096 take less device time than a host launch.
 
     python -m qnx_torch.bench.roofline          # table on stdout, JSON rows on stderr
@@ -137,8 +138,8 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
                     device="cuda") -> list[KernelResult]:
     """Measure the port's hot kernels at the JAX report's shapes: kernels
     B and C at ``batch`` x ``gemm_k`` x ``gemm_n`` (on the single-bit
-    tensor cores), beside G with one accumulator (B's former CUDA-core
-    layout, held to the popc ceiling too), E, A and A' at
+    tensor cores), beside G with one accumulator set (B's schedule through
+    the formulations' entry, at the same single-bit bound), E, A and A' at
     ``conv_shapes`` (default :data:`CONV_SHAPES`), beside ``torch._int_mm``
     on the same int8 products (the library GEMM alone, no gather, epilogue
     or pool: the counterpart of the JAX report's XLA rows) and a bf16
@@ -181,9 +182,9 @@ def measure_kernels(batch: int = 1024, iters: int | None = None,
     _measure(out, f"popcount GEMM B {m}x{k}x{n} [b1 tensor cores]",
              lambda: xnor_gemm_popcount(xp, wp, k), [xp, wp], m * k * n,
              "b1_macs", graph=True, **timing)
-    _measure(out, f"popcount GEMM G nacc=1 {m}x{k}x{n} [CUDA cores: B's former "
-             f"layout]", lambda: xnor_multiacc(xp, wp, k, nacc=1), [xp, wp],
-             m * k * n, "int8_macs", popc_per_mac=1 / 32, **timing)
+    _measure(out, f"popcount GEMM G nacc=1 {m}x{k}x{n} [b1 tensor cores: B's "
+             f"schedule]", lambda: xnor_multiacc(xp, wp, k, nacc=1), [xp, wp],
+             m * k * n, "b1_macs", graph=True, **timing)
     wt = np.where(rng.random((k, n)) < 0.3, 0, w8).astype(np.float32)
     mask, sign, nnz = map(dev, pack_ternary_np(wt, 0))
     _measure(out, f"ternary two-plane GEMM C {m}x{k}x{n} [b1 tensor cores]",

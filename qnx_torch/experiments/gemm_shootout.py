@@ -6,16 +6,17 @@ At the JAX file's three shapes, at full size, and at the MNIST MLP head's
 baseline, :func:`qnx_torch.kernels.xnor_gemm.xnor_gemm_popcount`, on the
 single-bit tensor cores: :data:`BASELINE_ROUTE`), every
 geometry of the four formulations F1-F4
-(:mod:`qnx_torch.kernels.gemm_formulations`, the CUDA cores) and, as
-context, one ``torch._int_mm`` on the unpacked ±1 int8 operands (a library
-GEMM with no packing).  Every candidate's output must equal B's; a geometry
+(:mod:`qnx_torch.kernels.gemm_formulations`: F1-F3 on the CUDA cores, F4
+on the single-bit tensor cores with its K-major tiles fed by TMA,
+:data:`TMA_ROUTE`) and, as context, one ``torch._int_mm`` on the unpacked ±1
+int8 operands (a library GEMM with no packing).  Every candidate's output must equal B's; a geometry
 whose shared-memory strips do not fit prints as "does not fit", and any
 other error propagates.  Times are marginal and interleaved
 (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`); each row
 gives ms, TMAC/s, and its share of the bounds of the units it runs on
-(:data:`qnx_torch.bench.roofline.H100_PEAKS`): F1-F4 the MACs at the int8
-tensor-core rate and the popc ceiling, the library the int8 rate, B the
-measured single-bit rate; a share that does not apply is None.
+(:data:`qnx_torch.bench.roofline.H100_PEAKS`): F1-F3 the MACs at the int8
+tensor-core rate and the popc ceiling, the library the int8 rate, B and F4
+the measured single-bit rate; a share that does not apply is None.
 
     python -m qnx_torch.experiments.gemm_shootout
 """
@@ -41,6 +42,8 @@ SHAPES = [("conv1-like", 262144, 1152, 128),
 BASELINE = "B popcount_gemm"
 BASELINE_ROUTE = ("wgmma m64n128k256 .b1.b1.and.popc, the single-bit tensor cores "
                   "(csrc/popcount_gemm.cu)")
+TMA_ROUTE = ("the same wgmma on K-major x and wt tiles, both fed by TMA "
+             "(csrc/popcount_gemm.cuh)")
 LIBRARY = "torch._int_mm ±1 int8 (library, unpacked)"
 
 
@@ -68,9 +71,9 @@ def candidates(k: int) -> dict:
     for bm, bn, kc in G.CHUNK3D_GEOMETRIES:
         cands[f"chunk3d-{bm}x{bn}x{kc}"] = (
             lambda xp, wp, wpt, g=(bm, bn, kc): G.gemm_chunk3d(xp, wp, k, *g))
-    for rows, cols in G.LANERED_GEOMETRIES:
-        cands[f"lanered-{rows}x{cols}"] = (
-            lambda xp, wp, wpt, g=(rows, cols): G.gemm_lanered(xp, wpt, k, *g))
+    for bn, stages in G.LANERED_GEOMETRIES:
+        cands[G.lanered_name(bn, stages)] = (
+            lambda xp, wp, wpt, g=(bn, stages): G.gemm_lanered(xp, wpt, k, *g))
     return cands
 
 
@@ -115,12 +118,13 @@ def run_shape(name: str, m: int, k: int, n: int, *, iters: int, repeats: int,
     popc_s = macs / WORD / H100_PEAKS["popc_ops"]
     b1_s = macs / H100_PEAKS["b1_macs"]
     for cname, r in res.items():
-        cuda_cores = cname not in (BASELINE, LIBRARY)
+        b1 = cname == BASELINE or cname.startswith("lanered-")
+        cuda_cores = not b1 and cname != LIBRARY
         rows.append({"shape": name, "candidate": cname, "fits": True,
                      "equal": True, "ms": r["t"] * 1e3, "tmacs": macs / r["t"] / 1e12,
-                     "int8_share": None if cname == BASELINE else int8_s / r["t"],
+                     "int8_share": None if b1 else int8_s / r["t"],
                      "popc_share": popc_s / r["t"] if cuda_cores else None,
-                     "b1_share": b1_s / r["t"] if cname == BASELINE else None,
+                     "b1_share": b1_s / r["t"] if b1 else None,
                      "spread": r["spread"], "unreliable": r["unreliable"],
                      "l2_warm": warm, "graph": graph})
     return rows
@@ -144,8 +148,8 @@ def main(shapes=SHAPES, iters: int = 16, repeats: int = 5, device="cuda") -> lis
     device = resolve_device(device)
     print(f"# gemm shootout on {device_label(device)}; marginal ms, interleaved, "
           f"{iters} calls x {repeats} rounds; L2-warm where the operands fit in "
-          f"50 MB; the baseline {BASELINE} runs {BASELINE_ROUTE}, F1-F4 the "
-          f"CUDA cores", flush=True)
+          f"50 MB; the baseline {BASELINE} runs {BASELINE_ROUTE}, F1-F3 the "
+          f"CUDA cores, F4 {TMA_ROUTE}", flush=True)
     rows = []
     for name, m, k, n in shapes:
         shape_rows = run_shape(name, m, k, n, iters=iters, repeats=repeats,

@@ -1,18 +1,19 @@
-"""Accumulator-chain scan of the packed popcount GEMM on the card (the port
-of ``experiments/xnor_sol_variants.py``).
+"""Accumulator scan of the packed popcount GEMM on the card (the port of
+``experiments/xnor_sol_variants.py``).
 
 Does the accumulator dependency chain limit the popcount loop?  At the JAX
-file's 1024 x 4096 x 4096 it runs the CUDA-core layout kernel B had until it
-moved to the single-bit tensor cores, with 1 (``acc1``, the baseline), 2 and
-4 independent accumulators per output (kernel G,
-:func:`qnx_torch.kernels.gemm_formulations.xnor_multiacc`), and beside them
-the tensor-core kernels B (``b_tensor_core``) and C
-(``ternary_tensor_core``, at the JAX file's density, 30% zeros); checks
-``acc2``, ``acc4`` and B against ``acc1`` first, then times all five
+file's 1024 x 4096 x 4096 it runs kernel G
+(:func:`qnx_torch.kernels.gemm_formulations.xnor_multiacc`), kernel B's
+mainloop on the single-bit tensor cores with 1 (``acc1``), 2 and 4
+accumulator fragment sets, K step i into set i % nacc, so that ``nacc``
+independent ``wgmma`` groups stay in flight; beside them kernel B
+(``b_tensor_core``, the baseline: ``acc1`` is its schedule) and C
+(``ternary_tensor_core``, at the JAX file's density, 30% zeros).  Checks
+``acc1``, ``acc2`` and ``acc4`` against B first, then times all five
 interleaved as CUDA graph replays.  One JSON row per variant, fastest
-first, with the JAX file's keys; ``vops_per_s_1e12`` counts the CUDA-core
-integer operations per packed word (xor, popc, add), None for the
-tensor-core rows.
+first, with the JAX file's keys; ``vops_per_s_1e12`` counts CUDA-core
+integer operations per packed word (xor, popc, add), None for every row
+now that no variant runs on the CUDA cores.
 
     python -m qnx_torch.experiments.xnor_sol_variants
 """
@@ -51,30 +52,28 @@ def main(m: int = M, k: int = K, n: int = N, iters: int = 16, repeats: int = 5,
         "ternary_tensor_core": (lambda a, b: ternary_gemm(a, b, sign, nnz),
                                 (xp, mask)),
     }
-    # correctness first, against the CUDA-core baseline
-    ref = xnor_multiacc(xp, wp, k, nacc=1)
-    for name in ("acc2", "acc4", "b_tensor_core"):
+    # correctness first, against kernel B
+    ref = xnor_gemm_popcount(xp, wp, k)
+    for name in ("acc1", "acc2", "acc4"):
         fn, args = targets[name]
         if not torch.equal(fn(*args), ref):
-            raise AssertionError(f"{name}: output differs from acc1's")
+            raise AssertionError(f"{name}: output differs from kernel B's")
     warm = l2_warm(xp, wp, ref)
     del ref
 
-    # graph replays: the tensor-core rows take less device time than a
-    # host launch through their wrappers
+    # graph replays: every row takes less device time than a host launch
+    # through its wrapper
     res = time_fns_marginal_interleaved(targets, iters=iters, repeats=repeats,
                                         device=device, graph=True)
     macs = m * k * n
     rows = []
     for name, r in res.items():
-        cuda_cores = name.startswith("acc")  # xor, popc, add a word
         rows.append({
             "variant": name,
             "ms": r["t"] * 1e3,
             "tmacs": macs / r["t"] / 1e12,
             "spread": r["spread"],
-            "vops_per_s_1e12": (macs / 32.0 * 3.0 / r["t"] / 1e12 if cuda_cores
-                                else None),
+            "vops_per_s_1e12": None,  # no CUDA-core variant left
             "unreliable": r["unreliable"],
         })
     rows.sort(key=lambda row: row["ms"])

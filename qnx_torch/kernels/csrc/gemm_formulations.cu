@@ -19,26 +19,31 @@
 //                          memory; per step a thread takes KC consecutive
 //                          words of each of its rows and columns as uint4
 //                          loads and adds the chunk's popcount sum.
-//   lanered<R, G>          v_lanered (F4): the dot form, x (M, Kw) against
-//                          wt (N, Kw): one warp per R rows and G columns, the
-//                          Kw words split across the lanes (coalesced loads
-//                          of x and wt), lanes reduced by __reduce_add_sync.
+//   lanered<BN, STAGES>    v_lanered (F4): the dot form, x (M, Kw) against
+//                          wt (N, Kw), both K-major, on the single-bit tensor
+//                          cores: B's mainloop (popcount_gemm.cuh) with both
+//                          tiles filled by TMA boxes into a ring of STAGES,
+//                          BN columns a block; no word transpose.
 //   multiacc<NACC>         experiments/xnor_sol_variants.py:xnor_multiacc
-//                          (G): the lane-per-column layout B had on the CUDA
-//                          cores (popcount_rows.cuh) with NACC independent
-//                          accumulators per output; NACC = 1 is that layout.
+//                          (G): B's mainloop on B's N-major weights with NACC
+//                          accumulator fragment sets, K step i into set
+//                          i % NACC, NACC independent wgmma groups in flight;
+//                          NACC = 1 is B's schedule.
 //
-// Every one is bound by popc issue, one popc per 32 MACs, at 16 popc per
-// clock per SM (compute capability 9.0); xor and add issue beside it.  The
-// schedules differ in what feeds the popc unit: shared-memory loads per popc
-// (outer: 2 per 8x8 = 64 popc per word step; chunk3d: 2 uint4 per 16 KC
-// popc), the occupancy their shared memory and registers leave, and, for
-// lanered, whether a narrow N fills the card.  Pad bits are 0 in both
-// operands, so they XOR to 0; words past Kw, rows past M and columns past N
-// stage as 0 and are never stored.
+// F1-F3 stay on the CUDA cores, bound by popc issue, one popc per 32 MACs,
+// at 16 popc per clock per SM (compute capability 9.0); xor and add issue
+// beside it.  They differ in what feeds the popc unit: shared-memory loads
+// per popc (outer: 2 per 8x8 = 64 popc per word step; chunk3d: 2 uint4 per
+// 16 KC popc) and the occupancy their shared memory and registers leave.
+// Pad bits are 0 in both operands, so they XOR to 0; words past Kw, rows
+// past M and columns past N stage as 0 and are never stored.  F4 and G run
+// the AND-popcount wgmma at B's rate; their least time is B's, bound by
+// the int32 output's bytes (0.0058 ms at 1024 x 4096 x 4096).  F4 measures
+// what B's transposing weight copies cost and what a TMA-fed mainloop
+// gives; G whether independent wgmma groups shorten B's step chain.
 #include <cuda_runtime.h>
 
-#include "popcount_rows.cuh"
+#include "popcount_gemm.cuh"
 
 namespace {
 
@@ -309,112 +314,6 @@ cudaError_t launch_chunk3d(const unsigned* xp, const unsigned* wp, int* out,
   return cudaGetLastError();
 }
 
-// -------------------------------------------------------------- F4 lanered
-
-// kWarpsPerBlock warps per block; warp task t covers rows (t / groups) * R
-// .. + R and columns (t % groups) * G .. + G, groups = ceil(n / G).  Rows
-// and columns past the edge re-read the last one and store nothing.
-template <int R, int G>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-lanered_kernel(const unsigned* __restrict__ xp, const unsigned* __restrict__ wt,
-               int* __restrict__ out, int m, int kw, int n, int k) {
-  const int lane = threadIdx.x % kWarp;
-  const long long task =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  const int groups = (n + G - 1) / G;
-  const long long row0 = task / groups * R;
-  const int col0 = static_cast<int>(task % groups) * G;
-  if (row0 >= m) return;  // the whole warp
-  const unsigned* xr[R];
-  const unsigned* wr[G];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    xr[r] = xp + static_cast<size_t>(min(row0 + r, static_cast<long long>(m - 1))) * kw;
-#pragma unroll
-  for (int j = 0; j < G; ++j) wr[j] = wt + static_cast<size_t>(min(col0 + j, n - 1)) * kw;
-  int acc[R][G] = {};
-  for (int c = lane; c < kw; c += kWarp) {
-    unsigned a[R], b[G];
-#pragma unroll
-    for (int r = 0; r < R; ++r) a[r] = __ldg(xr[r] + c);
-#pragma unroll
-    for (int j = 0; j < G; ++j) b[j] = __ldg(wr[j] + c);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int j = 0; j < G; ++j) acc[r][j] += __popc(a[r] ^ b[j]);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const int total = __reduce_add_sync(kFull, acc[r][j]);
-      if (lane == (r * G + j) % kWarp && row0 + r < m && col0 + j < n)
-        out[static_cast<size_t>(row0 + r) * n + col0 + j] = k - 2 * total;
-    }
-  }
-}
-
-template <int R, int G>
-cudaError_t launch_lanered(const unsigned* xp, const unsigned* wt, int* out,
-                           int m, int kw, int n, int k, cudaStream_t stream) {
-  const long long tasks =
-      static_cast<long long>((m + R - 1) / R) * ((n + G - 1) / G);
-  const long long blocks = (tasks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  lanered_kernel<R, G><<<static_cast<unsigned>(blocks), kWarp * kWarpsPerBlock, 0,
-                         stream>>>(xp, wt, out, m, kw, n, k);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------- G multiacc
-
-// B's former grid and block (dense_grid, (32, kWarpsPerBlock)): one lane per
-// column, kDenseRows rows per thread; word i adds into accumulator i % NACC
-// (a ragged tail into the first), summed at the end.
-template <int NACC>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-multiacc_kernel(const unsigned* __restrict__ xp, const unsigned* __restrict__ wp,
-                int* __restrict__ out, int m, int kw, int n, int k) {
-  const int col = blockIdx.y * kWarp + threadIdx.x;
-  const int row0 = (blockIdx.x * kWarpsPerBlock + threadIdx.y) * kDenseRows;
-  if (row0 >= m || col >= n) return;
-  const unsigned* xrow[kDenseRows];
-#pragma unroll
-  for (int r = 0; r < kDenseRows; ++r)
-    xrow[r] = xp + static_cast<size_t>(min(row0 + r, m - 1)) * kw;
-  int acc[kDenseRows][NACC] = {};
-  int i = 0;
-  for (; i + NACC <= kw; i += NACC) {
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) {
-      const unsigned w = __ldg(wp + static_cast<size_t>(i + a) * n + col);
-#pragma unroll
-      for (int r = 0; r < kDenseRows; ++r) acc[r][a] += __popc(__ldg(xrow[r] + i + a) ^ w);
-    }
-  }
-  for (; i < kw; ++i) {
-    const unsigned w = __ldg(wp + static_cast<size_t>(i) * n + col);
-#pragma unroll
-    for (int r = 0; r < kDenseRows; ++r) acc[r][0] += __popc(__ldg(xrow[r] + i) ^ w);
-  }
-#pragma unroll
-  for (int r = 0; r < kDenseRows; ++r) {
-    int sum = 0;
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) sum += acc[r][a];
-    if (row0 + r < m) out[static_cast<size_t>(row0 + r) * n + col] = k - 2 * sum;
-  }
-}
-
-template <int NACC>
-cudaError_t launch_multiacc(const unsigned* xp, const unsigned* wp, int* out,
-                            int m, int kw, int n, int k, cudaStream_t stream) {
-  multiacc_kernel<NACC><<<dense_grid(m, n), dim3(kWarp, kWarpsPerBlock), 0, stream>>>(
-      xp, wp, out, m, kw, n, k);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -458,20 +357,27 @@ int qnx_gemm_chunk3d(const void* xp, const void* wp, void* out, int m, int kw,
   return cudaErrorInvalidValue;
 }
 
-// wp is wt here: the weights transposed, (N, Kw) row-major
+// F4: wp is wt here, the weights transposed, (N, Kw) row-major.  Kw % 4 ==
+// 0 and both operands 16-byte aligned (the TMA boxes' row strides).
 int qnx_gemm_lanered(const void* xp, const void* wp, void* out, int m, int kw,
-                     int n, int k, int rows, int cols, void* stream) {
-  if (rows == 1 && cols == 8) return launch_lanered<1, 8>(QNX_ARGS);
-  if (rows == 1 && cols == 16) return launch_lanered<1, 16>(QNX_ARGS);
-  if (rows == 4 && cols == 8) return launch_lanered<4, 8>(QNX_ARGS);
+                     int n, int k, int bn, int stages, void* stream) {
+  const qnx::GemmArgs a{static_cast<const unsigned*>(xp), static_cast<const unsigned*>(wp),
+                        nullptr, nullptr, static_cast<int*>(out), m, kw, n, k};
+  if (bn == 128 && stages == 3) return qnx::launch_tma<128, 3>(a, stream);
+  if (bn == 128 && stages == 4) return qnx::launch_tma<128, 4>(a, stream);
+  if (bn == 64 && stages == 4) return qnx::launch_tma<64, 4>(a, stream);
   return cudaErrorInvalidValue;
 }
 
+// G: a ring of NACC + 2 stages; four sets of 64 accumulators do not fit a
+// thread, so NACC = 4 takes 64 columns a block.
 int qnx_xnor_multiacc(const void* xp, const void* wp, void* out, int m, int kw,
                       int n, int k, int nacc, void* stream) {
-  if (nacc == 1) return launch_multiacc<1>(QNX_ARGS);
-  if (nacc == 2) return launch_multiacc<2>(QNX_ARGS);
-  if (nacc == 4) return launch_multiacc<4>(QNX_ARGS);
+  const qnx::GemmArgs a{static_cast<const unsigned*>(xp), static_cast<const unsigned*>(wp),
+                        nullptr, nullptr, static_cast<int*>(out), m, kw, n, k};
+  if (nacc == 1) return qnx::launch_staged<false, 1, 128, 3>(a, stream);
+  if (nacc == 2) return qnx::launch_staged<false, 2, 128, 4>(a, stream);
+  if (nacc == 4) return qnx::launch_staged<false, 4, 64, 6>(a, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -3,9 +3,10 @@
 // i8_conv_fused.cu (kernel E) share: cp.async copies into shared memory,
 // wgmma.mma_async on K-major shared-memory tiles (the packed kernels' in
 // the canonical no-swizzle layout, E's with the 128-byte swizzle), and the
-// quad-major order of the GEMM rows.  The binary popcount GEMM
-// (popcount_gemm.cu) and the tensor-core probe (tc_probe.cu) take the
-// copies, the swizzled tiles and the single-bit wgmma from here too.
+// quad-major order of the GEMM rows.  The single-bit popcount GEMMs
+// (popcount_gemm.cuh: kernels B and C, F4 and G) and the tensor-core probe
+// (tc_probe.cu) take the copies, the swizzled tiles and the single-bit wgmma
+// from here too, and F4 the TMA copies and their mbarriers.
 //
 // Rows (M) are output pixels in quad-major order: four consecutive rows are
 // one 2x2 window, so a fused 2x2 pool is two __shfl_xor_sync over the lanes
@@ -53,6 +54,49 @@ __device__ __forceinline__ void cp_async_wait() {
 // Generic-proxy writes to shared memory, made visible to wgmma's reads.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers in shared memory, and TMA copies that complete on them.  A
+// barrier of count 1 completes a phase when its one arrival (with the bytes
+// it expects) and those bytes have landed; waiters poll the phase's parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// The barriers' initialisation, visible to the async proxy (the TMA unit).
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of bar has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Copy the 2-D box at coordinates (c0 innermost, c1) of the tensor map at
+// `map` (a __grid_constant__ kernel parameter) into shared memory at dst,
+// completing on bar.  Elements outside the tensor arrive as zeros and
+// count towards the bytes bar expects.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0,
+                                            int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -115,9 +159,10 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* smem) {
 
 // d (64 rows of this warpgroup x 128 channels) += a * b, both from
 // shared-memory tiles: 32 k of u8 x s8 (kU8) or s8 x s8, or 256 k of single
-// bits, AND then popcount (wgmma_b1_k256).  Either reads 32 bytes of each
-// K-major row.  Accumulator 4j + 2r + e of lane (g = lane / 4, t = lane % 4)
-// of warp w of the warpgroup is row 16 w + g + 8 r, channel 8 j + 2 t + e.
+// bits, AND then popcount (wgmma_b1_k256; there also 64 channels, into 32
+// accumulators).  Either reads 32 bytes of each K-major row.  Accumulator
+// 4j + 2r + e of lane (g = lane / 4, t = lane % 4) of warp w of the
+// warpgroup is row 16 w + g + 8 r, channel 8 j + 2 t + e.
 #define QNX_D8(i)                                                          \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),              \
       "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
@@ -143,10 +188,27 @@ __device__ __forceinline__ void wgmma_k32(int (&d)[64], uint64_t desc_a,
   }
 }
 
-__device__ __forceinline__ void wgmma_b1_k256(int (&d)[64], uint64_t desc_a,
+#define QNX_WGMMA_M64N64(SHAPE_TYPES)                                        \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64" SHAPE_TYPES " {"                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31}, %32, %33, p;\n}\n"                                \
+      : QNX_D8(0), QNX_D8(8), QNX_D8(16), QNX_D8(24)                         \
+      : "l"(desc_a), "l"(desc_b), "r"(1))
+// kRegs 64: m64n128k256; 32: m64n64k256
+template <int kRegs>
+__device__ __forceinline__ void wgmma_b1_k256(int (&d)[kRegs], uint64_t desc_a,
                                               uint64_t desc_b) {
-  QNX_WGMMA_M64N128("k256.s32.b1.b1.and.popc");
+  static_assert(kRegs == 64 || kRegs == 32, "n128 or n64");
+  if constexpr (kRegs == 64) {
+    QNX_WGMMA_M64N128("k256.s32.b1.b1.and.popc");
+  } else {
+    QNX_WGMMA_M64N64("k256.s32.b1.b1.and.popc");
+  }
 }
+#undef QNX_WGMMA_M64N64
 #undef QNX_WGMMA_M64N128
 #undef QNX_D8
 

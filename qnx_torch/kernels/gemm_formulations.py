@@ -7,7 +7,9 @@ Every one computes kernel B's function (:mod:`qnx_torch.kernels.xnor_gemm`)
     s[m, n] = k - 2 * sum_kw popcount(xp[m, kw] ^ wp[kw, n])
 
 exactly, through another schedule, written by hand for Hopper in
-``csrc/gemm_formulations.cu``:
+``csrc/gemm_formulations.cu``; F1-F3 on the CUDA cores' popc unit, F4 and G
+on the single-bit tensor cores through kernel B's mainloop
+(``csrc/popcount_gemm.cuh``, ``wgmma`` AND-popcount):
 
 * :func:`gemm_outer` (F1, ``v_outer``): whole-K strips of x and w staged in
   shared memory once per (bm, bn) block, an 8x8 register tile per thread;
@@ -16,9 +18,12 @@ exactly, through another schedule, written by hand for Hopper in
 * :func:`gemm_chunk3d` (F3, ``v_chunk3d``): ``kc`` words per step as vector
   loads, the chunk's popcounts summed;
 * :func:`gemm_lanered` (F4, ``v_lanered``): the dot form against the
-  transposed weights ``wpt`` (N, Kw), the words split across a warp's lanes;
-* :func:`xnor_multiacc` (G): the lane-per-column layout B had on the CUDA
-  cores with ``nacc`` independent accumulators; ``nacc=1`` is that layout.
+  transposed weights ``wpt`` (N, Kw): both operands K-major, so both tiles
+  arrive by TMA boxes (no word transpose), ``bn`` columns a block, a ring of
+  ``stages``;
+* :func:`xnor_multiacc` (G): B's mainloop on B's (Kw, N) weights with
+  ``nacc`` accumulator fragment sets, K step i into set i % nacc, ``nacc``
+  independent ``wgmma`` groups in flight; ``nacc=1`` is B's schedule.
 
 One plain version serves all five: :func:`xnor_gemm_popcount_ref`.  Each
 wrapper runs it only for a CPU tensor; for a CUDA tensor it launches its
@@ -33,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .xnor_gemm import xnor_gemm_popcount_ref
+from .xnor_gemm import check_and_products, xnor_gemm_popcount_ref
 
 # The geometries compiled into csrc/gemm_formulations.cu; the first of each
 # is the wrapper's default.
@@ -44,10 +49,15 @@ OUTER_ACC_GEOMETRIES = ((128, 128, 16), (128, 128, 8), (64, 128, 16), (256, 128,
 #: (bm, bn, kc) of :func:`gemm_chunk3d`
 CHUNK3D_GEOMETRIES = ((64, 64, 4), (64, 64, 8), (64, 64, 16), (128, 128, 4),
                       (128, 128, 8))
-#: (rows, cols) per warp of :func:`gemm_lanered`
-LANERED_GEOMETRIES = ((1, 16), (1, 8), (4, 8))
-#: accumulators per output of :func:`xnor_multiacc`
+#: (bn, stages) of :func:`gemm_lanered`: columns a block (the wgmma's N)
+#: and tiles in its TMA ring; (128, 3) is kernel B's tiling
+LANERED_GEOMETRIES = ((128, 3), (128, 4), (64, 4))
+#: accumulator fragment sets of :func:`xnor_multiacc`
 NACCS = (1, 2, 4)
+#: nacc -> (bn, stages) the G instance of that count runs: nacc + 2 stages
+#: at least, and 64 columns at nacc = 4, whose four sets of 64 accumulators
+#: would not fit a thread
+MULTIACC_TILING = {1: (128, 3), 2: (128, 4), 4: (64, 6)}
 #: shared memory one block of an H100 may opt in to (227 KiB)
 SMEM_LIMIT = 232448
 
@@ -125,22 +135,62 @@ def gemm_chunk3d(xp: torch.Tensor, wp: torch.Tensor, k: int, bm: int = 64,
                    bm, bn, kc)
 
 
-def gemm_lanered(xp: torch.Tensor, wpt: torch.Tensor, k: int, rows: int = 1,
-                 cols: int = 16) -> torch.Tensor:
+def lanered_name(bn: int, stages: int) -> str:
+    """The name of an F4 geometry, as the shootout and ``chip_smoke.py``
+    print it: ``lanered-n128-s3``."""
+    return f"lanered-n{bn}-s{stages}"
+
+
+def tma_operands(xp: torch.Tensor, wpt: torch.Tensor) -> tuple:
+    """F4's operands as its TMA boxes take them: rows of Kw rounded up to 4
+    words (16-byte row strides) at 16-byte aligned addresses.  Operands that
+    already are come back as they are; others are copied with zero words
+    appended, which AND to 0 and leave every sum unchanged."""
+    kw = xp.shape[1]
+    kw4 = -(-kw // 4) * 4
+
+    def fit(t):
+        if kw4 == kw and t.data_ptr() % 16 == 0:
+            return t
+        out = t.new_zeros((t.shape[0], kw4))
+        out[:, :kw] = t
+        return out
+
+    return fit(xp), fit(wpt)
+
+
+def gemm_lanered(xp: torch.Tensor, wpt: torch.Tensor, k: int, bn: int = 128,
+                 stages: int = 3) -> torch.Tensor:
     """F4, the dot form: xp (M, Kw) against the transposed weights ``wpt``
-    (N, Kw), one warp per ``rows`` x ``cols`` outputs."""
-    if not _check("gemm_lanered", xp, wpt, 1, (rows, cols), LANERED_GEOMETRIES):
+    (N, Kw), both K-major, on the single-bit tensor cores: each K step's
+    tiles are two TMA boxes into a ring of ``stages``, ``bn`` columns a
+    block.  TMA needs 16-byte row strides, so where Kw % 4 != 0 (or an
+    operand is not 16-byte aligned) the kernel runs on a copy of the
+    operands padded to Kw rounded up to 4 with zero words
+    (:func:`tma_operands`)."""
+    if not _check("gemm_lanered", xp, wpt, 1, (bn, stages), LANERED_GEOMETRIES):
         return xnor_gemm_popcount_ref(xp, wpt.t(), k)
-    return _launch("qnx_gemm_lanered", gemm_lanered, xp, wpt, wpt.shape[0], k,
-                   rows, cols)
+    check_and_products("gemm_lanered", xp.shape[1])
+    m = xp.shape[0]
+    out = torch.empty((m, wpt.shape[0]), dtype=torch.int32, device=xp.device)
+    if out.numel():
+        x4, w4 = tma_operands(xp, wpt)
+        _build.launch("qnx_gemm_lanered", xp.device, x4, w4, out, m, x4.shape[1],
+                      wpt.shape[0], k, bn, stages)
+        gemm_lanered.launches += 1
+    return out
 
 
 def xnor_multiacc(xp: torch.Tensor, wp: torch.Tensor, k: int,
                   nacc: int = 2) -> torch.Tensor:
-    """G: kernel B's former CUDA-core layout with ``nacc`` independent
-    accumulators (1: that layout)."""
+    """G: kernel B's mainloop on B's (Kw, N) weights with ``nacc``
+    accumulator fragment sets, K step i into set i % nacc, ``nacc``
+    independent ``wgmma`` groups in flight, the sets summed before the
+    epilogue (tiling :data:`MULTIACC_TILING`); ``nacc=1`` is B's
+    schedule."""
     if not _check("xnor_multiacc", xp, wp, 0, (nacc,), tuple((a,) for a in NACCS)):
         return xnor_gemm_popcount_ref(xp, wp, k)
+    check_and_products("xnor_multiacc", xp.shape[1])
     return _launch("qnx_xnor_multiacc", xnor_multiacc, xp, wp, wp.shape[1], k, nacc)
 
 

@@ -173,6 +173,12 @@ def test_shootout_on_the_cpu_route():
     base = by_name[gemm_shootout.BASELINE]
     assert base["popc_share"] is None and base["int8_share"] is None
     assert base["b1_share"] > 0 and by_name["outer-128x128"]["b1_share"] is None
+    # F4 too, its geometries named by their columns and stages
+    for bn, stages in G.LANERED_GEOMETRIES:
+        row = by_name[G.lanered_name(bn, stages)]
+        assert row["fits"] and row["b1_share"] > 0
+        assert row["popc_share"] is None and row["int8_share"] is None
+    assert by_name["outer-128x128"]["popc_share"] > 0
 
 
 def test_experiments_raise_without_a_card():
@@ -195,6 +201,7 @@ def test_sol_variants_on_the_cpu_route():
                                             "ternary_tensor_core"}
     for r in rows:
         assert set(r) >= {"variant", "ms", "tmacs", "spread", "vops_per_s_1e12"}
-        # CUDA-core integer operations only where the variant runs there
-        assert (r["vops_per_s_1e12"] is None) == r["variant"].endswith("tensor_core")
+        # CUDA-core integer operations only where a variant runs there: G
+        # runs on the single-bit tensor cores as B does, so none is left
+        assert r["vops_per_s_1e12"] is None
     assert [r["ms"] for r in rows] == sorted(r["ms"] for r in rows)

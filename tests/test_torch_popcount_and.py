@@ -62,24 +62,26 @@ def stage_x(xp, m0, k0, vec):
     return tile
 
 
-def stage_w(wp, n0, k0):
+def stage_w(wp, n0, k0, bn=BN):
     """A weight tile of one step: the (Kw, N) words transposed, word i of
     column n0 + c at word_at(c, i); zeros past N and Kw.  Thread t copies
-    column t % 128, words t // 128 + 2 j."""
+    column t % bn, words t // bn + (256 / bn) j (bn 128: B's and C's
+    tiles; 64: G's at four fragment sets)."""
     kw, n = wp.shape
-    tile = np.zeros(BN * KW_STEP, np.uint32)
+    tile = np.zeros(bn * KW_STEP, np.uint32)
     t = np.arange(THREADS)[:, None]
-    c, i = t % BN, t // BN + 2 * np.arange(KW_STEP // 2)[None, :]
+    c = t % bn
+    i = t // bn + THREADS // bn * np.arange(bn * KW_STEP // THREADS)[None, :]
     valid = (n0 + c < n) & (k0 + i < kw)
     src = wp[np.minimum(k0 + i, kw - 1), np.minimum(n0 + c, n - 1)]
     tile[word_at(c, i) // 4] = np.where(valid, src.view(np.uint32), 0)
     return tile
 
 
-def logical_rows(tile):
-    """(128, 32) words of a swizzled tile as wgmma reads them: 16-byte chunk
-    c of row r at chunk c ^ (r % 8)."""
-    r = np.arange(BM)[:, None]
+def logical_rows(tile, rows=BM):
+    """(rows, 32) words of a swizzled tile as wgmma reads them: 16-byte
+    chunk c of row r at chunk c ^ (r % 8)."""
+    r = np.arange(rows)[:, None]
     i = np.arange(KW_STEP)[None, :]
     return tile[(r * ROW_BYTES + (((i >> 2) ^ (r & 7)) << 4) + ((i & 3) << 2)) // 4]
 
@@ -95,11 +97,18 @@ def row_popc(tile, r, c0, count):
     return total.astype(np.int64)
 
 
+def _bits(words):
+    """(rows, 8) words as (rows, 256) {0, 1} float32."""
+    return np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                         axis=-1).astype(np.float32)
+
+
 def and_product(a, b, kc):
-    """One m64n128k256 .and.popc sub-step kc of every row of a against every
-    row of b (both (128, 32) logical words)."""
+    """One m64nNk256 .and.popc sub-step kc of every row of a against every
+    row of b (logical words): popc(a & b) summed over its 256 bits, as the
+    product of the bits (exact in float32: at most 256)."""
     s = slice(8 * kc, 8 * kc + 8)
-    return np.bitwise_count(a[:, None, s] & b[None, :, s]).sum(-1).astype(np.int64)
+    return (_bits(a[:, s]) @ _bits(b[:, s]).T).astype(np.int64)
 
 
 def model(xp, wp, k=None, sign=None, nnz=None):

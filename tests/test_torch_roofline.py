@@ -47,16 +47,16 @@ def test_measure_kernels_smoke_tiny():
     assert all(np.isfinite(r.t_measured_s) for r in rows)
     assert all(np.isfinite(r.speed_of_light) and r.bytes_moved > 0 for r in rows)
     conv_a = next(r for r in rows if "[A]" in r.name)
-    # A's, A''s and E's convs run on the int8 tensor cores, B and C on the
-    # single-bit ones (C two AND products a MAC): no popc ceiling; G with
-    # one accumulator, B's former CUDA-core layout, keeps it
-    for part in ("[A]", "[A']", "[E fused]", "GEMM B", "GEMM C"):
+    # A's, A''s and E's convs run on the int8 tensor cores, B, C and G (one
+    # accumulator set: B's schedule) on the single-bit ones (C two AND
+    # products a MAC): no popc ceiling
+    for part in ("[A]", "[A']", "[E fused]", "GEMM B", "GEMM C", "GEMM G"):
         assert next(r for r in rows if part in r.name).t_popc is None, part
     b, c, g = (next(r for r in rows if part in r.name)
                for part in ("GEMM B", "GEMM C", "GEMM G"))
     assert (b.peak_key, b.ops_per_mac) == ("b1_macs", 1)
     assert (c.peak_key, c.ops_per_mac) == ("b1_macs", 2)
-    assert g.peak_key == "int8_macs" and g.popc_per_mac == 1 / 32
+    assert (g.peak_key, g.ops_per_mac) == ("b1_macs", 1) and g.popc_per_mac == 0
     assert b.macs == c.macs == g.macs == 2 * 64 * 64
     # packed input + words + corr + sgn + tau + packed pooled output
     assert conv_a.bytes_moved == 4 * (2 * 8 * 8 * 1 + 9 * 32 + 8 * 8 * 32 + 2 * 32
