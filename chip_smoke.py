@@ -51,11 +51,15 @@ Phases:
 2. build: compile the kernels, with the ptxas register and spill report
    and the SASS counts per K step of the tensor-core kernels' K loops (the
    A, A', D and E convs and the A, A' and D dense layers: IGMMA, POPC,
-   LOP3, LDGSTS, ...; kernels B and C at wide N, F4 and G: BGMMA); the int8
-   ones must issue IGMMA and no POPC or IMMA there, B, C, F4 and G the
-   single-bit BGMMA and no more POPC than their operand popcounts take (32
-   a thread a step for B, F4 and G, 16 for C: none per word pair), F4 its
-   tiles by TMA (UTMALDG) and no LDGSTS (B's transposing copies);
+   LOP3, LDGSTS, ...; kernels B and C at wide N, F1, F2, F4 and G: BGMMA);
+   the int8 ones must issue IGMMA and no POPC or IMMA there, B, C, F1, F2,
+   F4 and G the single-bit BGMMA and no more POPC than their operand
+   popcounts take (32 a thread a step for B, F1, F4 and G, 16 for C, the
+   step's words for F2: none per word pair), F4 its tiles by TMA (UTMALDG)
+   and no LDGSTS (B's transposing copies), F1 its x strip by TMA; B's and
+   C's instances must be the SASS that nvcc 12.9 made of them before F2
+   shared their mainloop, instruction for instruction
+   (:data:`B_C_SASS`);
 3. kernels: each of the eighteen kernels against its plain PyTorch version
    on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
@@ -82,9 +86,10 @@ Phases:
    count and sign bits outside the mask;
    F1-F4 and G at every geometry the shootout sweeps on ragged M and K
    with N = 1, 10, 33, 128, the MNIST head and 1024x4096x4096 (a geometry
-   that does not fit is logged as such), F4 and G (single-bit tensor
-   cores) also at Kw = 2, 3, 9, 17 (F4's padded route), N = 130, the
-   shootout's four full shapes and with all-ones and all-zero words; H in
+   that does not fit is logged as such), F1, F2, F4 and G (single-bit
+   tensor cores) also at Kw = 2, 3, 9, 17 (F1's and F4's padded route), N
+   = 130, the shootout's four full shapes and with all-ones and all-zero
+   words, each shape's plain output made once for all of them; H in
    each mode and compiled
    length with the int32 extremes in both operands: packed words, planes,
    int32 s and int8 codes must be equal;
@@ -147,10 +152,11 @@ Phases:
    256 and 1024, with CUDA events, and the relu ``qnn`` VGG against the
    same twin in the same turns; E in each served encoding (pm1, levels,
    zo, tanh, grid weights) and D's conv with the border term and without;
-   the dense kernels, the integer heads, B and C at wide N, F4 and G
-   and their library calls also as CUDA graph replays, which leave out the
-   host's launch; B, every geometry of F4 and G and ``_int_mm`` at
-   1024x4096x4096 in one interleaved group, graph replays and per call;
+   the dense kernels, the integer heads, B and C at wide N, F1, F2, F4
+   and G and their library calls also as CUDA graph replays, which leave
+   out the host's launch; B, every geometry of F1 that fits there and of
+   F2, F4 and G, and ``_int_mm`` at 1024x4096x4096 in one interleaved
+   group, graph replays and per call;
 9. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches, of those paths and of the five paths
@@ -206,6 +212,7 @@ graph replays.  Run it as parent, change, change, parent.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -257,7 +264,7 @@ MLP_HEAD = (4096, 10)
 PLANE_HEAD = (1024, 10)
 SCAN = (1024, (4096, 4096))  # the JAX package's packed GEMM scan shape
 # each formulation's kind timed at SCAN: the wrappers' default geometries
-MEASURED_TIMED = ("outer-128x128", "outer_acc-128x128x16", "chunk3d-64x64x4",
+MEASURED_TIMED = ("outer-128x128", "outer_acc-n128-k16-s6", "chunk3d-64x64x4",
                   "lanered-n128-s3", "multiacc-2")
 PROBE_SHAPE = (4096, 1024)  # vpu_probe's BLOCK (256, 1024) x GRID 16
 # the measurement phase's reduced repeats (the experiments' defaults are
@@ -522,6 +529,9 @@ class Case:
     lib: dict = field(default_factory=dict)
     peak: str = "int8_macs"
     ops_per_mac: int = 1
+    # the operands' key where several cases share them and their plain
+    # output (the formulations' geometries at one shape), else None
+    plain_key: tuple | None = None
 
     def bound(self, out) -> tuple[float, float]:
         """(ms of the MACs at the peak of the tensor cores the kernel runs
@@ -535,8 +545,8 @@ class Case:
         on the single-bit tensor cores at their measured rate, B one
         AND-popcount MAC a MAC, C two (against mask and mask & sign); the
         formulations F1-F4 and G compute B's function, so B's bound is
-        theirs (F4 and G run on those cores; F1-F3, on the CUDA cores, are
-        held to their popc ceiling in the shootout too)."""
+        theirs (F1, F2, F4 and G run on those cores; F3, on the CUDA cores,
+        is held to its popc ceiling in the shootout too)."""
         from qnx_torch.bench.roofline import H100_PEAKS
 
         nbytes = sum(t.numel() * t.element_size() for t in [*self.inputs, out])
@@ -712,22 +722,41 @@ def head_case(torch, rng, kind: str, b: int, shape) -> Case:
 
 # kind prefix of make_case -> the KERNELS name, also its wrapper's in
 # qnx_torch.kernels.gemm_formulations; the geometry follows the prefix as
-# BMxBN[xBK|xKC], nBN-sSTAGES (gemm_formulations.lanered_name) or NACC
+# BMxBN[xKC], nBN-kBK-sSTAGES (gemm_formulations.outer_acc_name),
+# nBN-sSTAGES (gemm_formulations.lanered_name) or NACC
 FORMULATIONS = {"outer": "gemm_outer", "outer_acc": "gemm_outer_acc",
                 "chunk3d": "gemm_chunk3d", "lanered": "gemm_lanered",
                 "multiacc": "xnor_multiacc"}
 
 
+@functools.lru_cache(maxsize=1)
+def formulation_words(torch, m, shape) -> tuple:
+    """Seeded words with zero pad bits of one (M, (K, N)), or (K, N, "ones" |
+    "apart"): all-ones words against all-ones or all-zero ones, s = +-k.
+    The formulations' cases run shape by shape, so each shape's words are
+    made once."""
+    from qnx_torch.experiments.gemm_shootout import random_words
+    from qnx_torch.ops.packing import pack_bits_np
+
+    k, n, *fill = shape
+    if fill:
+        return tuple(cuda(torch, pack_bits_np(np.full(s, v, np.float32), axis))
+                     for s, v, axis in (((m, k), 1.0, -1),
+                                        ((k, n), 1.0 if fill == ["ones"] else -1.0, 0)))
+    rng = np.random.default_rng((m, k, n))
+    return (cuda(torch, random_words(rng, m, k)),
+            cuda(torch, random_words(rng, n, k, along_rows=True)))
+
+
 def measured_case(torch, rng, kind: str, m, shape) -> Case:
     """A :class:`Case` of the measurement path's kernels: a formulation of
-    the popcount GEMM, ``outer-256x128``, ``lanered-n128-s3`` or
-    ``multiacc-2`` (shape (K, N), seeded words with zero pad bits, or (K, N,
-    "ones" | "apart"): all-ones words against all-ones or all-zero ones, s =
-    +-k; the plain version kernel B's; bound at the single-bit tensor cores'
-    rate, since each computes B's function, whose least time on the card is
-    B's), or ``int_chain-MODE-REPS`` (shape of the elements, the int32
-    extremes in both operands; no library call computes it)."""
-    from qnx_torch.experiments.gemm_shootout import random_words
+    the popcount GEMM, ``outer-256x128``, ``outer_acc-n128-k16-s6``,
+    ``lanered-n128-s3`` or ``multiacc-2`` on :func:`formulation_words` (the
+    plain version kernel B's, shared by every geometry at the shape; bound
+    at the single-bit tensor cores' rate, since each computes B's function,
+    whose least time on the card is B's), or ``int_chain-MODE-REPS`` (shape
+    of the elements, the int32 extremes in both operands; no library call
+    computes it)."""
     from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels import int_probe as P
     from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount_ref
@@ -745,21 +774,13 @@ def measured_case(torch, rng, kind: str, m, shape) -> Case:
                     lambda: P.int_chain_ref(x, y, mode, reps), False, [x, y], 0, None)
     name = FORMULATIONS[prefix]
     g = [int(v) for v in re.findall(r"\d+", geometry)]
-    k, n, *fill = shape
-    if fill:  # all-ones words, pad bits 0: s = k, or -k against all-zero
-        from qnx_torch.ops.packing import pack_bits_np
-
-        xp, wp = (cuda(torch, pack_bits_np(np.full(s, v, np.float32), axis))
-                  for s, v, axis in (((m, k), 1.0, -1),
-                                     ((k, n), 1.0 if fill == ["ones"] else -1.0, 0)))
-    else:
-        xp = cuda(torch, random_words(rng, m, k))
-        wp = cuda(torch, random_words(rng, n, k, along_rows=True))
+    k, n, *_ = shape
+    xp, wp = formulation_words(torch, m, tuple(shape))
     w = wp.t().contiguous() if prefix == "lanered" else wp
     fn = getattr(G, name)
     return Case(name, lambda: fn(xp, w, k, *g),
                 lambda: xnor_gemm_popcount_ref(xp, wp, k), False, [xp, w],
-                m * k * n, (m, k, n), peak="b1_macs")
+                m * k * n, (m, k, n), peak="b1_macs", plain_key=(m, tuple(shape)))
 
 
 # (M, (K, N)): ragged M and K (k % 32 != 0), N = 1, 10, 33, 128, the MNIST
@@ -815,10 +836,10 @@ def head_cases() -> list:
     return cases
 
 
-# (M, (K, N)) at which F4 and G (on the single-bit tensor cores) are also
-# held: Kw = 2, 3, 9, 17 (F4's padded route: Kw % 4 != 0; RAGGED_SHAPES has
-# Kw = 5 and 125 too), two K steps with N = 130, and the shootout's four
-# full shapes (qnx_torch/experiments/gemm_shootout.py:SHAPES)
+# (M, (K, N)) at which F1, F2, F4 and G (on the single-bit tensor cores)
+# are also held: Kw = 2, 3, 9, 17 (F1's and F4's padded route: Kw % 4 !=
+# 0; RAGGED_SHAPES has Kw = 5 and 125 too), two K steps with N = 130, and
+# the shootout's four full shapes (qnx_torch/experiments/gemm_shootout.py:SHAPES)
 TC_FORMULATION_SHAPES = [(5, (64, 1)), (37, (91, 10)), (130, (283, 33)),
                          (9, (540, 130)), (200, (2048, 130)),
                          (262144, (1152, 128)), (65536, (2304, 256)),
@@ -826,30 +847,30 @@ TC_FORMULATION_SHAPES = [(5, (64, 1)), (37, (91, 10)), (130, (283, 33)),
 
 
 def tc_formulation_kinds() -> list:
-    """Every compiled geometry of F4 and of G."""
+    """Every compiled geometry of F1, F2, F4 and G."""
     from qnx_torch.kernels import gemm_formulations as G
 
-    return ([G.lanered_name(bn, st) for bn, st in G.LANERED_GEOMETRIES]
+    return ([f"outer-{bm}x{bn}" for bm, bn in G.OUTER_GEOMETRIES]
+            + [G.outer_acc_name(*g) for g in G.OUTER_ACC_GEOMETRIES]
+            + [G.lanered_name(bn, st) for bn, st in G.LANERED_GEOMETRIES]
             + [f"multiacc-{a}" for a in G.NACCS])
 
 
 def measured_cases() -> list:
     """F1-F4 and G at every geometry the shootout sweeps, on
-    :data:`RAGGED_SHAPES` (zero pad bits); F4 and G also at
-    :data:`TC_FORMULATION_SHAPES` and with all-ones and all-zero words; H
-    in every mode at every compiled length on a ragged count of elements."""
+    :data:`RAGGED_SHAPES` (zero pad bits); F1, F2, F4 and G also at
+    :data:`TC_FORMULATION_SHAPES` and with all-ones and all-zero words,
+    shape by shape (:func:`formulation_words`); H in every mode at every
+    compiled length on a ragged count of elements."""
     from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels.int_probe import MODES, REPS
 
-    kinds = [f"outer-{bm}x{bn}" for bm, bn in G.OUTER_GEOMETRIES]
-    kinds += [f"outer_acc-{bm}x{bn}x{bk}" for bm, bn, bk in G.OUTER_ACC_GEOMETRIES]
-    kinds += [f"chunk3d-{bm}x{bn}x{kc}" for bm, bn, kc in G.CHUNK3D_GEOMETRIES]
-    kinds += tc_formulation_kinds()
-    cases = [(kind, m, s) for kind in kinds for m, s in RAGGED_SHAPES]
-    cases += [(kind, m, s) for kind in tc_formulation_kinds()
-              for m, s in TC_FORMULATION_SHAPES]
-    cases += [(kind, m, (k, 33, fill)) for kind in tc_formulation_kinds()
-              for m, k in ((37, 91), (130, 4096)) for fill in ("ones", "apart")]
+    tc = tc_formulation_kinds()
+    kinds = tc + [f"chunk3d-{bm}x{bn}x{kc}" for bm, bn, kc in G.CHUNK3D_GEOMETRIES]
+    cases = [(kind, m, s) for m, s in RAGGED_SHAPES for kind in kinds]
+    cases += [(kind, m, s) for m, s in TC_FORMULATION_SHAPES for kind in tc]
+    cases += [(kind, m, (k, 33, fill)) for m, k in ((37, 91), (130, 4096))
+              for fill in ("ones", "apart") for kind in tc]
     return cases + [(f"int_chain-{mode}-{reps}", None, (37, 29))
                     for mode in MODES for reps in REPS]
 
@@ -936,15 +957,17 @@ def phase_build() -> None:
         if any(w in line for w in ("registers", "spill", "Compiling", "arning",
                                    "Performance")):
             log("build", line.strip())
-    sass = mma_sass(_build.library_path())
+    functions = sass_functions(_build.library_path())
+    sass = mma_sass(functions)
     for name, (whole, loop, steps) in sass.items():
         per_step = {op: round(c / steps, 2) for op, c in sorted(loop.items())}
         log("build", f"SASS {name}: K loop ({steps} steps an iteration) per "
             f"step {per_step}; whole function " + ", ".join(
                 f"{op} {whole[op]}" for op in (*MMA_OPS, "POPC", "LOP3")))
-        popc_cap = POPCOUNT_GEMM_POPC.get(name.split()[0]) if "popcount_gemm" in name else None
-        if popc_cap is not None:
-            # B, C, F4 and G: single-bit wgmma, POPC only for the operand sums
+        if name.split()[0] in B1_KERNELS:
+            # B, C, F1, F2, F4 and G: single-bit wgmma, POPC only for the
+            # operand sums
+            popc_cap = b1_popc_cap(name)
             if (not loop["BGMMA"] or loop["IGMMA"] or loop["IMMA"]
                     or loop["POPC"] > popc_cap * steps):
                 raise AssertionError(f"SASS {name}: the K loop is not a single-bit "
@@ -954,6 +977,9 @@ def phase_build() -> None:
             if name.startswith("F4") and (not loop["UTMALDG"] or loop["LDGSTS"]):
                 raise AssertionError(f"SASS {name}: the K loop does not load its "
                                      f"tiles by TMA alone ({dict(loop)})")
+            # F1: the x strip by TMA, before the K loop
+            if name.startswith("F1") and not whole["UTMALDG"]:
+                raise AssertionError(f"SASS {name}: no TMA load of the x strip")
         # every int8 instance's K loop: wgmma, no popcount, no mma.sync
         elif not loop["IGMMA"] or loop["POPC"] or loop["IMMA"]:
             raise AssertionError(f"SASS {name}: the K loop is not a wgmma loop "
@@ -961,6 +987,14 @@ def phase_build() -> None:
     missing = [label for label in popcount_gemm_labels() if sass and label not in sass]
     if missing:
         raise AssertionError(f"SASS: no K loop found for {missing}")
+    if sass:
+        digests = sass_digests(functions, B_C_SASS)
+        for label, want in B_C_SASS.items():
+            log("build", f"SASS {label}: {digests.get(label)} (before F2 shared "
+                f"the mainloop: {want})")
+            if digests.get(label) != want:
+                raise AssertionError(f"SASS {label}: {digests.get(label)} is not the "
+                                     f"code nvcc 12.9 made of it before, {want}")
 
 
 # SASS opcodes reported per K step of the tensor-core convs: the MMAs
@@ -968,23 +1002,53 @@ def phase_build() -> None:
 # wgmma.commit_group shows as an HGMMA on RZ) and the rest (a TMA load is
 # UTMALDG, an mbarrier wait a SYNCS)
 MMA_OPS = ("IMMA", "HGMMA", "IGMMA", "BGMMA")
-# the single-bit wgmma a warp issues per K step of the popcount_gemm.cuh
-# instances (four k256 of each product), and the POPC a thread may issue a
-# step for the operand popcounts (B, F4, G: a row of 32 words of x or w; C:
-# half a row of mask & sign), by label's first word
-POPCOUNT_GEMM_K256 = {"B": 4, "C": 8, "F4": 4, "G": 4}
-POPCOUNT_GEMM_POPC = {"B": 32, "C": 16, "F4": 32, "G": 32}
+# the single-bit tensor-core kernels, by their label's first word
+B1_KERNELS = ("B", "C", "F1", "F2", "F4", "G")
+# B's and C's instances as nvcc 12.9 compiled them before F2 shared their
+# mainloop (instructions, sha256 of their text with the addresses and
+# encodings stripped, sass_digests); any change to B's or C's code shows here
+B_C_SASS = {
+    "B popcount_gemm copies of 4 B": "2656 instructions, sha256 14ddc74393227442",
+    "B popcount_gemm copies of 16 B": "2440 instructions, sha256 9242b6bdc417ebef",
+    "C popcount_gemm copies of 4 B": "2840 instructions, sha256 b951f837f65382da",
+    "C popcount_gemm copies of 16 B": "2632 instructions, sha256 14e3e01937452983",
+}
 SASS_OPS = (*MMA_OPS, "POPC", "LOP3", "SHF", "IMAD", "IADD3", "LDSM", "LDS",
             "STS", "LDGSTS", "UTMALDG", "SYNCS", "BAR", "WARPGROUP")
 
 
+def b1_k256(label: str) -> int:
+    """The single-bit wgmma a warp issues per K step of a single-bit
+    tensor-core kernel: four k256 of each product (C: two products) at
+    steps of 32 words; F2 one per 8 words of its step."""
+    step = re.search(r" k(\d+) ", label)
+    if step:
+        return int(step.group(1)) // 8
+    return 8 if label.startswith("C ") else 4
+
+
+def b1_popc_cap(label: str) -> int:
+    """The POPC a thread may issue a K step for the operand popcounts: a
+    row of the step's words of x or w (B, F1, F4, G: 32; F2: 16 or 8), C
+    half a row of mask & sign."""
+    return 16 if label.startswith("C ") else 8 * b1_k256(label)
+
+
 def popcount_gemm_label(name: str) -> str:
-    """The label of a popcount_gemm.cuh kernel instance from its mangled
-    name: ``popcount_gemm_tma_kernel<kBN, kStages>`` is F4's, by its
-    columns and stages; ``popcount_gemm_kernel<kTernary, kVec, kNacc, kBN,
-    kStages>`` B's and C's at wide N by their copy width, G's by its sets
-    (G with one set is B's instance)."""
+    """The label of a single-bit tensor-core kernel instance from its
+    mangled name: ``popcount_outer_kernel<BM, BN>`` is F1's, by its block;
+    ``popcount_gemm_steps_kernel<kVec, kStepW, kBN, kStages>`` F2's, by its
+    K step, columns, stages and copy width; ``popcount_gemm_tma_kernel<kBN,
+    kStages>`` F4's, by its columns and stages; ``popcount_gemm_kernel<
+    kTernary, kVec, kNacc, kBN, kStages>`` B's and C's at wide N by their
+    copy width, G's by its sets (G with one set is B's instance)."""
     args = [int(v) for _, v in re.findall(r"L([bi])(\d+)E", name)]
+    if "popcount_outer_kernel" in name:
+        bm, bn = args
+        return f"F1 popcount_outer {bm}x{bn}"
+    if "popcount_gemm_steps_kernel" in name:
+        vec, bk, bn, stages = args
+        return f"F2 popcount_gemm k{bk} n{bn} s{stages} copies of {vec} B"
     if "popcount_gemm_tma_kernel" in name:
         bn, stages = args
         return f"F4 popcount_gemm n{bn} s{stages}"
@@ -999,6 +1063,9 @@ def popcount_gemm_labels() -> list:
     from qnx_torch.kernels import gemm_formulations as G
 
     labels = [f"{op} popcount_gemm copies of {v} B" for op in "BC" for v in (4, 16)]
+    labels += [f"F1 popcount_outer {bm}x{bn}" for bm, bn in G.OUTER_GEOMETRIES]
+    labels += [f"F2 popcount_gemm k{bk} n{bn} s{st} copies of {v} B"
+               for bn, bk, st in G.OUTER_ACC_GEOMETRIES for v in (4, 16)]
     labels += [f"F4 popcount_gemm n{bn} s{st}" for bn, st in G.LANERED_GEOMETRIES]
     return labels + [f"G popcount_gemm nacc={a} n{bn} s{st} copies of {v} B"
                      for a, (bn, st) in G.MULTIACC_TILING.items() if a > 1
@@ -1010,17 +1077,16 @@ def popcount_gemm_labels() -> list:
 E_K32_PER_STEP = 4
 
 
-def mma_sass(library: Path) -> dict:
-    """{kernel instance (A, A' or D's planes, conv or dense, and KW; E's,
-    B's and C's copy width; F4's and G's tiling, :func:`popcount_gemm_label`):
-    (opcode Counter of the function, of its K loop,
-    K steps an iteration of that loop)} of each expand_mma_conv3x3_kernel,
-    expand_mma_dense_kernel, i8_conv3x3_kernel, popcount_gemm_kernel and
-    popcount_gemm_tma_kernel instance in the built library, or {} without
-    ``cuobjdump``.  The K loop is the innermost backward branch's range
-    that holds the most MMAs; a step issues KW IGMMA (wgmma) a warp, E's
-    E_K32_PER_STEP, the popcount_gemm instances' POPCOUNT_GEMM_K256 BGMMA,
-    or 16 times as many IMMA (mma.sync)."""
+# the kernel templates whose instances mma_sass reads
+SASS_KERNELS = ("expand_mma_conv3x3_kernel", "expand_mma_dense_kernel",
+                "i8_conv3x3_kernel", "popcount_gemm_kernel", "popcount_gemm_tma_kernel",
+                "popcount_gemm_steps_kernel", "popcount_outer_kernel")
+
+
+def sass_functions(library: Path) -> dict:
+    """{mangled name: [its SASS instruction lines]} of the
+    :data:`SASS_KERNELS` instances in the built library, or {} without
+    ``cuobjdump``."""
     from qnx_torch.experiments.vpu_probe import _cuobjdump
 
     tool = _cuobjdump()
@@ -1032,20 +1098,54 @@ def mma_sass(library: Path) -> dict:
     for line in sass.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            name = (head.group(1) if any(k in head.group(1) for k in (
-                "expand_mma_conv3x3_kernel", "expand_mma_dense_kernel",
-                "i8_conv3x3_kernel", "popcount_gemm_kernel",
-                "popcount_gemm_tma_kernel")) else None)
+            name = head.group(1) if any(k in head.group(1) for k in SASS_KERNELS) else None
             if name:
                 funcs[name] = []
+        elif name and re.match(r"\s*/\*[0-9a-f]+\*/\s", line):
+            funcs[name].append(line)
+    return funcs
+
+
+def sass_digests(functions: dict, labels) -> dict:
+    """{label: "N instructions, sha256 ..."} of the :func:`sass_functions`
+    instances with these :func:`popcount_gemm_label` labels: each
+    instruction's text without its address and encoding, so equal code
+    gives an equal digest whatever the instance's name."""
+    import hashlib
+
+    out = {}
+    for name, lines in functions.items():
+        if "popcount_" not in name:
             continue
-        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
-                       r"([^;]*)", line)
-        if name and ins:
-            target = re.search(r"0x([0-9a-f]+)", ins.group(3))
-            funcs[name].append((int(ins.group(1), 16), ins.group(2).split(".")[0],
-                                int(target.group(1), 16)
-                                if ins.group(2) == "BRA" and target else None))
+        label = popcount_gemm_label(name)
+        if label in labels:
+            text = "\n".join(re.sub(r"^\s*/\*[0-9a-f]+\*/\s*|\s*/\*.*?\*/\s*$", "", ln)
+                             .strip() for ln in lines)
+            out[label] = (f"{len(lines)} instructions, sha256 "
+                          f"{hashlib.sha256(text.encode()).hexdigest()[:16]}")
+    return out
+
+
+def mma_sass(functions: dict) -> dict:
+    """{kernel instance (A, A' or D's planes, conv or dense, and KW; E's,
+    B's and C's copy width; F1's, F2's, F4's and G's tiling,
+    :func:`popcount_gemm_label`): (opcode Counter of the function, of its K
+    loop, K steps an iteration of that loop)} of each :func:`sass_functions`
+    instance.  The K loop is the innermost backward branch's range that
+    holds the most MMAs; a step issues KW IGMMA (wgmma) a warp, E's
+    E_K32_PER_STEP, the single-bit instances' :func:`b1_k256` BGMMA, or 16
+    times as many IMMA (mma.sync)."""
+    funcs = {}
+    for name, code in functions.items():
+        funcs[name] = []
+        for line in code:
+            ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+                           r"([^;]*)", line)
+            if ins:
+                target = re.search(r"0x([0-9a-f]+)", ins.group(3))
+                funcs[name].append((int(ins.group(1), 16), ins.group(2).split(".")[0],
+                                    int(target.group(1), 16)
+                                    if ins.group(2) == "BRA" and target else None))
     out = {}
     for name, code in funcs.items():
         def mmas(lo, hi):
@@ -1060,9 +1160,9 @@ def mma_sass(library: Path) -> dict:
         *first, last = (int(v) for v in re.findall(r"Li(\d+)E", name))
         if "i8_conv3x3_kernel" in name:
             label, k32 = f"E copies of {last} B", E_K32_PER_STEP
-        elif "popcount_gemm" in name:
+        elif "popcount_" in name:
             label = popcount_gemm_label(name)
-            k32 = POPCOUNT_GEMM_K256[label.split()[0]]
+            k32 = b1_k256(label)
         else:
             ops = ("D P=" + str(first[0] or "any")
                    + (" corr" if "Lb1E" in name else "")  # kBorderTerm
@@ -1125,6 +1225,7 @@ def phase_kernels(torch, err: dict) -> None:
     cases += (ternary_vgg_cases() + plane_cases() + dense_cases() + head_cases()
               + popcount_cases() + measured_cases())
     splits_seen = set()
+    shared = (None, None)  # (plain_key, plain output) of the last shared shape
     for kind, b, shape in cases:
         case = make_case(torch, rng, kind, b, shape)
         try:
@@ -1132,7 +1233,11 @@ def phase_kernels(torch, err: dict) -> None:
         except DoesNotFit as e:  # a geometry the shootout prints as such
             log("kernels", f"{case.name} {kind} batch {b} {shape}: does not fit ({e})")
             continue
-        want = case.plain()
+        if case.plain_key is not None and case.plain_key == shared[0]:
+            want = shared[1]
+        else:
+            want = case.plain()
+            shared = (case.plain_key, want)
         torch.cuda.synchronize()
         compare(torch, err, case.name, got, want, case.words,
                 f"{kind} batch {b} {shape}")
@@ -1141,6 +1246,7 @@ def phase_kernels(torch, err: dict) -> None:
         log("kernels", f"{case.name} {kind} batch {b} {shape}: out "
             f"{tuple(got.shape)}, equal, max_abs_err {err[case.name]}"
             + (f", K split over {split} blocks" if split else ""))
+    formulation_words.cache_clear()
     if splits_seen - {None} != {1, 2, 4, 8}:
         raise AssertionError(f"the dense cases reached the splits "
                              f"{sorted(splits_seen - {None})}, not 1, 2, 4 and 8")
@@ -1149,7 +1255,7 @@ def phase_kernels(torch, err: dict) -> None:
 DENSE_NAMES = ("xnor_dense_fused", "ternary_dense_fused", "plane_dense_fused")
 # the kernels phase 7 also times as CUDA graph replays
 GRAPH_NAMES = (*DENSE_NAMES, *HEADS.values(), "xnor_gemm_popcount", "ternary_gemm",
-               "gemm_lanered", "xnor_multiacc")
+               "gemm_outer", "gemm_outer_acc", "gemm_lanered", "xnor_multiacc")
 
 
 def dense_split(torch, name: str, m: int, shape) -> int | None:
@@ -2327,13 +2433,15 @@ def phase_times(torch, card: str, models: dict) -> dict:
 
 
 def time_scan_group(torch, card: str) -> None:
-    """Kernel B, every compiled geometry of F4 and of G, and one
-    ``torch._int_mm`` on the same product, at :data:`SCAN` on the same
-    seeded words, in one interleaved group, as CUDA graph replays and per
-    call (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`,
-    marginal medians); each held equal to B first.  F4 against B is what
-    B's transposing weight copies cost against TMA boxes; G against B what
-    independent wgmma groups give."""
+    """Kernel B, every compiled geometry of F1 that fits at :data:`SCAN`,
+    of F2, F4 and G, and one ``torch._int_mm`` on the same product, at
+    :data:`SCAN` on the same seeded words, in one interleaved group, as CUDA
+    graph replays and per call
+    (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`,
+    marginal medians); each held equal to B first.  F1 against B is what
+    B's per-step barriers and refills cost against one fill a block; F2
+    what narrower K steps cost; F4 what B's transposing weight copies cost
+    against TMA boxes; G what independent wgmma groups give."""
     from qnx_torch.bench.microbench import time_fns_marginal_interleaved
     from qnx_torch.bench.roofline import H100_PEAKS
     from qnx_torch.experiments.gemm_shootout import random_words
@@ -2346,6 +2454,13 @@ def time_scan_group(torch, card: str) -> None:
     wp = cuda(torch, random_words(rng, n, k, along_rows=True))
     wpt = wp.t().contiguous()
     targets = {"B": (lambda: xnor_gemm_popcount(xp, wp, k), ())}
+    for bm, bn in G.OUTER_GEOMETRIES:
+        if G.outer_smem_bytes(bm, bn, xp.shape[1]) <= G.SMEM_LIMIT:
+            targets[f"F1 outer-{bm}x{bn}"] = (
+                lambda g=(bm, bn): G.gemm_outer(xp, wp, k, *g), ())
+    for g in G.OUTER_ACC_GEOMETRIES:
+        targets[f"F2 {G.outer_acc_name(*g)}"] = (
+            lambda g=g: G.gemm_outer_acc(xp, wp, k, *g), ())
     for bn, st in G.LANERED_GEOMETRIES:
         targets[f"F4 {G.lanered_name(bn, st)}"] = (
             lambda g=(bn, st): G.gemm_lanered(xp, wpt, k, *g), ())
@@ -2368,7 +2483,7 @@ def time_scan_group(torch, card: str) -> None:
                                                       median=r["median"] * 1e3))
     lib = out["library"]
     for name, r in out.items():
-        log("times", f"{card} | scan group {m}x{k}x{n} (B, F4, G, _int_mm "
+        log("times", f"{card} | scan group {m}x{k}x{n} (B, F1, F2, F4, G, _int_mm "
             f"interleaved): {name} graph replays {r['graph_fmt']}; per call "
             f"{r['call_fmt']}; over _int_mm {r['graph'] / lib['graph']:.3f} "
             f"(replays), {r['call'] / lib['call']:.3f} (per call); over B "

@@ -14,7 +14,7 @@ the single-bit tensor cores: B and G one AND-popcount MAC a MAC, C two
 ``qnx_torch.bench.tc_probe`` measured.  A second, labelled column holds a
 popcount kernel on the CUDA cores to the popc issue rate that
 ``qnx_torch.experiments.vpu_probe`` measured; no row here runs there since
-G moved to the tensor cores (the shootout's F1-F3 still do).  The fused
+G moved to the tensor cores (the shootout's F3 still does).  The fused
 dense kernels of A, A' and D (on the int8 tensor cores since they were
 redesigned) run in a few microseconds at the served batch of 256, less than
 a host launch through their Python wrappers, so they and their library

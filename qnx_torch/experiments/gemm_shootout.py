@@ -6,7 +6,9 @@ At the JAX file's three shapes, at full size, and at the MNIST MLP head's
 baseline, :func:`qnx_torch.kernels.xnor_gemm.xnor_gemm_popcount`, on the
 single-bit tensor cores: :data:`BASELINE_ROUTE`), every
 geometry of the four formulations F1-F4
-(:mod:`qnx_torch.kernels.gemm_formulations`: F1-F3 on the CUDA cores, F4
+(:mod:`qnx_torch.kernels.gemm_formulations`: F1 on the single-bit tensor
+cores with all of K staged once a block, :data:`OUTER_ROUTE`; F2 on B's
+mainloop at narrower K steps, :data:`STEPS_ROUTE`; F3 on the CUDA cores; F4
 on the single-bit tensor cores with its K-major tiles fed by TMA,
 :data:`TMA_ROUTE`) and, as context, one ``torch._int_mm`` on the unpacked ±1
 int8 operands (a library GEMM with no packing).  Every candidate's output must equal B's; a geometry
@@ -14,9 +16,9 @@ whose shared-memory strips do not fit prints as "does not fit", and any
 other error propagates.  Times are marginal and interleaved
 (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`); each row
 gives ms, TMAC/s, and its share of the bounds of the units it runs on
-(:data:`qnx_torch.bench.roofline.H100_PEAKS`): F1-F3 the MACs at the int8
-tensor-core rate and the popc ceiling, the library the int8 rate, B and F4
-the measured single-bit rate; a share that does not apply is None.
+(:data:`qnx_torch.bench.roofline.H100_PEAKS`): F3 the MACs at the int8
+tensor-core rate and the popc ceiling, the library the int8 rate, B, F1, F2
+and F4 the measured single-bit rate; a share that does not apply is None.
 
     python -m qnx_torch.experiments.gemm_shootout
 """
@@ -44,6 +46,11 @@ BASELINE_ROUTE = ("wgmma m64n128k256 .b1.b1.and.popc, the single-bit tensor core
                   "(csrc/popcount_gemm.cu)")
 TMA_ROUTE = ("the same wgmma on K-major x and wt tiles, both fed by TMA "
              "(csrc/popcount_gemm.cuh)")
+OUTER_ROUTE = ("the same wgmma on whole-K strips staged once a block, x by TMA "
+               "(csrc/gemm_formulations.cu)")
+STEPS_ROUTE = "B's mainloop at K steps of 16 or 8 words (csrc/popcount_gemm.cuh)"
+#: the candidates on the single-bit tensor cores, by name prefix
+B1_PREFIXES = ("outer-", "outer_acc-", "lanered-")
 LIBRARY = "torch._int_mm ±1 int8 (library, unpacked)"
 
 
@@ -65,9 +72,9 @@ def candidates(k: int) -> dict:
     for bm, bn in G.OUTER_GEOMETRIES:
         cands[f"outer-{bm}x{bn}"] = (
             lambda xp, wp, wpt, g=(bm, bn): G.gemm_outer(xp, wp, k, *g))
-    for bm, bn, bk in G.OUTER_ACC_GEOMETRIES:
-        cands[f"outeracc-{bm}x{bn}x{bk}"] = (
-            lambda xp, wp, wpt, g=(bm, bn, bk): G.gemm_outer_acc(xp, wp, k, *g))
+    for g in G.OUTER_ACC_GEOMETRIES:
+        cands[G.outer_acc_name(*g)] = (
+            lambda xp, wp, wpt, g=g: G.gemm_outer_acc(xp, wp, k, *g))
     for bm, bn, kc in G.CHUNK3D_GEOMETRIES:
         cands[f"chunk3d-{bm}x{bn}x{kc}"] = (
             lambda xp, wp, wpt, g=(bm, bn, kc): G.gemm_chunk3d(xp, wp, k, *g))
@@ -118,7 +125,7 @@ def run_shape(name: str, m: int, k: int, n: int, *, iters: int, repeats: int,
     popc_s = macs / WORD / H100_PEAKS["popc_ops"]
     b1_s = macs / H100_PEAKS["b1_macs"]
     for cname, r in res.items():
-        b1 = cname == BASELINE or cname.startswith("lanered-")
+        b1 = cname == BASELINE or cname.startswith(B1_PREFIXES)
         cuda_cores = not b1 and cname != LIBRARY
         rows.append({"shape": name, "candidate": cname, "fits": True,
                      "equal": True, "ms": r["t"] * 1e3, "tmacs": macs / r["t"] / 1e12,
@@ -148,8 +155,9 @@ def main(shapes=SHAPES, iters: int = 16, repeats: int = 5, device="cuda") -> lis
     device = resolve_device(device)
     print(f"# gemm shootout on {device_label(device)}; marginal ms, interleaved, "
           f"{iters} calls x {repeats} rounds; L2-warm where the operands fit in "
-          f"50 MB; the baseline {BASELINE} runs {BASELINE_ROUTE}, F1-F3 the "
-          f"CUDA cores, F4 {TMA_ROUTE}", flush=True)
+          f"50 MB; the baseline {BASELINE} runs {BASELINE_ROUTE}, F1 "
+          f"{OUTER_ROUTE}, F2 {STEPS_ROUTE}, F3 the CUDA cores, F4 {TMA_ROUTE}",
+          flush=True)
     rows = []
     for name, m, k, n in shapes:
         shape_rows = run_shape(name, m, k, n, iters=iters, repeats=repeats,

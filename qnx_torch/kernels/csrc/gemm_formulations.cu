@@ -9,227 +9,242 @@
 //
 //   outer<BM, BN>          experiments/gemm_shootout.py:v_outer (F1): a block
 //                          stages its whole (BM, Kw) and (Kw, BN) strips in
-//                          shared memory once; each thread keeps an 8x8
-//                          register tile over all Kw words, one 128x128
-//                          sub-tile of the block tile after another.
-//   outer_acc<BM, BN, BK>  v_outer_acc (F2): the 8x8 register tile over K
-//                          steps of BK words through a double-buffered
-//                          shared-memory ring filled by cp.async.
+//                          shared memory in one fill behind one barrier, x
+//                          as TMA boxes, the weights by B's word transpose;
+//                          then each warpgroup issues every k256 wgmma of
+//                          its 64 rows in one commit group, with no barrier
+//                          or refill between K steps, for each 128 x BN'
+//                          sub-tile of the block in turn (BN' = min(BN, 128)).
+//   outer_acc<BN, BK, S>   v_outer_acc (F2): B's mainloop (popcount_gemm.cuh)
+//                          at K steps of BK = 16 or 8 words, 64- or 32-byte
+//                          tile rows in the swizzle of that width, through a
+//                          ring of S stages, BN columns a block.
 //   chunk3d<BM, BN, KC>    v_chunk3d (F3): K in slabs of 32 words in shared
 //                          memory; per step a thread takes KC consecutive
 //                          words of each of its rows and columns as uint4
 //                          loads and adds the chunk's popcount sum.
 //   lanered<BN, STAGES>    v_lanered (F4): the dot form, x (M, Kw) against
 //                          wt (N, Kw), both K-major, on the single-bit tensor
-//                          cores: B's mainloop (popcount_gemm.cuh) with both
-//                          tiles filled by TMA boxes into a ring of STAGES,
-//                          BN columns a block; no word transpose.
+//                          cores: B's mainloop with both tiles filled by TMA
+//                          boxes into a ring of STAGES, BN columns a block;
+//                          no word transpose.
 //   multiacc<NACC>         experiments/xnor_sol_variants.py:xnor_multiacc
 //                          (G): B's mainloop on B's N-major weights with NACC
 //                          accumulator fragment sets, K step i into set
 //                          i % NACC, NACC independent wgmma groups in flight;
 //                          NACC = 1 is B's schedule.
 //
-// F1-F3 stay on the CUDA cores, bound by popc issue, one popc per 32 MACs,
-// at 16 popc per clock per SM (compute capability 9.0); xor and add issue
-// beside it.  They differ in what feeds the popc unit: shared-memory loads
-// per popc (outer: 2 per 8x8 = 64 popc per word step; chunk3d: 2 uint4 per
-// 16 KC popc) and the occupancy their shared memory and registers leave.
-// Pad bits are 0 in both operands, so they XOR to 0; words past Kw, rows
-// past M and columns past N stage as 0 and are never stored.  F4 and G run
-// the AND-popcount wgmma at B's rate; their least time is B's, bound by
-// the int32 output's bytes (0.0058 ms at 1024 x 4096 x 4096).  F4 measures
-// what B's transposing weight copies cost and what a TMA-fed mainloop
-// gives; G whether independent wgmma groups shorten B's step chain.
+// F3 stays on the CUDA cores, bound by popc issue, one popc per 32 MACs, at
+// 16 popc per clock per SM (compute capability 9.0); xor and add issue
+// beside it; what it varies is what feeds the popc unit (2 uint4 shared
+// loads per 16 KC popc) and the occupancy its shared memory and registers
+// leave.  Pad bits are 0 in both operands, so they XOR to 0; words past Kw,
+// rows past M and columns past N stage as 0 and are never stored.  F1, F2,
+// F4 and G run the AND-popcount wgmma at B's rate (s = k - 2 (rx + cw) +
+// 4 P, popcount_gemm.cuh); their least time is B's, bound by the int32
+// output's bytes (0.0058 ms at 1024 x 4096 x 4096).  F1 measures what B's
+// per-step barriers and refills cost, F2 what narrower K steps cost, F4
+// what B's transposing weight copies cost against TMA boxes, G whether
+// independent wgmma groups shorten B's step chain.
 #include <cuda_runtime.h>
 
 #include "popcount_gemm.cuh"
 
 namespace {
 
-constexpr int kTile = 8;               // rows and columns of a thread's register tile
-constexpr int kSide = 16;              // threads along each side of a sub-tile
+constexpr int kSide = 16;              // threads along each side of a block tile
 constexpr int kThreads = kSide * kSide;
-constexpr int kSub = kSide * kTile;    // 128: the sub-tile 256 threads cover
 constexpr int kSlab = 32;              // chunk3d: words of K per shared-memory slab
 constexpr int kSlabStride = kSlab + 4; // keeps rows 16-byte aligned, spreads banks
-constexpr size_t kMaxSmem = 232448;    // 227 KiB, what one block may opt in to
 constexpr int kMaxGridY = 65535;
 
 // The row blocks of a tiled kernel go in grid.y, which holds at most 65535.
 inline bool rows_fit(int m, int bm) { return (m + bm - 1) / bm <= kMaxGridY; }
 
+}  // namespace
+
+namespace qnx {
+namespace {
+
 // ---------------------------------------------------------------- F1 outer
 
-// grid (ceil(n / BN), ceil(m / BM)), kThreads threads, dynamic shared memory
-// BM * (kw | 1) + kw * BN words.  x rows are kept at an odd stride so the two
-// rows a warp reads at once fall in different banks.
+constexpr size_t kMaxSmem = 232448;  // 227 KiB, what one block may opt in to
+
+// An F1 block's dynamic shared memory at kw words: the x strip [kt][bm
+// rows][128 bytes] and the weight strip [kt][bn rows][128 bytes], kt =
+// ceil(kw / 32) tiles in B's 128-byte swizzle, then the barrier and the row
+// and column terms (gemm_formulations.outer_smem_bytes).
+constexpr size_t outer_smem_bytes(int bm, int bn, int kw) {
+  return kSwizzleAlign + static_cast<size_t>(bm + bn) * ((kw + kKW - 1) / kKW) * kRowBytes +
+         sizeof(uint64_t) + sizeof(int) * (bm + bn);
+}
+
+// grid (ceil(m / BM), ceil(n / BN)), kThreads (256) threads, dynamic shared
+// memory outer_smem_bytes(BM, BN, kw).  xmap: x (M, Kw4) in boxes of 32
+// words x 128 rows, Kw4 = Kw rounded up to 4 (the wrapper pads x's rows).
 template <int BM, int BN>
-__global__ void __launch_bounds__(kThreads)
-outer_kernel(const unsigned* __restrict__ xp, const unsigned* __restrict__ wp,
-             int* __restrict__ out, int m, int kw, int n, int k) {
-  extern __shared__ unsigned smem[];
-  const int xs_stride = kw | 1;
-  unsigned* xs = smem;                                          // [BM][xs_stride]
-  unsigned* ws = smem + static_cast<size_t>(BM) * xs_stride;    // [kw][BN]
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+__global__ void __launch_bounds__(kThreads, 2)
+popcount_outer_kernel(const GemmArgs a, const __grid_constant__ CUtensorMap xmap) {
+  static_assert(BM % kBM == 0 && (BN == 64 || BN % 128 == 0) && BN <= kThreads,
+                "128-row sub-tiles of 64 or 128 columns");
+  constexpr int kSub = BN < 128 ? BN : 128;  // columns of a sub-tile, the wgmma's N
+  constexpr int kRegs = kSub / 2;            // accumulators a thread
+  constexpr int kWStride = kThreads / BN;    // words between a thread's
+  constexpr int kWords = BN * kKW / kThreads;  // kWords weight copies a K tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  const int kt_n = (a.kw + kKW - 1) / kKW;  // K tiles of 32 words
+  unsigned char* xs = smem;                                              // [kt][BM][128 B]
+  unsigned char* ws = xs + static_cast<size_t>(kt_n) * BM * kRowBytes;   // [kt][BN][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + static_cast<size_t>(kt_n) * BN * kRowBytes);
+  int* row_base = reinterpret_cast<int*>(full + 1);  // [BM]: k - 2 rx
+  int* col_base = row_base + BM;                     // [BN]: -2 cw
+
   const int tid = threadIdx.x;
-  for (int i = tid; i < BM * kw; i += kThreads) {
-    const int r = i / kw, c = i - r * kw;
-    xs[r * xs_stride + c] =
-        m0 + r < m ? __ldg(xp + static_cast<size_t>(m0 + r) * kw + c) : 0u;
-  }
-  for (int i = tid; i < kw * BN; i += kThreads) {
-    const int r = i / BN, c = i % BN;
-    ws[i] = n0 + c < n ? __ldg(wp + static_cast<size_t>(r) * n + n0 + c) : 0u;
+  __builtin_assume(tid < kThreads);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wg = warp >> 2;
+  const int wrow = wg * 64 + (warp & 3) * 16 + g;  // and wrow + 8, of a sub-tile
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  // the 128-row sub-strips that hold rows of x: only they are filled
+  const int row_blocks = min(BM / kBM, (a.m - m0 + kBM - 1) / kBM);
+
+  // the fill: every x box on one barrier, every weight word by cp.async
+  if (tid == 0) {
+    mbar_init(full, 1);
+    fence_mbarrier_init();
   }
   __syncthreads();
-
-  const int tx = tid % kSide, ty = tid / kSide;
-  for (int sm = 0; sm < BM && m0 + sm < m; sm += kSub) {
-    for (int sn = 0; sn < BN && n0 + sn < n; sn += kSub) {
-      int acc[kTile][kTile] = {};
-      const unsigned* xr = xs + (sm + ty) * xs_stride;
-      const unsigned* wr = ws + sn + tx;
-#pragma unroll 2
-      for (int c = 0; c < kw; ++c) {
-        unsigned a[kTile], b[kTile];
-#pragma unroll
-        for (int i = 0; i < kTile; ++i) a[i] = xr[i * kSide * xs_stride + c];
-#pragma unroll
-        for (int j = 0; j < kTile; ++j) b[j] = wr[c * BN + j * kSide];
-#pragma unroll
-        for (int i = 0; i < kTile; ++i)
-#pragma unroll
-          for (int j = 0; j < kTile; ++j) acc[i][j] += __popc(a[i] ^ b[j]);
+  if (tid == 0) {
+    mbar_arrive_expect_tx(full, static_cast<unsigned>(kt_n * row_blocks * kBM * kRowBytes));
+    for (int kt = 0; kt < kt_n; ++kt) {
+      for (int i = 0; i < row_blocks; ++i) {
+        tma_load_2d(xs + (static_cast<size_t>(kt) * BM + i * kBM) * kRowBytes, &xmap,
+                    kt * kKW, m0 + i * kBM, full);
       }
+    }
+  }
+  // word i of column wc of a K tile to word i of its tile row wc (B's word
+  // transpose), a warp's loads coalesced along n
+  const int wc = tid % BN;
+  const int wi0 = tid / BN;
+  const bool wlive = n0 + wc < a.n;
+  const size_t col = static_cast<size_t>(wlive ? n0 + wc : 0);
+  for (int kt = 0; kt < kt_n; ++kt) {
+    unsigned char* tw = ws + static_cast<size_t>(kt) * BN * kRowBytes;
 #pragma unroll
-      for (int i = 0; i < kTile; ++i) {
-        const int row = m0 + sm + ty + i * kSide;
-        if (row >= m) break;
+    for (int j = 0; j < kWords; ++j) {
+      const int i = wi0 + kWStride * j;
+      const int kword = kt * kKW + i;
+      const bool valid = wlive && kword < a.kw;
+      cp_async<4>(tw + word_at(wc, i),
+                  valid ? a.w + static_cast<size_t>(kword) * a.n + col : a.w, valid);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();  // this thread's copies: visible to wgmma
+  mbar_wait(full, 0);   // every box has landed
+  __syncthreads();      // ... and every thread's copies
+
+  // the product: each 128 x kSub sub-tile in turn, all of K in one group
+  int acc[1][kRegs];
+  for (int i = 0; i < row_blocks; ++i) {
+    for (int j = 0; j < BN / kSub; ++j) {
+      const int nj = n0 + j * kSub;
+      if (nj >= a.n) break;  // uniform
+      // zeros pinned before the fence: an accumulator a plain instruction
+      // defines inside the group would serialize its wgmma
 #pragma unroll
-        for (int j = 0; j < kTile; ++j) {
-          const int col = n0 + sn + tx + j * kSide;
-          if (col < n) out[static_cast<size_t>(row) * n + col] = k - 2 * acc[i][j];
+      for (int r = 0; r < kRegs; ++r) {
+        acc[0][r] = 0;
+        hold(acc[0][r]);
+      }
+      wgmma_fence();
+      for (int kt = 0; kt < kt_n; ++kt) {
+        const unsigned char* tx =
+            xs + (static_cast<size_t>(kt) * BM + i * kBM + wg * 64) * kRowBytes;
+        const unsigned char* tw = ws + (static_cast<size_t>(kt) * BN + j * kSub) * kRowBytes;
+        const int k256 = min(kK256, (a.kw - kt * kKW + 7) / 8);  // uniform
+#pragma unroll
+        for (int kc = 0; kc < kK256; ++kc) {
+          if (kc < k256) {
+            wgmma_b1_k256(acc[0], tile_desc_sw128(tx + kc * 32),
+                          tile_desc_sw128(tw + kc * 32));
+          }
         }
       }
+      wgmma_commit();
+      if (i == 0 && j == 0) {
+        // the row and column terms from the staged strips, while the first
+        // group runs: k - 2 rx of the filled rows, -2 cw of every column
+        for (int r = tid; r < row_blocks * kBM + BN; r += kThreads) {
+          const bool is_x = r < row_blocks * kBM;
+          const int rr = is_x ? r : r - row_blocks * kBM;
+          const unsigned char* strip = is_x ? xs : ws;
+          const size_t tile = static_cast<size_t>(is_x ? BM : BN) * kRowBytes;
+          int sum = 0;
+          for (int kt = 0; kt < kt_n; ++kt) sum += row_popc<kChunks>(strip + kt * tile, rr, 0);
+          if (is_x) {
+            row_base[rr] = static_cast<int>(static_cast<unsigned>(a.k) - 2u * sum);
+          } else {
+            col_base[rr] = -2 * sum;
+          }
+        }
+        __syncthreads();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < kRegs; ++r) hold(acc[0][r]);
+      store_tile<false, kSub>(a, m0 + i * kBM, nj, wrow, t, row_base + i * kBM,
+                              col_base + j * kSub, acc);
     }
   }
 }
 
+// F1's launch: x rows of Kw rounded up to 4 words at a 16-byte aligned
+// address (the wrapper pads them), a.w (Kw, N).
 template <int BM, int BN>
-cudaError_t launch_outer(const unsigned* xp, const unsigned* wp, int* out, int m,
-                         int kw, int n, int k, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(unsigned) * (static_cast<size_t>(BM) * (kw | 1) + static_cast<size_t>(kw) * BN);
-  if (smem > kMaxSmem || !rows_fit(m, BM)) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      outer_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  outer_kernel<BM, BN><<<dim3((n + BN - 1) / BN, (m + BM - 1) / BM), kThreads, smem,
-                         stream>>>(xp, wp, out, m, kw, n, k);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------ F2 outer_acc
-
-__device__ __forceinline__ void cp_async4(unsigned* dst, const unsigned* src,
-                                          bool ok) {
-  // 4-byte copy, or 4 zero bytes (source size 0) past the operand's edge
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// grid (ceil(n / BN), ceil(m / BM)), (BM / 8) * (BN / 8) threads.  Each ring
-// stage holds x transposed, [BK][BM + 1] (the + 1 keeps the transposing
-// stores conflict-free), and w as [BK][BN].  Copies are 4 bytes wide, so any
-// Kw and N are allowed.
-template <int BM, int BN, int BK>
-__global__ void __launch_bounds__((BM / kTile) * (BN / kTile))
-outer_acc_kernel(const unsigned* __restrict__ xp, const unsigned* __restrict__ wp,
-                 int* __restrict__ out, int m, int kw, int n, int k) {
-  constexpr int kTx = BN / kTile, kTy = BM / kTile, kNt = kTx * kTy;
-  constexpr int kXs = BK * (BM + 1), kWs = BK * BN;
-  __shared__ unsigned xs[2][kXs];
-  __shared__ unsigned ws[2][kWs];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tx = tid % kTx, ty = tid / kTx;
-
-  auto load = [&](int stage, int kw0) {
-    for (int i = tid; i < BM * BK; i += kNt) {
-      const int r = i / BK, kk = i % BK;
-      const bool ok = m0 + r < m && kw0 + kk < kw;
-      cp_async4(&xs[stage][kk * (BM + 1) + r],
-                ok ? xp + static_cast<size_t>(m0 + r) * kw + kw0 + kk : xp, ok);
-    }
-    for (int i = tid; i < BK * BN; i += kNt) {
-      const int kk = i / BN, c = i % BN;
-      const bool ok = kw0 + kk < kw && n0 + c < n;
-      cp_async4(&ws[stage][i],
-                ok ? wp + static_cast<size_t>(kw0 + kk) * n + n0 + c : wp, ok);
-    }
-    cp_async_commit();
-  };
-
-  int acc[kTile][kTile] = {};
-  const int steps = (kw + BK - 1) / BK;
-  load(0, 0);
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      load((s + 1) & 1, (s + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned* xb = xs[s & 1] + ty;
-    const unsigned* wb = ws[s & 1] + tx;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      unsigned a[kTile], b[kTile];
-#pragma unroll
-      for (int i = 0; i < kTile; ++i) a[i] = xb[kk * (BM + 1) + i * kTy];
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) b[j] = wb[kk * BN + j * kTx];
-#pragma unroll
-      for (int i = 0; i < kTile; ++i)
-#pragma unroll
-        for (int j = 0; j < kTile; ++j) acc[i][j] += __popc(a[i] ^ b[j]);
-    }
-    __syncthreads();  // the next iteration's copies overwrite this stage
+int launch_outer(const GemmArgs& a, void* stream) {
+  if (!sizes_ok(a) || reinterpret_cast<uintptr_t>(a.x) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    const int row = m0 + ty + i * kTy;
-    if (row >= m) break;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const int col = n0 + tx + j * kTx;
-      if (col < n) out[static_cast<size_t>(row) * n + col] = k - 2 * acc[i][j];
+  const size_t bytes = outer_smem_bytes(BM, BN, a.kw);
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t configured = [] {
+    cudaError_t e = cudaFuncSetAttribute(popcount_outer_kernel<BM, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kMaxSmem));
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(popcount_outer_kernel<BM, BN>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    }
+    return e;
+  }();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  CUtensorMap xmap{};
+  if (a.kw > 0 && a.m > 0 && a.n > 0) {  // else no box is issued
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+    if (!encode_rows(encode, &xmap, a.x, a.m, (a.kw + 3) / 4 * 4, kBM)) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  const dim3 grid((a.m + BM - 1) / BM, (a.n + BN - 1) / BN);
+  popcount_outer_kernel<BM, BN>
+      <<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a, xmap);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN, int BK>
-cudaError_t launch_outer_acc(const unsigned* xp, const unsigned* wp, int* out,
-                             int m, int kw, int n, int k, cudaStream_t stream) {
-  if (!rows_fit(m, BM)) return cudaErrorInvalidValue;
-  outer_acc_kernel<BM, BN, BK>
-      <<<dim3((n + BN - 1) / BN, (m + BM - 1) / BM), (BM / kTile) * (BN / kTile), 0,
-         stream>>>(xp, wp, out, m, kw, n, k);
-  return cudaGetLastError();
-}
+}  // namespace
+}  // namespace qnx
+
+namespace {
 
 // -------------------------------------------------------------- F3 chunk3d
 
@@ -328,22 +343,30 @@ extern "C" {
   static_cast<const unsigned*>(xp), static_cast<const unsigned*>(wp),       \
       static_cast<int*>(out), m, kw, n, k, static_cast<cudaStream_t>(stream)
 
+// F1: xp's rows hold Kw rounded up to 4 words (zeros past Kw) at a 16-byte
+// aligned address; wp is (Kw, N).
 int qnx_gemm_outer(const void* xp, const void* wp, void* out, int m, int kw, int n,
                    int k, int bm, int bn, void* stream) {
-  if (bm == 128 && bn == 128) return launch_outer<128, 128>(QNX_ARGS);
-  if (bm == 256 && bn == 128) return launch_outer<256, 128>(QNX_ARGS);
-  if (bm == 256 && bn == 256) return launch_outer<256, 256>(QNX_ARGS);
-  if (bm == 512 && bn == 256) return launch_outer<512, 256>(QNX_ARGS);
-  if (bm == 1024 && bn == 128) return launch_outer<1024, 128>(QNX_ARGS);
+  const qnx::GemmArgs a{static_cast<const unsigned*>(xp), static_cast<const unsigned*>(wp),
+                        nullptr, nullptr, static_cast<int*>(out), m, kw, n, k};
+  if (bm == 128 && bn == 128) return qnx::launch_outer<128, 128>(a, stream);
+  if (bm == 256 && bn == 128) return qnx::launch_outer<256, 128>(a, stream);
+  if (bm == 256 && bn == 256) return qnx::launch_outer<256, 256>(a, stream);
+  if (bm == 512 && bn == 256) return qnx::launch_outer<512, 256>(a, stream);
+  if (bm == 1024 && bn == 128) return qnx::launch_outer<1024, 128>(a, stream);
+  if (bm == 128 && bn == 64) return qnx::launch_outer<128, 64>(a, stream);
   return cudaErrorInvalidValue;
 }
 
+// F2: bn columns a block, K steps of bk words, a ring of `stages`.
 int qnx_gemm_outer_acc(const void* xp, const void* wp, void* out, int m, int kw,
-                       int n, int k, int bm, int bn, int bk, void* stream) {
-  if (bm == 64 && bn == 128 && bk == 16) return launch_outer_acc<64, 128, 16>(QNX_ARGS);
-  if (bm == 128 && bn == 128 && bk == 8) return launch_outer_acc<128, 128, 8>(QNX_ARGS);
-  if (bm == 128 && bn == 128 && bk == 16) return launch_outer_acc<128, 128, 16>(QNX_ARGS);
-  if (bm == 256 && bn == 128 && bk == 8) return launch_outer_acc<256, 128, 8>(QNX_ARGS);
+                       int n, int k, int bn, int bk, int stages, void* stream) {
+  const qnx::GemmArgs a{static_cast<const unsigned*>(xp), static_cast<const unsigned*>(wp),
+                        nullptr, nullptr, static_cast<int*>(out), m, kw, n, k};
+  if (bn == 128 && bk == 16 && stages == 6) return qnx::launch_steps<16, 128, 6>(a, stream);
+  if (bn == 128 && bk == 8 && stages == 12) return qnx::launch_steps<8, 128, 12>(a, stream);
+  if (bn == 128 && bk == 16 && stages == 3) return qnx::launch_steps<16, 128, 3>(a, stream);
+  if (bn == 64 && bk == 16 && stages == 9) return qnx::launch_steps<16, 64, 9>(a, stream);
   return cudaErrorInvalidValue;
 }
 

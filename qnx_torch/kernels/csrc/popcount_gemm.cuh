@@ -1,7 +1,8 @@
 // The packed binary (and two-plane ternary) popcount GEMM with int32 output
 // on Hopper's single-bit tensor cores (sm_90a): one mainloop for kernels B
-// and C at wide N (popcount_gemm.cu) and for F4 and G, the measurement
-// path's dot form and accumulator scan (gemm_formulations.cu).
+// and C at wide N (popcount_gemm.cu) and for F2, F4 and G, the measurement
+// path's K-step scan, dot form and accumulator scan (gemm_formulations.cu;
+// F1 there stages all of K once and shares the tiles and helpers below).
 //
 // The algebra.  wgmma takes single-bit operands only with AND
 // (wgmma.mma_async m64nNk256 .s32.b1.b1.and.popc), so each XOR becomes AND
@@ -21,9 +22,11 @@
 // 64), each warpgroup its 64 rows.  A K step is 32 words (1024 bits): one
 // 128-byte K-major row of each tile in the 128-byte swizzle (wgmma_conv.cuh),
 // four k256 wgmma a warpgroup (eight for C, against mask and against ms); a
-// step past the last word issues only the k256 that hold words.  The tiles
-// form a ring of kStages.  Two ways to fill it:
-//   * staged (B, C, G): x (M, Kw) is K-major and copies by cp.async, 16
+// step past the last word issues only the k256 that hold words.  F2 steps
+// through K kStepW = 16 or 8 words at a time instead: 64- or 32-byte tile
+// rows in the swizzle of that width, two or one k256 a step (Step<>).  The
+// tiles form a ring of kStages.  Two ways to fill it:
+//   * staged (B, C, F2, G): x (M, Kw) is K-major and copies by cp.async, 16
 //     bytes where Kw % 4 == 0 and x is 16-byte aligned, else 4.  The weights
 //     (Kw, N) are N-major, as the JAX kernels and the TP ring's row shards
 //     take them, so each weight tile is staged by a word transpose: a thread
@@ -39,9 +42,9 @@
 //     bytes and issues both boxes, and every thread waits on the barrier.
 //     No word transpose and no register staging.  The tensor maps need
 //     16-byte-aligned rows: Kw % 4 == 0 (the wrapper pads the others).
-// rx and cw (B, F4, G) or c_ms (C) are summed from the staged tiles while
-// the step's wgmma run: one 16-byte shared load and four __popc per 128
-// bits of a tile row, (BM + BN) 32 (B) or BN 32 (C) popc a block a step.
+// rx and cw (B, F2, F4, G) or c_ms (C) are summed from the staged tiles
+// while the step's wgmma run: one 16-byte shared load and four __popc per
+// 128 bits of a tile row, (BM + BN) 32 (B) or BN 32 (C) popc a block a step.
 // kNacc fragment sets (G): K step i accumulates into set i % kNacc, and
 // after committing a step the loop waits until kNacc groups are in flight
 // (wgmma.wait_group kNacc), each on its own set, so no group waits on the
@@ -50,9 +53,9 @@
 // kernel E (i8_conv_fused.cu).  A stage is refilled once the group that read
 // it is done: copies run kStages - 1 - kNacc steps ahead, and the barrier at
 // the top of each step holds the refill until every warpgroup has waited.
-// Epilogue: the int32 s from the accumulator fragments, the row and column
-// terms from shared memory, stores masked at M and N, two columns at a time
-// where N is even.
+// Epilogue (store_tile, F1's too): the int32 s from the accumulator
+// fragments, the row and column terms from shared memory, stores masked at M
+// and N, two columns at a time where N is even.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
@@ -70,11 +73,23 @@ constexpr int kKW = 32;                // words of K a step: a 128-byte tile row
 constexpr int kRowBytes = kKW * 4;
 constexpr int kK256 = kKW / 8;         // k256 wgmma a step
 constexpr int kThreads = 256;
-constexpr int kTileBytes = kBM * kRowBytes;  // the x tile
-constexpr int kChunks = kRowBytes / 16;      // 16-byte chunks of a tile row
-constexpr int kRowStride = kThreads / kChunks;
+constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks of a tile row
 constexpr size_t kSmemPerSm = 233472;  // 228 KiB, 1 KiB of it reserved a block
 static_assert(kChunks == 8, "128-byte rows");
+
+// The tiles of a K step of kStepW words: rows of 4 kStepW bytes in the
+// swizzle of that width, whose phase (the chunk index a row XORs in)
+// advances every kRowsAPhase rows.
+template <int kStepW>
+struct Step {
+  static_assert(kStepW == 32 || kStepW == 16 || kStepW == 8, "128-, 64- or 32-byte rows");
+  static constexpr int kRowBytes = 4 * kStepW;
+  static constexpr int kK256 = kStepW / 8;             // k256 wgmma a step
+  static constexpr int kTileBytes = kBM * kRowBytes;   // the x tile
+  static constexpr int kChunks = kRowBytes / 16;       // 16-byte chunks of a row
+  static constexpr int kRowStride = kThreads / kChunks;
+  static constexpr int kPhaseShift = kStepW == 32 ? 0 : kStepW == 16 ? 1 : 2;
+};
 
 struct GemmArgs {
   const unsigned* x;     // (M, Kw)
@@ -92,67 +107,150 @@ struct TmaMaps {
 };
 
 // The bytes of one ring stage: the x tile, then the weight tiles (w; or
-// mask, then ms) of kBN rows each.
-__host__ __device__ constexpr size_t stage_bytes(bool ternary, int bn) {
-  return static_cast<size_t>(kTileBytes) + (ternary ? 2 : 1) * bn * kRowBytes;
+// mask, then ms) of kBN rows each, at K steps of step_w words.
+__host__ __device__ constexpr size_t stage_bytes(bool ternary, int bn, int step_w = kKW) {
+  return static_cast<size_t>(kBM + (ternary ? 2 : 1) * bn) * 4 * step_w;
 }
 
 // The tile ring, a barrier a stage (kTma), then each thread's popcount
 // share, the column and row terms.
-__host__ __device__ constexpr size_t smem_bytes(bool ternary, bool tma, int bn, int stages) {
-  return kSwizzleAlign + stages * stage_bytes(ternary, bn) +
+__host__ __device__ constexpr size_t smem_bytes(bool ternary, bool tma, int bn, int stages,
+                                                int step_w = kKW) {
+  return kSwizzleAlign + stages * stage_bytes(ternary, bn, step_w) +
          (tma ? sizeof(uint64_t) * stages : 0) + sizeof(int) * (kThreads + bn + kBM);
 }
 
 // Two blocks a SM where both their accumulators (64 a thread) and their
 // shared memory fit twice, else one.
 __host__ __device__ constexpr int min_blocks(bool ternary, bool tma, int nacc, int bn,
-                                             int stages) {
+                                             int stages, int step_w = kKW) {
   return (ternary ? 2 : 1) * nacc * bn / 2 <= 64 &&
-                 2 * (smem_bytes(ternary, tma, bn, stages) + 1024) <= kSmemPerSm
+                 2 * (smem_bytes(ternary, tma, bn, stages, step_w) + 1024) <= kSmemPerSm
              ? 2
              : 1;
 }
 
-// Byte offset of word i of row r in a swizzled tile.
+// Byte offset of word i of row r in a swizzled tile of kStepW-word rows.
+template <int kStepW = kKW>
 __device__ __forceinline__ int word_at(int r, int i) {
-  return r * kRowBytes + ((((i >> 2) ^ (r & 7))) << 4) + ((i & 3) << 2);
+  using S = Step<kStepW>;
+  return r * S::kRowBytes +
+         ((((i >> 2) ^ ((r >> S::kPhaseShift) & (S::kChunks - 1)))) << 4) + ((i & 3) << 2);
 }
 
 // The popcount of 16-byte chunks [c0, c0 + kCount) of row r of a swizzled
-// tile; eight consecutive rows read eight distinct bank groups.
-template <int kCount>
+// tile of kStepW-word rows; eight consecutive rows read eight distinct bank
+// groups.
+template <int kCount, int kStepW = kKW>
 __device__ __forceinline__ int row_popc(const unsigned char* tile, int r, int c0) {
+  using S = Step<kStepW>;
   int sum = 0;
 #pragma unroll
   for (int c = c0; c < c0 + kCount; ++c) {
-    const uint4 v = *reinterpret_cast<const uint4*>(tile + r * kRowBytes +
-                                                    ((c ^ (r & 7)) << 4));
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        tile + r * S::kRowBytes + ((c ^ ((r >> S::kPhaseShift) & (S::kChunks - 1))) << 4));
     sum += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
   }
   return sum;
 }
 
+// Byte offset of 16-byte copy unit u of a swizzled x tile of kStepW-word
+// rows: unit u is chunk (u / 8) % kChunks of row (u / (8 kChunks)) 8 + u % 8,
+// so eight consecutive units, one chunk of eight rows, land in eight
+// distinct bank groups (swizzle128 at 128-byte rows).
+template <int kStepW>
+__device__ __forceinline__ int copy_unit_at(int u) {
+  using S = Step<kStepW>;
+  if constexpr (kStepW == kKW) {
+    return swizzle128(u);
+  } else {
+    return word_at<kStepW>(u / (8 * S::kChunks) * 8 + (u & 7), (u >> 3) % S::kChunks * 4);
+  }
+}
+
+// The wgmma descriptor of a tile of kStepW-word rows.
+template <int kStepW>
+__device__ __forceinline__ uint64_t step_desc(const void* tile) {
+  if constexpr (kStepW == 32) {
+    return tile_desc_sw128(tile);
+  } else if constexpr (kStepW == 16) {
+    return tile_desc_sw64(tile);
+  } else {
+    return tile_desc_sw32(tile);
+  }
+}
+
+// The epilogue of a 128 x kBN tile at (m0, n0): each of this thread's two
+// rows (wrow, wrow + 8 of the tile), two columns of an n8 tile at a time;
+// unsigned sums, exact where s fits an int32.  B's s is row_base[row] +
+// col_base[col] + 4 acc[0] (k - 2 rx, -2 cw, P); C's col_base[col] + 4 acc[1]
+// - 2 acc[0] (nnz - 2 c_ms, P_ms, P_m).  Stores masked at M and N, two
+// columns at a time where N is even.
+template <bool kTernary, int kBN, int kSets>
+__device__ __forceinline__ void store_tile(const GemmArgs& a, int m0, int n0, int wrow, int t,
+                                           const int* row_base, const int* col_base,
+                                           int (&acc)[kSets][kBN / 2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + 8 * r;
+    const int m = m0 + row;
+    if (m >= a.m) continue;
+    const unsigned rb = kTernary ? 0u : static_cast<unsigned>(row_base[row]);
+    int* orow = a.out + static_cast<size_t>(m) * a.n + n0;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      if (n0 + 8 * j >= a.n) break;  // uniform: no column of this tile is real
+      const int c = 8 * j + 2 * t;   // the block's column of e = 0
+      int s[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        unsigned v = rb + static_cast<unsigned>(col_base[c + e]);
+        if constexpr (kTernary) {
+          v += 4u * static_cast<unsigned>(acc[1][i]) - 2u * static_cast<unsigned>(acc[0][i]);
+        } else {
+          v += 4u * static_cast<unsigned>(acc[0][i]);
+        }
+        s[e] = static_cast<int>(v);
+      }
+      const bool live1 = n0 + c + 1 < a.n;
+      if (n0 + c < a.n) {
+        if (live1 && (a.n & 1) == 0) {  // 8-byte aligned: n and c even
+          *reinterpret_cast<int2*>(orow + c) = make_int2(s[0], s[1]);
+        } else {
+          orow[c] = s[0];
+          if (live1) orow[c + 1] = s[1];
+        }
+      }
+    }
+  }
+}
+
 // One block's tile: grid (ceil(m / kBM), ceil(n / kBN)), block kThreads,
 // dynamic shared memory smem_bytes(...).  kVec: the staged activation
-// copies' bytes; maps: the TMA fill's tensor maps (kTma), in param space.
-template <bool kTernary, int kVec, bool kTma, int kNacc, int kBN, int kStages>
+// copies' bytes; maps: the TMA fill's tensor maps (kTma), in param space;
+// kStepW: the words of a K step (F2: 16 or 8; the others 32).
+template <bool kTernary, int kVec, bool kTma, int kNacc, int kBN, int kStages,
+          int kStepW = kKW>
 __device__ __forceinline__ void popcount_gemm_tile(const GemmArgs& a,
                                                    const TmaMaps* maps) {
   static_assert(!(kTernary && (kTma || kNacc > 1)), "C: staged, one set");
   static_assert(kBN == 128 || (kBN == 64 && !kTernary), "n128, or n64 for B's product");
+  static_assert(kStepW == kKW || !(kTernary || kTma || kNacc > 1),
+                "narrow K steps: F2, B's staged product with one set");
+  using S = Step<kStepW>;
   constexpr int kPlanes = kTernary ? 2 : 1;
   constexpr int kRegs = kBN / 2;          // accumulators of a set, a thread
-  constexpr int kWTile = kBN * kRowBytes; // a weight tile
-  constexpr size_t kStage = stage_bytes(kTernary, kBN);
+  constexpr int kWTile = kBN * S::kRowBytes;  // a weight tile
+  constexpr size_t kStage = stage_bytes(kTernary, kBN, kStepW);
   constexpr int kAhead = kStages - 1 - kNacc;  // steps the copies run ahead
   static_assert(kAhead >= 1, "a ring of at least kNacc + 2 stages");
-  constexpr int kRows = kBM / kRowStride;      // activation rows a thread copies
+  constexpr int kRows = kBM / S::kRowStride;   // activation rows a thread copies
   constexpr int kWStride = kThreads / kBN;     // words between a thread's
-  constexpr int kWords = kBN * kKW / kThreads; // kWords weight copies
+  constexpr int kWords = kBN * kStepW / kThreads;  // kWords weight copies
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  // stage s: the x tile [kBM][128 bytes], then the weight tiles [kBN][128
-  // bytes] (w; or mask, then ms), all swizzled (swizzle128)
+  // stage s: the x tile [kBM][4 kStepW bytes], then the weight tiles
+  // [kBN][4 kStepW bytes] (w; or mask, then ms), all swizzled
   unsigned char* smem = align_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage);  // kTma
   int* part_s = reinterpret_cast<int*>(full + (kTma ? kStages : 0));
@@ -171,20 +269,21 @@ __device__ __forceinline__ void popcount_gemm_tile(const GemmArgs& a,
   const int n0 = blockIdx.y * kBN;
 
   // staged x copies: chunk ch of rows r0 + i kRowStride, copy u = tid + i
-  // kThreads at swizzle128(u); weight copies: column wc, words wi0 + kWStride j
-  [[maybe_unused]] const int ch = (tid >> 3) % kChunks;
-  [[maybe_unused]] const int r0 = tid / (8 * kChunks) * 8 + (tid & 7);
+  // kThreads at copy_unit_at(u); weight copies: column wc, words wi0 +
+  // kWStride j
+  [[maybe_unused]] const int ch = (tid >> 3) % S::kChunks;
+  [[maybe_unused]] const int r0 = tid / (8 * S::kChunks) * 8 + (tid & 7);
   [[maybe_unused]] const int wc = tid % kBN;
   [[maybe_unused]] const int wi0 = tid / kBN;
   [[maybe_unused]] const bool wlive = n0 + wc < a.n;
 
-  const int steps = (a.kw + kKW - 1) / kKW;
+  const int steps = (a.kw + kStepW - 1) / kStepW;
   int i_step = 0, i_stage = 0;  // the next step to copy, its stage
   auto issue = [&]() {
     if (i_step < steps) {
-      const int k0 = i_step * kKW;
+      const int k0 = i_step * kStepW;
       unsigned char* tx = smem + i_stage * kStage;
-      unsigned char* tw = tx + kTileBytes;
+      unsigned char* tw = tx + S::kTileBytes;
       if constexpr (kTma) {
         if (tid == 0) {
           mbar_arrive_expect_tx(full + i_stage, static_cast<unsigned>(kStage));
@@ -194,9 +293,9 @@ __device__ __forceinline__ void popcount_gemm_tile(const GemmArgs& a,
       } else {
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
-          const int m = m0 + r0 + i * kRowStride;
+          const int m = m0 + r0 + i * S::kRowStride;
           const int w0 = k0 + ch * 4;
-          unsigned char* dst = tx + swizzle128(tid + i * kThreads);
+          unsigned char* dst = tx + copy_unit_at<kStepW>(tid + i * kThreads);
           const unsigned* src = a.x + static_cast<size_t>(m < a.m ? m : 0) * a.kw + w0;
           if constexpr (kVec == 16) {
             const bool valid = m < a.m && w0 < a.kw;
@@ -222,7 +321,7 @@ __device__ __forceinline__ void popcount_gemm_tile(const GemmArgs& a,
           }
 #pragma unroll
           for (int j = 0; j < kWords; ++j) {
-            const int off = word_at(wc, wi0 + kWStride * j);
+            const int off = word_at<kStepW>(wc, wi0 + kWStride * j);
             *reinterpret_cast<unsigned*>(tw + off) = mv[j];
             *reinterpret_cast<unsigned*>(tw + kWTile + off) = mv[j] & sv[j];
           }
@@ -231,7 +330,7 @@ __device__ __forceinline__ void popcount_gemm_tile(const GemmArgs& a,
           for (int j = 0; j < kWords; ++j) {
             const int kword = k0 + wi0 + kWStride * j;
             const bool valid = wlive && kword < a.kw;
-            cp_async<4>(tw + word_at(wc, wi0 + kWStride * j),
+            cp_async<4>(tw + word_at<kStepW>(wc, wi0 + kWStride * j),
                         valid ? a.w + static_cast<size_t>(kword) * a.n + col : a.w,
                         valid);
           }
@@ -282,21 +381,21 @@ __device__ __forceinline__ void popcount_gemm_tile(const GemmArgs& a,
         // the copies below refill (it waited for them in step - 1)
         __syncthreads();
         const unsigned char* tx = smem + stage * kStage;
-        const unsigned char* tw = tx + kTileBytes;
+        const unsigned char* tw = tx + S::kTileBytes;
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1u;
         }
-        const int k256 = min(kK256, (a.kw - step * kKW + 7) / 8);  // uniform
+        const int k256 = min(S::kK256, (a.kw - step * kStepW + 7) / 8);  // uniform
         wgmma_fence();
 #pragma unroll
-        for (int kc = 0; kc < kK256; ++kc) {
+        for (int kc = 0; kc < S::kK256; ++kc) {
           if (kc < k256) {
-            const uint64_t da = tile_desc_sw128(tx + wg * 64 * kRowBytes + kc * 32);
+            const uint64_t da = step_desc<kStepW>(tx + wg * 64 * S::kRowBytes + kc * 32);
 #pragma unroll
             for (int p = 0; p < kPlanes; ++p) {
               wgmma_b1_k256(acc[q * kPlanes + p], da,
-                            tile_desc_sw128(tw + p * kWTile + kc * 32));
+                            step_desc<kStepW>(tw + p * kWTile + kc * 32));
             }
           }
         }
@@ -306,7 +405,7 @@ __device__ __forceinline__ void popcount_gemm_tile(const GemmArgs& a,
         if constexpr (kTernary) {
           part += row_popc<kChunks / 2>(tw + kWTile, tid % kBN, tid / kBN * (kChunks / 2));
         } else if (kBM + kBN == kThreads || tid < kBM + kBN) {
-          part += row_popc<kChunks>(tid < kBM ? tx : tw, tid % kBM, 0);
+          part += row_popc<S::kChunks, kStepW>(tid < kBM ? tx : tw, tid % kBM, 0);
         }
         wgmma_wait<kNacc>();  // kNacc groups, one a set, stay in flight
 #pragma unroll
@@ -348,42 +447,7 @@ __device__ __forceinline__ void popcount_gemm_tile(const GemmArgs& a,
   }
   __syncthreads();
 
-  // epilogue: each of this thread's two rows, two columns of an n8 tile at
-  // a time; unsigned sums, exact where s fits an int32
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wrow + 8 * r;
-    const int m = m0 + row;
-    if (m >= a.m) continue;
-    const unsigned rb = kTernary ? 0u : static_cast<unsigned>(row_base[row]);
-    int* orow = a.out + static_cast<size_t>(m) * a.n + n0;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      if (n0 + 8 * j >= a.n) break;  // uniform: no column of this tile is real
-      const int c = 8 * j + 2 * t;   // the block's column of e = 0
-      int s[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 4 * j + 2 * r + e;
-        unsigned v = rb + static_cast<unsigned>(col_base[c + e]);
-        if constexpr (kTernary) {
-          v += 4u * static_cast<unsigned>(acc[1][i]) - 2u * static_cast<unsigned>(acc[0][i]);
-        } else {
-          v += 4u * static_cast<unsigned>(acc[0][i]);
-        }
-        s[e] = static_cast<int>(v);
-      }
-      const bool live1 = n0 + c + 1 < a.n;
-      if (n0 + c < a.n) {
-        if (live1 && (a.n & 1) == 0) {  // 8-byte aligned: n and c even
-          *reinterpret_cast<int2*>(orow + c) = make_int2(s[0], s[1]);
-        } else {
-          orow[c] = s[0];
-          if (live1) orow[c + 1] = s[1];
-        }
-      }
-    }
-  }
+  store_tile<kTernary, kBN>(a, m0, n0, wrow, t, row_base, col_base, acc);
 }
 
 // The staged fill (B, C, G) and the TMA fill (F4): the tensor maps are a
@@ -399,6 +463,14 @@ template <int kBN, int kStages>
 __global__ void __launch_bounds__(kThreads, min_blocks(false, true, 1, kBN, kStages))
 popcount_gemm_tma_kernel(const GemmArgs a, const __grid_constant__ TmaMaps maps) {
   popcount_gemm_tile<false, 16, true, 1, kBN, kStages>(a, &maps);
+}
+
+// F2: B's staged fill and product at K steps of kStepW = 16 or 8 words.
+template <int kVec, int kStepW, int kBN, int kStages>
+__global__ void __launch_bounds__(kThreads,
+                                  min_blocks(false, false, 1, kBN, kStages, kStepW))
+popcount_gemm_steps_kernel(const GemmArgs a) {
+  popcount_gemm_tile<false, kVec, false, 1, kBN, kStages, kStepW>(a, nullptr);
 }
 
 // Launch kernel instance kKernel, with kBytes of dynamic shared memory and
@@ -437,6 +509,18 @@ int launch_staged(const GemmArgs& a, void* stream) {
     return launch<popcount_gemm_kernel<kTernary, 16, kNacc, kBN, kStages>, bytes, kBN>(a, s);
   }
   return launch<popcount_gemm_kernel<kTernary, 4, kNacc, kBN, kStages>, bytes, kBN>(a, s);
+}
+
+// F2: the staged fill at K steps of kStepW words.
+template <int kStepW, int kBN, int kStages>
+int launch_steps(const GemmArgs& a, void* stream) {
+  if (!sizes_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  constexpr size_t bytes = smem_bytes(false, false, kBN, kStages, kStepW);
+  if (a.kw % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0) {
+    return launch<popcount_gemm_steps_kernel<16, kStepW, kBN, kStages>, bytes, kBN>(a, s);
+  }
+  return launch<popcount_gemm_steps_kernel<4, kStepW, kBN, kStages>, bytes, kBN>(a, s);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

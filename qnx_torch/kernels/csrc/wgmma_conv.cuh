@@ -150,6 +150,23 @@ __device__ __forceinline__ uint64_t tile_desc_sw128(const void* tile) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The same for K-major tiles of narrower rows (F2's K steps of 16 and 8
+// words): rows of 64 bytes in the 64-byte swizzle (16-byte chunk j of row r
+// at chunk j ^ ((r / 2) % 4), 8-row atoms of 512 bytes, layout type 2) and
+// rows of 32 bytes in the 32-byte swizzle (chunk j ^ ((r / 4) % 2), atoms
+// of 256 bytes, layout type 3); CuTe's Swizzle<2,4,3> and Swizzle<1,4,3>
+// on byte offsets, as Swizzle<3,4,3> is the 128-byte one.  Each tile starts
+// aligned to its atom.
+__device__ __forceinline__ uint64_t tile_desc_sw64(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+__device__ __forceinline__ uint64_t tile_desc_sw32(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
 // The first kSwizzleAlign-aligned byte of dynamic shared memory (a kernel
 // that uses it asks for kSwizzleAlign bytes more than it needs).
 __device__ __forceinline__ unsigned char* align_smem(unsigned char* smem) {

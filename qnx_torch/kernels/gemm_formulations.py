@@ -7,14 +7,17 @@ Every one computes kernel B's function (:mod:`qnx_torch.kernels.xnor_gemm`)
     s[m, n] = k - 2 * sum_kw popcount(xp[m, kw] ^ wp[kw, n])
 
 exactly, through another schedule, written by hand for Hopper in
-``csrc/gemm_formulations.cu``; F1-F3 on the CUDA cores' popc unit, F4 and G
-on the single-bit tensor cores through kernel B's mainloop
-(``csrc/popcount_gemm.cuh``, ``wgmma`` AND-popcount):
+``csrc/gemm_formulations.cu``; F3 on the CUDA cores' popc unit, F1, F2, F4
+and G on the single-bit tensor cores, with kernel B's tiles, algebra and
+(F2, F4, G) mainloop (``csrc/popcount_gemm.cuh``, ``wgmma`` AND-popcount):
 
-* :func:`gemm_outer` (F1, ``v_outer``): whole-K strips of x and w staged in
-  shared memory once per (bm, bn) block, an 8x8 register tile per thread;
-* :func:`gemm_outer_acc` (F2, ``v_outer_acc``): the same tile over K steps of
-  ``bk`` words through a double-buffered ``cp.async`` ring;
+* :func:`gemm_outer` (F1, ``v_outer``): a (bm, bn) block stages its whole-K
+  strips of x (TMA boxes, all on one barrier) and w (B's word transpose) in
+  shared memory in one fill, then issues every K step's ``wgmma`` of each
+  128-row sub-tile in one group, with no barrier or refill between steps;
+* :func:`gemm_outer_acc` (F2, ``v_outer_acc``): B's mainloop at K steps of
+  ``bk`` = 16 or 8 words (64- or 32-byte swizzled tile rows) through a ring
+  of ``stages``, ``bn`` columns a block;
 * :func:`gemm_chunk3d` (F3, ``v_chunk3d``): ``kc`` words per step as vector
   loads, the chunk's popcounts summed;
 * :func:`gemm_lanered` (F4, ``v_lanered``): the dot form against the
@@ -30,8 +33,9 @@ wrapper runs it only for a CPU tensor; for a CUDA tensor it launches its
 kernel or raises, and counts ``.launches``.  The geometries are those
 compiled into the CUDA source; another raises ``ValueError``, and an
 ``outer`` geometry whose strips do not fit in one block's shared memory
-raises :class:`DoesNotFit` (on any device, before any launch), the
-counterpart of the VMEM failures the JAX shootout prints.
+(:func:`outer_smem_bytes` above :data:`SMEM_LIMIT`) raises
+:class:`DoesNotFit` (on any device, before any launch), the counterpart of
+the VMEM failures the JAX shootout prints.
 """
 from __future__ import annotations
 
@@ -42,10 +46,15 @@ from .xnor_gemm import check_and_products, xnor_gemm_popcount_ref
 
 # The geometries compiled into csrc/gemm_formulations.cu; the first of each
 # is the wrapper's default.
-#: (bm, bn) of :func:`gemm_outer`
-OUTER_GEOMETRIES = ((128, 128), (256, 128), (256, 256), (512, 256), (1024, 128))
-#: (bm, bn, bk) of :func:`gemm_outer_acc`
-OUTER_ACC_GEOMETRIES = ((128, 128, 16), (128, 128, 8), (64, 128, 16), (256, 128, 8))
+#: (bm, bn) of :func:`gemm_outer`: 128-row sub-tiles of min(bn, 128) columns;
+#: (128, 64) leaves two blocks a SM where Kw <= 128
+OUTER_GEOMETRIES = ((128, 128), (256, 128), (256, 256), (512, 256), (1024, 128),
+                    (128, 64))
+#: (bn, bk, stages) of :func:`gemm_outer_acc`: columns a block, words a K
+#: step and ring stages; (128, 16, 6) and (128, 8, 12) ring kernel B's 96
+#: words of tiles, (128, 16, 6) and (64, 16, 9) as deep as two blocks a SM
+#: allow
+OUTER_ACC_GEOMETRIES = ((128, 16, 6), (128, 8, 12), (128, 16, 3), (64, 16, 9))
 #: (bm, bn, kc) of :func:`gemm_chunk3d`
 CHUNK3D_GEOMETRIES = ((64, 64, 4), (64, 64, 8), (64, 64, 16), (128, 128, 4),
                       (128, 128, 8))
@@ -66,11 +75,17 @@ class DoesNotFit(ValueError):
     """A geometry whose shared-memory strips exceed one block's limit."""
 
 
+#: a 128-byte K-major tile row of the single-bit wgmma: 32 words
+TILE_WORDS = 32
+
+
 def outer_smem_bytes(bm: int, bn: int, kw: int) -> int:
-    """Shared memory of one :func:`gemm_outer` block: the (bm, Kw) x strip
-    at an odd row stride (``kw | 1``, so two rows never share a bank) and
-    the (Kw, bn) w strip, int32 words."""
-    return 4 * (bm * (kw | 1) + kw * bn)
+    """Dynamic shared memory of one :func:`gemm_outer` block: 1024 bytes to
+    align the strips, the x and w strips as ceil(Kw / 32) tiles of 128-byte
+    rows (bm + bn rows each), the fill's barrier (8 bytes) and the row and
+    column terms (an int32 each)."""
+    tiles = -(-kw // TILE_WORDS)
+    return 1024 + (bm + bn) * tiles * 4 * TILE_WORDS + 8 + 4 * (bm + bn)
 
 
 def check_outer_fits(bm: int, bn: int, kw: int) -> None:
@@ -83,14 +98,17 @@ def check_outer_fits(bm: int, bn: int, kw: int) -> None:
 
 
 def _check(name: str, xp: torch.Tensor, w: torch.Tensor, w_kw_axis: int,
-           geometry: tuple, allowed: tuple) -> bool:
-    """Shape, geometry and operand checks; True where the kernel launches."""
+           geometry: tuple, allowed: tuple, fits=None) -> bool:
+    """Shape, geometry, ``fits()`` (where given) and operand checks; True
+    where the kernel launches."""
     if xp.dim() != 2 or w.dim() != 2 or w.shape[w_kw_axis] != xp.shape[1]:
         raise ValueError(f"{name}: xp {tuple(xp.shape)} and weights "
                          f"{tuple(w.shape)} disagree on Kw")
     if geometry not in allowed:
         raise ValueError(f"{name}: geometry {geometry} is not compiled in; "
                          f"choose one of {allowed}")
+    if fits is not None:
+        fits()
     return _build.check_operands(name, xp, w=w)
 
 
@@ -107,22 +125,40 @@ def _launch(fn_name: str, wrapper, xp: torch.Tensor, w: torch.Tensor, n: int,
 def gemm_outer(xp: torch.Tensor, wp: torch.Tensor, k: int, bm: int = 128,
                bn: int = 128) -> torch.Tensor:
     """F1: (M, Kw) x (Kw, N) packed words -> (M, N) int32 s, whole-K strips
-    per (bm, bn) block."""
-    launch = _check("gemm_outer", xp, wp, 0, (bm, bn), OUTER_GEOMETRIES)
-    check_outer_fits(bm, bn, xp.shape[1])
+    per (bm, bn) block, staged once on the single-bit tensor cores.  x
+    arrives by TMA boxes, which need 16-byte row strides: where Kw % 4 != 0
+    (or x is not 16-byte aligned) the kernel reads a copy of x with zero
+    words appended (:func:`tma_rows`)."""
+    launch = _check("gemm_outer", xp, wp, 0, (bm, bn), OUTER_GEOMETRIES,
+                    lambda: check_outer_fits(bm, bn, xp.shape[1]))
+    check_and_products("gemm_outer", xp.shape[1])
     if not launch:
         return xnor_gemm_popcount_ref(xp, wp, k)
-    return _launch("qnx_gemm_outer", gemm_outer, xp, wp, wp.shape[1], k, bm, bn)
+    m, kw = xp.shape
+    out = torch.empty((m, wp.shape[1]), dtype=torch.int32, device=xp.device)
+    if out.numel():
+        _build.launch("qnx_gemm_outer", xp.device, tma_rows(xp), wp, out, m, kw,
+                      wp.shape[1], k, bm, bn)
+        gemm_outer.launches += 1
+    return out
 
 
-def gemm_outer_acc(xp: torch.Tensor, wp: torch.Tensor, k: int, bm: int = 128,
-                   bn: int = 128, bk: int = 16) -> torch.Tensor:
-    """F2: as :func:`gemm_outer`, K in steps of ``bk`` words through a
-    double-buffered ``cp.async`` ring."""
-    if not _check("gemm_outer_acc", xp, wp, 0, (bm, bn, bk), OUTER_ACC_GEOMETRIES):
+def outer_acc_name(bn: int, bk: int, stages: int) -> str:
+    """The name of an F2 geometry, as the shootout and ``chip_smoke.py``
+    print it: ``outer_acc-n128-k16-s6``."""
+    return f"outer_acc-n{bn}-k{bk}-s{stages}"
+
+
+def gemm_outer_acc(xp: torch.Tensor, wp: torch.Tensor, k: int, bn: int = 128,
+                   bk: int = 16, stages: int = 6) -> torch.Tensor:
+    """F2: kernel B's mainloop on the single-bit tensor cores at K steps of
+    ``bk`` words (16 or 8; B's are 32) through a ring of ``stages``, ``bn``
+    columns a block."""
+    if not _check("gemm_outer_acc", xp, wp, 0, (bn, bk, stages), OUTER_ACC_GEOMETRIES):
         return xnor_gemm_popcount_ref(xp, wp, k)
+    check_and_products("gemm_outer_acc", xp.shape[1])
     return _launch("qnx_gemm_outer_acc", gemm_outer_acc, xp, wp, wp.shape[1], k,
-                   bm, bn, bk)
+                   bn, bk, stages)
 
 
 def gemm_chunk3d(xp: torch.Tensor, wp: torch.Tensor, k: int, bm: int = 64,
@@ -141,22 +177,23 @@ def lanered_name(bn: int, stages: int) -> str:
     return f"lanered-n{bn}-s{stages}"
 
 
-def tma_operands(xp: torch.Tensor, wpt: torch.Tensor) -> tuple:
-    """F4's operands as its TMA boxes take them: rows of Kw rounded up to 4
-    words (16-byte row strides) at 16-byte aligned addresses.  Operands that
-    already are come back as they are; others are copied with zero words
+def tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """A K-major word matrix as TMA boxes take it: rows of Kw rounded up to
+    4 words (16-byte row strides) at a 16-byte aligned address.  One that
+    already is comes back as it is; another is copied with zero words
     appended, which AND to 0 and leave every sum unchanged."""
-    kw = xp.shape[1]
+    kw = t.shape[1]
     kw4 = -(-kw // 4) * 4
+    if kw4 == kw and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((t.shape[0], kw4))
+    out[:, :kw] = t
+    return out
 
-    def fit(t):
-        if kw4 == kw and t.data_ptr() % 16 == 0:
-            return t
-        out = t.new_zeros((t.shape[0], kw4))
-        out[:, :kw] = t
-        return out
 
-    return fit(xp), fit(wpt)
+def tma_operands(xp: torch.Tensor, wpt: torch.Tensor) -> tuple:
+    """F4's operands as its TMA boxes take them (:func:`tma_rows`)."""
+    return tma_rows(xp), tma_rows(wpt)
 
 
 def gemm_lanered(xp: torch.Tensor, wpt: torch.Tensor, k: int, bn: int = 128,

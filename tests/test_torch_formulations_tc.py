@@ -13,12 +13,17 @@ x's 128 rows and one of wt's ``bn`` rows, written in the 128-byte swizzle
 tensors' edges; the k256 AND-popcount sub-steps that hold words; rx and cw
 from the staged tiles.  G's model: x copied as kernel B copies it and the
 (Kw, N) weights staged by B's word transpose (``test_torch_popcount_and``'s
-model of B, whose staging, swizzle and products this file takes), ``bn`` columns a block; K step
-i accumulated into fragment set i % nacc, the sets summed at the end.  Both
-end in ``k - 2 (rx + cw) + 4 P`` in wrapping 32-bit arithmetic.  A model of
-the ring's schedule checks that no stage is refilled while a wgmma group
-still reads it.  The CUDA kernels themselves are held against the plain
-version on the card by ``chip_smoke.py``."""
+model of B, whose staging and swizzle these helpers vectorize), ``bn``
+columns a block; K step i accumulated into fragment set i % nacc, the sets
+summed at the end.  Both end in ``k - 2 (rx + cw) + 4 P`` in wrapping 32-bit
+arithmetic.  The models work on every block and K step at once: the tiles
+of all blocks are staged, read back through the swizzle and multiplied as
+whole operands, a K step's AND products one matmul of the unpacked bits.
+The helpers take the step width (32 words; F2's 16 and 8 in
+``test_torch_formulations_steps``).  A model of the ring's schedule checks
+that no stage is refilled while a wgmma group still reads it.  The CUDA
+kernels themselves are held against the plain version on the card by
+``chip_smoke.py``."""
 import functools
 import importlib.util
 from pathlib import Path
@@ -30,9 +35,7 @@ import torch
 from qnx_torch.experiments.gemm_shootout import random_words
 from qnx_torch.kernels import gemm_formulations as G
 from qnx_torch.ops.packing import pack_bits_np
-from test_torch_popcount_and import (BM, K256, KW_STEP, ROW_BYTES, THREADS,
-                                     and_product, logical_rows, row_popc,
-                                     stage_w, stage_x)
+from test_torch_popcount_and import BM, KW_STEP, THREADS, logical_rows, stage_w, stage_x
 
 torch.set_num_threads(2)
 
@@ -60,34 +63,156 @@ SHAPES = [(3, (100, 1)), (37, (153, 10)), (130, (1000, 33)), (257, (4000, 128)),
           (3, (4096, 130))]
 IDS = [f"m{m}k{k}n{n}" for m, (k, n) in SHAPES]
 
+# rows of a swizzle phase (the chunk index a row XORs in) as log2, by words
+# of a tile row: the 128-, 64- and 32-byte swizzles
+PHASE_SHIFT = {32: 0, 16: 1, 8: 2}
 
-def tma_box(mat, c0, r0, rows):
-    """The smem tile one TMA box of 32 words x ``rows`` rows at (c0, r0) of
-    the K-major word matrix ``mat`` leaves: zeros outside it, 16-byte chunk
-    c of box row r written at chunk c ^ (r % 8) (CU_TENSOR_MAP_SWIZZLE_128B)."""
+
+def cdiv(a, b):
+    return -(-a // b)
+
+
+def word_addr(r, i, step_w=KW_STEP):
+    """Byte offset of word i of row r of a swizzled tile of ``step_w``-word
+    rows (popcount_gemm.cuh ``word_at``): 16-byte chunk i // 4 at chunk
+    (i // 4) ^ ((r >> shift) % chunks), CuTe's Swizzle<3|2|1, 4, 3>."""
+    chunks = step_w // 4
+    phase = (r >> PHASE_SHIFT[step_w]) & (chunks - 1)
+    return r * 4 * step_w + (((i >> 2) ^ phase) << 4) + ((i & 3) << 2)
+
+
+def stage_x_all(xp, vec, step_w=KW_STEP):
+    """Every row block's x tile at every K step as kernel B's copies leave it
+    (``copy_unit_at``: unit u is chunk (u / 8) % chunks of row (u / (8
+    chunks)) 8 + u % 8), zeros past M and Kw: (row blocks, steps, 128
+    step_w) uint32.  ``vec`` 16: one copy a 16-byte chunk (Kw % 4 == 0),
+    4: a copy a word."""
+    m, kw = xp.shape
+    chunks = step_w // 4
+    u = np.arange(BM * chunks)
+    row = u // (8 * chunks) * 8 + (u & 7)
+    ch = (u >> 3) % chunks
+    dst = word_addr(row, 4 * ch, step_w) // 4
+    mrow = (np.arange(cdiv(m, BM))[:, None] * BM + row)[:, None, :]
+    k0 = (np.arange(cdiv(kw, step_w))[:, None] * step_w + 4 * ch)[None]
+    tiles = np.zeros((mrow.shape[0], k0.shape[1], BM * step_w), np.uint32)
+    for j in range(4):  # the words of a copy unit
+        word = k0 + j
+        valid = (mrow < m) & ((k0 < kw) if vec == 16 else (word < kw))
+        src = xp.view(np.uint32)[np.minimum(mrow, m - 1), np.minimum(word, kw - 1)]
+        tiles[:, :, dst + j] = np.where(valid, src, 0)
+    return tiles
+
+
+def stage_w_all(wp, bn, step_w=KW_STEP):
+    """Every column block's weight tile at every K step as B's word
+    transpose leaves it: thread t copies column t % bn, words t // bn +
+    (256 / bn) j, word i of column c to ``word_addr(c, i)``; zeros past N
+    and Kw: (column blocks, steps, bn step_w) uint32."""
+    kw, n = wp.shape
+    t = np.arange(THREADS)[:, None]
+    c = t % bn
+    i = t // bn + THREADS // bn * np.arange(bn * step_w // THREADS)[None, :]
+    col = (np.arange(cdiv(n, bn))[:, None, None] * bn + c)[:, None]
+    kword = (np.arange(cdiv(kw, step_w))[:, None, None] * step_w + i)[None]
+    valid = (col < n) & (kword < kw)
+    src = wp.view(np.uint32)[np.minimum(kword, kw - 1), np.minimum(col, n - 1)]
+    tiles = np.zeros((col.shape[0], kword.shape[1], bn * step_w), np.uint32)
+    tiles[:, :, word_addr(c, i, step_w) // 4] = np.where(valid, src, 0)
+    return tiles
+
+
+def tma_boxes(mat, rows):
+    """Every TMA box of 32 words x ``rows`` rows of the K-major word matrix
+    ``mat``, (row blocks, steps, rows 32), as the Tensor Memory Accelerator
+    writes it (CU_TENSOR_MAP_SWIZZLE_128B): zeros outside ``mat``, 16-byte
+    chunk c of box row r at chunk c ^ (r % 8)."""
     n_rows, kw = mat.shape
-    box = np.zeros((rows, KW_STEP), np.uint32)
-    rr, cc = min(rows, n_rows - r0), min(KW_STEP, kw - c0)
-    if rr > 0 and cc > 0:
-        box[:rr, :cc] = mat[r0:r0 + rr, c0:c0 + cc].view(np.uint32)
-    tile = np.zeros(rows * KW_STEP, np.uint32)
-    r = np.arange(rows)[:, None]
-    c = np.arange(KW_STEP // 4)[None, :]
-    for j in range(4):
-        tile[(r * ROW_BYTES + ((c ^ (r & 7)) << 4)) // 4 + j] = box[:, 4 * c[0] + j]
-    return tile
+    nb, steps = cdiv(n_rows, rows), cdiv(kw, KW_STEP)
+    padded = np.zeros((nb * rows, steps * KW_STEP), np.uint32)
+    padded[:n_rows, :kw] = mat.view(np.uint32)
+    boxes = padded.reshape(nb, rows, steps, KW_STEP).transpose(0, 2, 1, 3)
+    tiles = np.zeros((nb, steps, rows * KW_STEP), np.uint32)
+    r, i = np.arange(rows)[:, None], np.arange(KW_STEP)[None, :]
+    tiles[:, :, word_addr(r, i) // 4] = boxes
+    return tiles
 
 
-def tile_popc(tile, rows):
-    """Each tile row's popcount, read as the kernel's threads read it."""
-    return row_popc(tile, np.arange(rows), 0, 8)
+def read_rows(tiles, rows, step_w=KW_STEP):
+    """(..., rows, step_w) words of swizzled tiles as wgmma reads them."""
+    r, i = np.arange(rows)[:, None], np.arange(step_w)[None, :]
+    return tiles[..., word_addr(r, i, step_w) // 4]
 
 
-def epilogue(k, part, acc, n_rows, bn):
-    """k - 2 (rx + cw) + 4 P of a block, wrapping as the kernel's unsigned
-    sums: rx from threads 0..127, cw from threads 128..128 + bn."""
-    s = (k - 2 * part[:BM])[:, None] - 2 * part[BM:BM + bn][None, :] + 4 * acc
-    return (s & 0xFFFFFFFF).astype(np.uint32).view(np.int32)[:n_rows]
+def tile_popc(tiles, rows, step_w=KW_STEP):
+    """Each tile row's popcount, (..., rows), read as ``row_popc`` reads it:
+    its 16-byte chunks at their swizzled places."""
+    c = np.arange(step_w // 4)[None, :]
+    at = word_addr(np.arange(rows)[:, None], 4 * c, step_w) // 4
+    words = tiles[..., at[..., None] + np.arange(4)]
+    return np.bitwise_count(words).sum((-1, -2)).astype(np.int64)
+
+
+def whole(blocks):
+    """(blocks, steps, rows, step_w) tile words as one (blocks rows, steps,
+    step_w) operand."""
+    nb, steps, rows, step_w = blocks.shape
+    return blocks.transpose(0, 2, 1, 3).reshape(nb * rows, steps, step_w)
+
+
+def live_k256(kw, steps, step_w=KW_STEP):
+    """(steps, step_w) True on the words of the k256 sub-steps a K step
+    issues: those that hold words below ``kw``."""
+    k256 = np.minimum(step_w // 8, (kw - np.arange(steps) * step_w + 7) // 8)
+    return np.arange(step_w)[None, :] // 8 < k256[:, None]
+
+
+def _bits(words):
+    """(rows, w) words as (rows, 32 w) {0, 1} float32 torch tensor."""
+    return torch.from_numpy(np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                                          axis=-1).astype(np.float32))
+
+
+def and_popc(a, b):
+    """popc(a_i & b_j) summed over the words of every row a_i of ``a`` and
+    b_j of ``b``, as int32 (rows_a, rows_b): a matmul of the unpacked bits,
+    exact in float32 for up to 2^24 bits (on torch's two threads)."""
+    return (_bits(a) @ _bits(b).T).numpy().astype(np.int32)
+
+
+def step_products(a, b, live):
+    """Each K step's AND-popcount product of every row of ``a`` against every
+    row of ``b`` (operands (rows, steps, step_w) words) over the live k256
+    sub-steps, as int32 (steps, rows_a, rows_b): one matmul of the unpacked
+    bits a step."""
+    for s in range(a.shape[1]):
+        yield and_popc(a[:, s] * live[s], b[:, s] * live[s])
+
+
+def epilogue(k, rx, cw, p, m, n):
+    """k - 2 (rx + cw) + 4 P of every block at once, wrapping as the
+    kernels' unsigned sums, cropped to (m, n)."""
+    s = (k - 2 * rx)[:, None] - 2 * cw[None, :] + 4 * p.astype(np.int64)
+    return (s & 0xFFFFFFFF).astype(np.uint32).view(np.int32)[:m, :n]
+
+
+def staged_model(xp, wp, k, bn, nacc=1, step_w=KW_STEP):
+    """B's staged walk (G, and F2 at narrower steps): x by B's copies, the
+    weights by its word transpose, ``bn`` columns a block, K steps of
+    ``step_w`` words; K step i into fragment set i % nacc, the sets summed
+    before the epilogue."""
+    m, kw = xp.shape
+    n = wp.shape[1]
+    tx = stage_x_all(xp, 16 if kw % 4 == 0 else 4, step_w)
+    tw = stage_w_all(wp, bn, step_w)
+    a = whole(read_rows(tx, BM, step_w))
+    b = whole(read_rows(tw, bn, step_w))
+    sets = np.zeros((nacc, a.shape[0], b.shape[0]), np.int32)
+    for step, prod in enumerate(step_products(a, b, live_k256(kw, a.shape[1], step_w))):
+        sets[step % nacc] += prod
+    rx = tile_popc(tx, BM, step_w).sum(1).reshape(-1)
+    cw = tile_popc(tw, bn, step_w).sum(1).reshape(-1)
+    return epilogue(k, rx, cw, sets.sum(0), m, n)
 
 
 def lanered_model(xp, wpt, k, bn):
@@ -96,46 +221,18 @@ def lanered_model(xp, wpt, k, bn):
     m, kw = xp.shape
     n = wpt.shape[0]
     kw4 = -(-kw // 4) * 4
-    x4, w4 = (np.pad(t, ((0, 0), (0, kw4 - kw))) for t in (xp, wpt))
-    out = np.zeros((m, n), np.int32)
-    for m0 in range(0, m, BM):
-        for n0 in range(0, n, bn):
-            acc = np.zeros((BM, bn), np.int64)
-            part = np.zeros(THREADS, np.int64)
-            for k0 in range(0, kw4, KW_STEP):
-                tx, tw = tma_box(x4, k0, m0, BM), tma_box(w4, k0, n0, bn)
-                a, b = logical_rows(tx, BM), logical_rows(tw, bn)
-                for kc in range(min(K256, (kw4 - k0 + 7) // 8)):
-                    acc += and_product(a, b, kc)
-                part[:BM] += tile_popc(tx, BM)
-                part[BM:BM + bn] += tile_popc(tw, bn)
-            s = epilogue(k, part, acc, min(BM, m - m0), bn)
-            out[m0:m0 + BM, n0:n0 + bn] = s[:, :min(bn, n - n0)]
-    return out
+    tx, tw = (tma_boxes(np.pad(t, ((0, 0), (0, kw4 - kw))), rows)
+              for t, rows in ((xp, BM), (wpt, bn)))
+    a, b = whole(read_rows(tx, BM)), whole(read_rows(tw, bn))
+    p = sum(step_products(a, b, live_k256(kw4, a.shape[1])))
+    rx, cw = tile_popc(tx, BM).sum(1).reshape(-1), tile_popc(tw, bn).sum(1).reshape(-1)
+    return epilogue(k, rx, cw, p, m, n)
 
 
 def multiacc_model(xp, wp, k, nacc):
     """G's walk: B's staged fill at the tiling of ``nacc``; K step i into
     fragment set i % nacc; the sets summed before the epilogue."""
-    bn, _ = G.MULTIACC_TILING[nacc]
-    m, kw = xp.shape
-    n = wp.shape[1]
-    out = np.zeros((m, n), np.int32)
-    for m0 in range(0, m, BM):
-        for n0 in range(0, n, bn):
-            sets = np.zeros((nacc, BM, bn), np.int64)
-            part = np.zeros(THREADS, np.int64)
-            for step, k0 in enumerate(range(0, kw, KW_STEP)):
-                tx = stage_x(xp, m0, k0, 16 if kw % 4 == 0 else 4)
-                tw = stage_w(wp, n0, k0, bn)
-                a, b = logical_rows(tx, BM), logical_rows(tw, bn)
-                for kc in range(min(K256, (kw - k0 + 7) // 8)):
-                    sets[step % nacc] += and_product(a, b, kc)
-                part[:BM] += tile_popc(tx, BM)
-                part[BM:BM + bn] += tile_popc(tw, bn)
-            s = epilogue(k, part, sets.sum(0), min(BM, m - m0), bn)
-            out[m0:m0 + BM, n0:n0 + bn] = s[:, :min(bn, n - n0)]
-    return out
+    return staged_model(xp, wp, k, G.MULTIACC_TILING[nacc][0], nacc)
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,15 +297,30 @@ def test_tma_boxes_read_back_as_the_padded_operands(kw):
     assert x4.shape == (70, -(-kw // 4) * 4)
     np.testing.assert_array_equal(x4[:, :kw], xp)
     assert not x4[:, kw:].any()
-    for k0 in range(0, x4.shape[1], KW_STEP):
-        live = min(KW_STEP, x4.shape[1] - k0)
-        for rows in (128, 64):
-            for r0 in range(0, 70, rows):
-                a = logical_rows(tma_box(x4, k0, r0, rows), rows)
-                real = min(rows, 70 - r0)
-                np.testing.assert_array_equal(
-                    a[:real, :live], x4[r0:r0 + real, k0:k0 + live].view(np.uint32))
-                assert not a[real:].any() and not a[:, live:].any()
+    for rows in (128, 64):
+        a = read_rows(tma_boxes(x4, rows), rows)  # (row blocks, steps, rows, 32)
+        back = a.transpose(0, 2, 1, 3).reshape(a.shape[0] * rows, -1)
+        np.testing.assert_array_equal(back[:70, :x4.shape[1]], x4.view(np.uint32))
+        assert not back[70:].any() and not back[:, x4.shape[1]:].any()
+
+
+def test_vectorized_staging_is_kernel_b_s_tile_by_tile():
+    """The whole-operand staging leaves, block by block and step by step,
+    the tiles of ``test_torch_popcount_and``'s model of B's copies."""
+    rng = np.random.default_rng(3)
+    xp = random_words(rng, 140, 32 * 40)  # Kw 40: a second, partial step
+    wp = random_words(rng, 200, 32 * 40 - 7, along_rows=True)
+    for vec in (16, 4):
+        tx = stage_x_all(xp, vec)
+        for mb in range(2):
+            for st in range(2):
+                np.testing.assert_array_equal(tx[mb, st], stage_x(xp, mb * BM, st * KW_STEP, vec))
+    for bn in (128, 64):
+        tw = stage_w_all(wp, bn)
+        for nb in range(tw.shape[0]):
+            for st in range(2):
+                np.testing.assert_array_equal(tw[nb, st], stage_w(wp, nb * bn, st * KW_STEP, bn))
+    np.testing.assert_array_equal(read_rows(tx[0, 0], BM), logical_rows(tx[0, 0]))
 
 
 def test_tma_operands_copy_only_what_the_boxes_cannot_take():

@@ -105,17 +105,29 @@ def test_xnor_multiacc_matches_jax_in_interpret_mode(nacc):
 
 
 def test_outer_shared_memory_check_is_a_function_of_the_shape():
-    # Kw = 128 (K = 4096): 128x128 and 256x128 fit, the wider ones do not
-    assert G.outer_smem_bytes(128, 128, 128) == 4 * (128 * 129 + 128 * 128)
-    G.check_outer_fits(256, 128, 128)
+    # the strips are ceil(Kw / 32) tiles of 128-byte rows, bm + bn rows
+    # each, after 1024 bytes of alignment, then the barrier and the terms.
+    # Kw = 128 (K = 4096): 128x128, 256x128 and 128x64 fit, the wider ones
+    # do not
+    assert G.outer_smem_bytes(128, 128, 128) == 1024 + 256 * 4 * 128 + 8 + 4 * 256
+    assert G.outer_smem_bytes(128, 64, 128) == 100104  # two blocks a SM
+    for bm, bn in ((128, 128), (256, 128), (128, 64)):
+        G.check_outer_fits(bm, bn, 128)
     for bm, bn in ((256, 256), (512, 256), (1024, 128)):
         with pytest.raises(G.DoesNotFit, match="shared memory"):
             G.check_outer_fits(bm, bn, 128)
-    G.check_outer_fits(1024, 128, 36)  # K = 1152: every geometry fits
-    G.check_outer_fits(512, 256, 72)   # 223,232 bytes of 232,448
-    # an odd row stride: Kw = 31 keeps 31, Kw = 32 takes 33
-    assert G.outer_smem_bytes(1, 0, 31) == 4 * 31
-    assert G.outer_smem_bytes(1, 0, 32) == 4 * 33
+    # K = 1152 (Kw = 36, two tiles): all but 1024x128 fit; 512x256 takes
+    # 200,712 bytes of 232,448
+    G.check_outer_fits(512, 256, 36)
+    with pytest.raises(G.DoesNotFit):
+        G.check_outer_fits(1024, 128, 36)
+    # K = 2304 (Kw = 72, three tiles): 256x256 fits, 512x256 does not
+    G.check_outer_fits(256, 256, 72)
+    with pytest.raises(G.DoesNotFit):
+        G.check_outer_fits(512, 256, 72)
+    # a tile holds 32 words: Kw = 31 and 32 take one, Kw = 33 two
+    assert G.outer_smem_bytes(128, 64, 31) == G.outer_smem_bytes(128, 64, 32)
+    assert G.outer_smem_bytes(128, 64, 33) - G.outer_smem_bytes(128, 64, 32) == 192 * 128
     # the wrapper refuses before any launch, on any device
     x, w = _t(*_case(3, 4096, 256))
     with pytest.raises(G.DoesNotFit):
@@ -133,7 +145,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="Kw"):
             call()
     for call in (lambda: G.gemm_outer(x, w, 100, 64, 64),
-                 lambda: G.gemm_outer_acc(x, w, 100, 128, 128, 32),
+                 lambda: G.gemm_outer_acc(x, w, 100, 128, 32, 3),
                  lambda: G.gemm_chunk3d(x, w, 100, 128, 128, 16),
                  lambda: G.gemm_lanered(x, wt, 100, 2, 8),
                  lambda: G.xnor_multiacc(x, w, 100, nacc=3)):
@@ -172,13 +184,18 @@ def test_shootout_on_the_cpu_route():
     # B runs on the single-bit tensor cores: held to their measured rate only
     base = by_name[gemm_shootout.BASELINE]
     assert base["popc_share"] is None and base["int8_share"] is None
-    assert base["b1_share"] > 0 and by_name["outer-128x128"]["b1_share"] is None
-    # F4 too, its geometries named by their columns and stages
-    for bn, stages in G.LANERED_GEOMETRIES:
-        row = by_name[G.lanered_name(bn, stages)]
+    assert base["b1_share"] > 0 and by_name["chunk3d-64x64x4"]["b1_share"] is None
+    # F1, F2 and F4 too, F2's and F4's geometries named by their columns,
+    # K step and stages
+    b1_rows = ["outer-128x128", "outer-128x64"]
+    b1_rows += [G.outer_acc_name(*g) for g in G.OUTER_ACC_GEOMETRIES]
+    b1_rows += [G.lanered_name(*g) for g in G.LANERED_GEOMETRIES]
+    for name in b1_rows:
+        row = by_name[name]
         assert row["fits"] and row["b1_share"] > 0
         assert row["popc_share"] is None and row["int8_share"] is None
-    assert by_name["outer-128x128"]["popc_share"] > 0
+    # F3 alone stays on the CUDA cores' popc unit
+    assert by_name["chunk3d-64x64x4"]["popc_share"] > 0
 
 
 def test_experiments_raise_without_a_card():
