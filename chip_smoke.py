@@ -59,7 +59,10 @@ Phases:
    and no LDGSTS (B's transposing copies), F1 its x strip by TMA; B's and
    C's instances must be the SASS that nvcc 12.9 made of them before F2
    shared their mainloop, instruction for instruction
-   (:data:`B_C_SASS`);
+   (:data:`B_C_SASS`); every F3 instance (``chunk3d_kernel``, the CUDA
+   cores) with no spill and registers for two blocks a SM or more, and its
+   chunk loop with LOP3 and at most its carry-save tree's POPC a chunk an
+   output (``gemm_formulations.chunk3d_issue``);
 3. kernels: each of the eighteen kernels against its plain PyTorch version
    on the card at its paths' layer shapes (batch 32, and 256 for the MLPs,
    kernel E, A' conv and D), the packed GEMMs at 1024x4096x4096, ragged
@@ -90,8 +93,8 @@ Phases:
    tensor cores) also at Kw = 2, 3, 9, 17 (F1's and F4's padded route), N
    = 130, the shootout's four full shapes and with all-ones and all-zero
    words, each shape's plain output made once for all of them; H in
-   each mode and compiled
-   length with the int32 extremes in both operands: packed words, planes,
+   each mode and compiled length (1, 32, 96, 128, 384 steps)
+   with the int32 extremes in both operands: packed words, planes,
    int32 s and int8 codes must be equal;
 4. slice: for each path, 600 uint8 requests through the engine; every
    request answered, each layer's words or codes and each integer head's
@@ -138,7 +141,9 @@ Phases:
 7. measure: the measurement path at reduced repeats (8 x 3), counts set to
    0 just before and read just after: the shootout at its four full shapes
    with every candidate equal to kernel B, the accumulator scan, the probe's
-   six modes with the SM clock and SASS counts, the tensor-core probe
+   six modes with the SM clock and SASS counts (384 against 128 steps, and
+   the JAX file's 96 against 32: each opcode's rate a clock an SM), F3's
+   unit bound at each geometry (``roofline.chunk3d_unit_bound``), the tensor-core probe
    (``qnx_torch.bench.tc_probe``: the single-bit and the int8 ``wgmma``'s
    MACs a second on tiles in shared memory, each equal to its plain
    version), the roofline table; each of F1-F4, G, H and B and C (at wide
@@ -155,8 +160,9 @@ Phases:
    the dense kernels, the integer heads, B and C at wide N, F1, F2, F4
    and G and their library calls also as CUDA graph replays, which leave
    out the host's launch; B, every geometry of F1 that fits there and of
-   F2, F4 and G, and ``_int_mm`` at 1024x4096x4096 in one interleaved
-   group, graph replays and per call;
+   F2, F3, F4 and G, and ``_int_mm`` at 1024x4096x4096 in one interleaved
+   group, graph replays and per call, F3 also against its unit bound; H's
+   bound the larger of its bytes and its issue;
 9. stages: each stage of the batch-256 VGG, ``mnist-bnn``, int8 VGG and
    bit-plane VGG forwards alone, their peak memory, and the engine's
    throughput over 40 queued batches, of those paths and of the five paths
@@ -204,8 +210,9 @@ VGG's head shapes; ``forward-PATH`` for the whole forward of the path
 ``mnist_bnn``, ``mnist_tnn`` or ``cifar10_tnn_a3``; ``popcount`` and
 ``ternary`` for kernels B and C at wide N, at 1024x4096x4096 and at the
 ring chunks of meshes 1x2 and 1x4, each at its own M; a formulation's
-kind, ``lanered-n128-s3`` or ``multiacc-2``, at 1024x4096x4096) at batch
-256 on the
+kind, ``lanered-n128-s3``, ``chunk3d-64x128x8`` or ``multiacc-2``, at
+1024x4096x4096, a geometry a checkout does not compile printed as such) at
+batch 256 on the
 same seeded operands (E's K-major weights made beforehand where the
 checkout's wrapper takes them), per call and (but for a forward) as CUDA
 graph replays.  Run it as parent, change, change, parent.
@@ -264,7 +271,7 @@ MLP_HEAD = (4096, 10)
 PLANE_HEAD = (1024, 10)
 SCAN = (1024, (4096, 4096))  # the JAX package's packed GEMM scan shape
 # each formulation's kind timed at SCAN: the wrappers' default geometries
-MEASURED_TIMED = ("outer-128x128", "outer_acc-n128-k16-s6", "chunk3d-64x64x4",
+MEASURED_TIMED = ("outer-128x128", "outer_acc-n128-k16-s6", "chunk3d-64x128x8",
                   "lanered-n128-s3", "multiacc-2")
 PROBE_SHAPE = (4096, 1024)  # vpu_probe's BLOCK (256, 1024) x GRID 16
 # the measurement phase's reduced repeats (the experiments' defaults are
@@ -532,6 +539,9 @@ class Case:
     # the operands' key where several cases share them and their plain
     # output (the formulations' geometries at one shape), else None
     plain_key: tuple | None = None
+    # ms the kernel's instructions take to issue on the CUDA cores, for a
+    # kernel held to that rather than to MACs (H), else None
+    issue_ms: Callable[[], float] | None = None
 
     def bound(self, out) -> tuple[float, float]:
         """(ms of the MACs at the peak of the tensor cores the kernel runs
@@ -546,12 +556,15 @@ class Case:
         AND-popcount MAC a MAC, C two (against mask and mask & sign); the
         formulations F1-F4 and G compute B's function, so B's bound is
         theirs (F1, F2, F4 and G run on those cores; F3, on the CUDA cores,
-        is held to its popc ceiling in the shootout too)."""
+        is held to its unit bound in the shootout and the scan group too);
+        H, which no tensor core computes, is held to its issue
+        (:attr:`issue_ms`)."""
         from qnx_torch.bench.roofline import H100_PEAKS
 
         nbytes = sum(t.numel() * t.element_size() for t in [*self.inputs, out])
-        return (self.macs * self.ops_per_mac / H100_PEAKS[self.peak] * 1e3,
-                nbytes / H100_PEAKS["hbm_bytes"] * 1e3)
+        ops_ms = (self.issue_ms() if self.issue_ms is not None
+                  else self.macs * self.ops_per_mac / H100_PEAKS[self.peak] * 1e3)
+        return ops_ms, nbytes / H100_PEAKS["hbm_bytes"] * 1e3
 
 
 def make_case(torch, rng, kind: str, b: int, shape) -> Case:
@@ -756,7 +769,8 @@ def measured_case(torch, rng, kind: str, m, shape) -> Case:
     at the single-bit tensor cores' rate, since each computes B's function,
     whose least time on the card is B's), or ``int_chain-MODE-REPS`` (shape
     of the elements, the int32 extremes in both operands; no library call
-    computes it)."""
+    computes it; bound by the larger of its bytes and its issue,
+    :func:`chain_issue_ms`)."""
     from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels import int_probe as P
     from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount_ref
@@ -771,7 +785,8 @@ def measured_case(torch, rng, kind: str, m, shape) -> Case:
         x.flat[:6], y.flat[:6], y.flat[6:12] = edge, edge[::-1], edge
         x, y = cuda(torch, x), cuda(torch, y)
         return Case("int_chain", lambda: P.int_chain(x, y, mode, reps),
-                    lambda: P.int_chain_ref(x, y, mode, reps), False, [x, y], 0, None)
+                    lambda: P.int_chain_ref(x, y, mode, reps), False, [x, y], 0, None,
+                    issue_ms=lambda: chain_issue_ms(mode, reps, x.numel()))
     name = FORMULATIONS[prefix]
     g = [int(v) for v in re.findall(r"\d+", geometry)]
     k, n, *_ = shape
@@ -781,6 +796,29 @@ def measured_case(torch, rng, kind: str, m, shape) -> Case:
     return Case(name, lambda: fn(xp, w, k, *g),
                 lambda: xnor_gemm_popcount_ref(xp, wp, k), False, [xp, w],
                 m * k * n, (m, k, n), peak="b1_macs", plain_key=(m, tuple(shape)))
+
+
+@functools.lru_cache(maxsize=1)
+def chain_sass() -> dict:
+    """{(mode, reps): SASS opcode Counter} of kernel H's instances in the
+    built library (``vpu_probe.sass_counts``)."""
+    from qnx_torch.experiments.vpu_probe import sass_counts
+    from qnx_torch.kernels import _build
+
+    return sass_counts(_build.library_path())
+
+
+def chain_issue_ms(mode: str, reps: int, elements: int) -> float:
+    """The least time H's ``reps`` steps of ``mode`` over ``elements``
+    issue in: the SASS instructions a step of the probe's issue pair
+    (``vpu_probe.sass_per_step``, the 384- against the 128-step build) at
+    the rates of ``vpu_probe.issue_ms``."""
+    from qnx_torch.experiments.vpu_probe import PAIRS, issue_ms, sass_per_step
+
+    counts = chain_sass()
+    if not counts:
+        raise AssertionError("H's issue bound needs the SASS (cuobjdump)")
+    return issue_ms(sass_per_step(counts, mode, *PAIRS[0]), reps, elements)
 
 
 # (M, (K, N)): ragged M and K (k % 32 != 0), N = 1, 10, 33, 128, the MNIST
@@ -995,6 +1033,90 @@ def phase_build() -> None:
             if digests.get(label) != want:
                 raise AssertionError(f"SASS {label}: {digests.get(label)} is not the "
                                      f"code nvcc 12.9 made of it before, {want}")
+    check_chunk3d(functions, ptxas_report(_build.build_log(), "chunk3d_kernel"))
+
+
+def ptxas_report(build_log: str, needle: str) -> dict:
+    """{mangled name: {"registers", "stack", "spill_stores", "spill_loads"}}
+    of the kernels whose name holds ``needle``, from ptxas's ``-v`` report
+    in the build log."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        head = (re.search(r"Compiling entry function '([^']+)'", line)
+                or re.search(r"Function properties for (\S+)", line))
+        if head:
+            name = head.group(1) if needle in head.group(1) else None
+            if name:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            out[name].update(stack=int(frame[1]), spill_stores=int(frame[2]),
+                             spill_loads=int(frame[3]))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[name]["registers"] = int(used[1])
+    return out
+
+
+def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
+    """Blocks of ``threads`` an H100 SM holds at once by its registers
+    (65,536, allocated 8 a thread at a time), its shared memory (233,472
+    bytes, 1,024 of them reserved a block) and its 2,048 threads."""
+    regs = -(-registers // 8) * 8
+    return min(65536 // (regs * threads), 233472 // (smem + 1024), 2048 // threads)
+
+
+def check_chunk3d(functions: dict, report: dict) -> None:
+    """Every F3 instance of :data:`~qnx_torch.kernels.gemm_formulations.
+    CHUNK3D_GEOMETRIES`: no spill and two blocks a SM or more (ptxas's
+    report), and, where the SASS was read, a chunk loop that issues LOP3 and
+    at most :func:`~qnx_torch.kernels.gemm_formulations.chunk3d_issue`'s
+    LOP3 and POPC a chunk an output.  The chunk loop is the innermost backward
+    branch's range that holds POPC; one iteration is one kc-word chunk of a
+    thread's (bm / 16) x (bn / 16) outputs."""
+    from qnx_torch.kernels import gemm_formulations as G
+
+    sass = {tuple(int(v) for v in re.findall(r"Li(\d+)E", name)): code
+            for name, code in functions.items() if "chunk3d_kernel" in name}
+    regs = {tuple(int(v) for v in re.findall(r"Li(\d+)E", name)): r
+            for name, r in report.items()}
+    for bm, bn, kc in G.CHUNK3D_GEOMETRIES:
+        r = regs.get((bm, bn, kc))
+        if not r or "registers" not in r or "spill_stores" not in r:
+            raise AssertionError(f"ptxas: no report of chunk3d_kernel<{bm}, {bn}, {kc}>")
+        blocks = blocks_per_sm(r["registers"], 256, G.chunk3d_smem_bytes(bm, bn))
+        issue = G.chunk3d_issue(kc)
+        line = (f"F3 chunk3d_kernel<{bm}, {bn}, {kc}>: {r['registers']} registers, "
+                f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / loads, "
+                f"stack {r['stack']}, {blocks} blocks a SM; the tree issues a chunk an "
+                f"output {issue}")
+        if r["spill_stores"] or r["spill_loads"] or blocks < 2:
+            raise AssertionError(line + ": spills, or under two blocks a SM")
+        code = sass.get((bm, bn, kc))
+        if sass and code is None:
+            raise AssertionError(f"SASS: no chunk3d_kernel<{bm}, {bn}, {kc}>")
+        if code is not None:
+            ins = sass_instructions(code)
+            loops = [(hi - lo, lo, hi) for hi, op, lo in ins
+                     if op == "BRA" and lo is not None and lo < hi
+                     and any(o == "POPC" and lo <= a <= hi for a, o, _ in ins)]
+            if not loops:
+                raise AssertionError(f"SASS chunk3d_kernel<{bm}, {bn}, {kc}>: no loop "
+                                     f"issues POPC")
+            _, lo, hi = min(loops)
+            loop = Counter(op for a, op, _ in ins if lo <= a <= hi)
+            outputs = (bm // 16) * (bn // 16)
+            per = {op: round(c / outputs, 3) for op, c in loop.most_common()}
+            line += f"; SASS of the chunk loop a chunk an output {per}"
+            if (not loop["LOP3"] or loop["LOP3"] > issue["LOP3"] * outputs
+                    or loop["POPC"] > issue["POPC"] * outputs):
+                raise AssertionError(line + ": no LOP3, or more LOP3 or POPC than the "
+                                     "tree's")
+        log("build", line)
 
 
 # SASS opcodes reported per K step of the tensor-core convs: the MMAs
@@ -1077,10 +1199,10 @@ def popcount_gemm_labels() -> list:
 E_K32_PER_STEP = 4
 
 
-# the kernel templates whose instances mma_sass reads
+# the kernel templates whose instances mma_sass (and, F3's, check_chunk3d) reads
 SASS_KERNELS = ("expand_mma_conv3x3_kernel", "expand_mma_dense_kernel",
                 "i8_conv3x3_kernel", "popcount_gemm_kernel", "popcount_gemm_tma_kernel",
-                "popcount_gemm_steps_kernel", "popcount_outer_kernel")
+                "popcount_gemm_steps_kernel", "popcount_outer_kernel", "chunk3d_kernel")
 
 
 def sass_functions(library: Path) -> dict:
@@ -1126,6 +1248,21 @@ def sass_digests(functions: dict, labels) -> dict:
     return out
 
 
+def sass_instructions(lines: list) -> list:
+    """[(address, opcode, branch target or None)] of a function's SASS
+    lines, the opcode without its modifiers."""
+    out = []
+    for line in lines:
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+                       r"([^;]*)", line)
+        if ins:
+            target = re.search(r"0x([0-9a-f]+)", ins.group(3))
+            out.append((int(ins.group(1), 16), ins.group(2).split(".")[0],
+                        int(target.group(1), 16)
+                        if ins.group(2) == "BRA" and target else None))
+    return out
+
+
 def mma_sass(functions: dict) -> dict:
     """{kernel instance (A, A' or D's planes, conv or dense, and KW; E's,
     B's and C's copy width; F1's, F2's, F4's and G's tiling,
@@ -1135,17 +1272,7 @@ def mma_sass(functions: dict) -> dict:
     holds the most MMAs; a step issues KW IGMMA (wgmma) a warp, E's
     E_K32_PER_STEP, the single-bit instances' :func:`b1_k256` BGMMA, or 16
     times as many IMMA (mma.sync)."""
-    funcs = {}
-    for name, code in functions.items():
-        funcs[name] = []
-        for line in code:
-            ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
-                           r"([^;]*)", line)
-            if ins:
-                target = re.search(r"0x([0-9a-f]+)", ins.group(3))
-                funcs[name].append((int(ins.group(1), 16), ins.group(2).split(".")[0],
-                                    int(target.group(1), 16)
-                                    if ins.group(2) == "BRA" and target else None))
+    funcs = {name: sass_instructions(code) for name, code in functions.items()}
     out = {}
     for name, code in funcs.items():
         def mmas(lo, hi):
@@ -1255,7 +1382,8 @@ def phase_kernels(torch, err: dict) -> None:
 DENSE_NAMES = ("xnor_dense_fused", "ternary_dense_fused", "plane_dense_fused")
 # the kernels phase 7 also times as CUDA graph replays
 GRAPH_NAMES = (*DENSE_NAMES, *HEADS.values(), "xnor_gemm_popcount", "ternary_gemm",
-               "gemm_outer", "gemm_outer_acc", "gemm_lanered", "xnor_multiacc")
+               "gemm_outer", "gemm_outer_acc", "gemm_chunk3d", "gemm_lanered",
+               "xnor_multiacc")
 
 
 def dense_split(torch, name: str, m: int, shape) -> int | None:
@@ -2272,6 +2400,7 @@ def phase_measure(torch) -> dict:
     version in phase 3).  Returns the launch counts."""
     from qnx_torch.bench import roofline, tc_probe
     from qnx_torch.experiments import gemm_shootout, vpu_probe, xnor_sol_variants
+    from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels import launch_counters
 
     counted = launch_counters()
@@ -2284,6 +2413,19 @@ def phase_measure(torch) -> dict:
     tc = tc_probe.main()  # each mode equal to its plain version first
     roof = roofline.main(**MEASURE_REPEATS)
     launches = {name: w.launches for name, w in counted.items()}
+    m, (k, n) = SCAN
+    for g in G.CHUNK3D_GEOMETRIES:
+        u = roofline.chunk3d_unit_bound(m, k, n, *g)
+        log("measure", "F3 chunk3d-{}x{}x{} at {}x{}x{}: ".format(*g, m, k, n)
+            + f"unit bound {u['bound_s'] * 1e3:.4f} ms ({u['unit']}; integer "
+            f"{u['int_s'] * 1e3:.4f}, POPC {u['popc_s'] * 1e3:.4f}, shared memory "
+            f"{u['smem_s'] * 1e3:.4f}); the tree a chunk an output {G.chunk3d_issue(g[2])}")
+    for r in probe:
+        log("measure", f"H {r['mode']}: {r['steps_per_clock_per_sm']} steps a clock an "
+            f"SM (384 - 128), {r['jax_steps_per_clock_per_sm']} (96 - 32) at "
+            f"{r['sm_clock_mhz']} MHz; per opcode a clock an SM "
+            f"{r.get('per_clock_per_sm')}; bound at 96 steps: bytes "
+            f"{r['bytes_ms']:.4f} ms, issue {r.get('issue_ms')}")
     log("measure", f"{len(shoot)} shootout rows ({sum(not r['fits'] for r in shoot)} "
         f"do not fit, every other equal to kernel B), {len(sol)} scan rows, "
         f"{len(probe)} probe modes, tensor-core probe "
@@ -2434,16 +2576,18 @@ def phase_times(torch, card: str, models: dict) -> dict:
 
 def time_scan_group(torch, card: str) -> None:
     """Kernel B, every compiled geometry of F1 that fits at :data:`SCAN`,
-    of F2, F4 and G, and one ``torch._int_mm`` on the same product, at
+    of F2, F3, F4 and G, and one ``torch._int_mm`` on the same product, at
     :data:`SCAN` on the same seeded words, in one interleaved group, as CUDA
     graph replays and per call
     (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`,
     marginal medians); each held equal to B first.  F1 against B is what
     B's per-step barriers and refills cost against one fill a block; F2
-    what narrower K steps cost; F4 what B's transposing weight copies cost
-    against TMA boxes; G what independent wgmma groups give."""
+    what narrower K steps cost; F3 what the CUDA cores give, against its
+    unit bound (:func:`qnx_torch.bench.roofline.chunk3d_unit_bound`); F4
+    what B's transposing weight copies cost against TMA boxes; G what
+    independent wgmma groups give."""
     from qnx_torch.bench.microbench import time_fns_marginal_interleaved
-    from qnx_torch.bench.roofline import H100_PEAKS
+    from qnx_torch.bench.roofline import H100_PEAKS, chunk3d_unit_bound
     from qnx_torch.experiments.gemm_shootout import random_words
     from qnx_torch.kernels import gemm_formulations as G
     from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
@@ -2461,6 +2605,9 @@ def time_scan_group(torch, card: str) -> None:
     for g in G.OUTER_ACC_GEOMETRIES:
         targets[f"F2 {G.outer_acc_name(*g)}"] = (
             lambda g=g: G.gemm_outer_acc(xp, wp, k, *g), ())
+    for g in G.CHUNK3D_GEOMETRIES:
+        targets["F3 chunk3d-{}x{}x{}".format(*g)] = (
+            lambda g=g: G.gemm_chunk3d(xp, wp, k, *g), ())
     for bn, st in G.LANERED_GEOMETRIES:
         targets[f"F4 {G.lanered_name(bn, st)}"] = (
             lambda g=(bn, st): G.gemm_lanered(xp, wpt, k, *g), ())
@@ -2483,13 +2630,20 @@ def time_scan_group(torch, card: str) -> None:
                                                       median=r["median"] * 1e3))
     lib = out["library"]
     for name, r in out.items():
-        log("times", f"{card} | scan group {m}x{k}x{n} (B, F1, F2, F4, G, _int_mm "
+        unit = ""
+        if name.startswith("F3 "):
+            u = chunk3d_unit_bound(m, k, n, *(int(v) for v in name[11:].split("x")))
+            unit = (f"; unit bound {u['bound_s'] * 1e3:.4f} ms ({u['unit']}: integer "
+                    f"{u['int_s'] * 1e3:.4f}, POPC {u['popc_s'] * 1e3:.4f}, shared "
+                    f"memory {u['smem_s'] * 1e3:.4f}), {u['bound_s'] * 1e3 / r['graph']:.3f} "
+                    f"of it")
+        log("times", f"{card} | scan group {m}x{k}x{n} (B, F1, F2, F3, F4, G, _int_mm "
             f"interleaved): {name} graph replays {r['graph_fmt']}; per call "
             f"{r['call_fmt']}; over _int_mm {r['graph'] / lib['graph']:.3f} "
             f"(replays), {r['call'] / lib['call']:.3f} (per call); over B "
             f"{r['graph'] / out['B']['graph']:.3f} (replays); bound {bound:.4f} ms "
             f"(b1 MACs {ops_ms:.4f}, bytes {bytes_ms:.4f}), "
-            f"{bound / r['graph']:.3f} of it")
+            f"{bound / r['graph']:.3f} of it{unit}")
 
 
 def graph_ms(kern: Callable, lib: Callable, iters: int = 20, repeats: int = 7) -> dict:
@@ -3089,7 +3243,14 @@ def ab_child(kinds: str, root: str) -> int:
                 m, shape = shape if carries_m(kind) else (TIME_BATCH, shape)
                 case = make_case(torch, rng, kind, m, shape)
                 kern = case.kern
-                row["equal"] &= bool(torch.equal(kern(), case.plain()))
+                try:
+                    got = kern()
+                except ValueError as e:  # a geometry this checkout lacks
+                    if "not compiled in" not in str(e):
+                        raise
+                    row["missing"] = str(e)
+                    break
+                row["equal"] &= bool(torch.equal(got, case.plain()))
             row["ms"].append(statistics.median(time_ms(torch, kern, 20)))
             if kind.startswith("forward-"):
                 continue
@@ -3116,6 +3277,10 @@ def ab(kinds: str, roots: list[str]) -> int:
                   f"{proc.stderr[-3000:]}", flush=True)
             continue
         for kind, row in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            if "missing" in row:
+                print(f"{card} | run {i} {root}: {kind} not compiled in this "
+                      f"checkout ({row['missing']})", flush=True)
+                continue
             shapes = ab_shapes(kind)
             batch = "M as given" if carries_m(kind) else TIME_BATCH
             print(f"{card} | run {i} {root}: {kind} at batch {batch}, "

@@ -50,12 +50,76 @@ H100_PEAKS = {
     # 1,980 MHz nvidia-smi read, 7.95x the s8 wgmma's 9.943e14 in the same
     # run (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
     "b1_macs": 7.9076e15,
-    # popc instructions per second of the whole card, measured: the `pc`
-    # mode of qnx_torch.experiments.vpu_probe (kernel H) issued 15.84 popc
-    # per clock per SM at the 1,980 MHz SM clock nvidia-smi read during the
-    # run, x 132 SMs (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
-    "popc_ops": 15.84 * 132 * 1.98e9,
+    # popc instructions per second of the whole card: 16 a clock an SM,
+    # the rate of compute capability 9.0 (CUDA C++ Programming Guide,
+    # arithmetic instructions), at the 1,980 MHz SM clock nvidia-smi read x
+    # 132 SMs.  Measured: the `pc` mode of qnx_torch.experiments.vpu_probe
+    # (kernel H) issued 15.84 a clock an SM (96 against 32 steps) and 15.96
+    # (384 against 128) (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+    "popc_ops": 16 * 132 * 1.98e9,
+    # integer instructions per second of the whole card, measured: kernel H
+    # (qnx_torch.experiments.vpu_probe, 384 against 128 steps at 4096 x
+    # 1024, the 1,980 MHz SM clock nvidia-smi read, x 132 SMs; NVIDIA H100
+    # 80GB HBM3, 700.00 W; PERF.md §6).  `xor` issued 64.90 LOP3 and 64.90
+    # VIADD a clock an SM, `mul` 64.78 IMAD and 64.78 IADD3, `csa` 43.50 LOP3
+    # and 21.75 IADD3: LOP3 and IADD3 share one pipe (int_ops), IMAD and
+    # VIADD issue on another (imad_ops), and every instruction goes through
+    # one issue slot a clock a scheduler, 129.8 a clock an SM (issue_ops)
+    "int_ops": 64.90 * 132 * 1.98e9,
+    "imad_ops": 64.78 * 132 * 1.98e9,
+    "issue_ops": 129.80 * 132 * 1.98e9,
+    # shared-memory bytes per second of the whole card: 32 banks of 4 bytes
+    # a clock an SM (CUDA C++ Programming Guide, shared memory) at 1,980 MHz
+    # x 132 SMs
+    "smem_bytes": 128 * 132 * 1.98e9,
 }
+
+#: the H100_PEAKS rate each SASS opcode's pipe issues at on the CUDA cores,
+#: as kernel H measured them (LEA and SHF beside LOP3 and IADD3, as the
+#: CUDA C++ Programming Guide lists shifts); every opcode, these and others
+#: (shared loads, branches), also takes an issue slot
+PIPE_OF = {"LOP3": "int_ops", "IADD3": "int_ops", "LEA": "int_ops", "SHF": "int_ops",
+           "IMAD": "imad_ops", "VIADD": "imad_ops", "POPC": "popc_ops"}
+
+
+def issue_times(counts: dict) -> dict:
+    """Seconds the whole card takes to issue ``counts`` ({SASS opcode:
+    instructions}) on each pipe of the CUDA cores at its measured rate
+    (:data:`PIPE_OF`), and all of them through the issue slots
+    (``issue_ops``): {"issue_ops", and "int_ops" | "imad_ops" | "popc_ops"
+    for the pipes the counts use: seconds}."""
+    times = {"issue_ops": sum(counts.values()) / H100_PEAKS["issue_ops"]}
+    for op, c in counts.items():
+        if op in PIPE_OF:
+            pipe = PIPE_OF[op]
+            times[pipe] = times.get(pipe, 0.0) + c / H100_PEAKS[pipe]
+    return times
+
+
+def chunk3d_unit_bound(m: int, k: int, n: int, bm: int, bn: int, kc: int) -> dict:
+    """The least time of kernel F3 (``gemm_chunk3d``) at (M, K, N) and its
+    geometry on the units it runs on: the instructions its carry-save tree
+    issues for the M N Kw word pairs
+    (``gemm_formulations.chunk3d_issue``) and its 16-byte shared loads, each
+    on its pipe and all through the issue slots (:func:`issue_times`), and
+    its shared-memory bytes at
+    ``smem_bytes`` (each chunk a thread reads its bm / 16 rows' and bn / 16
+    columns' kc words; each block writes its x and w strips once).
+    ``{"<unit>_s": seconds, ..., "bound_s", "unit"}``, ``unit`` the one
+    that bounds it."""
+    from qnx_torch.kernels.gemm_formulations import chunk3d_issue
+
+    kw = -(-k // 32)
+    chunks = m * n * kw / kc
+    counts = {op: c * chunks for op, c in chunk3d_issue(kc).items()}
+    counts["LDS"] = chunks * kc / 4 * (16 / bm + 16 / bn)  # 16-byte shared loads
+    times = {unit.removesuffix("_ops"): t for unit, t in issue_times(counts).items()}
+    pairs_bytes = 4 * m * n * kw * (16 / bm + 16 / bn)
+    fill_bytes = 4 * kw * (m * -(-n // bn) + n * -(-m // bm))
+    times["smem"] = (pairs_bytes + fill_bytes) / H100_PEAKS["smem_bytes"]
+    unit = max(times, key=times.get)
+    return {**{f"{u}_s": t for u, t in times.items()}, "bound_s": times[unit],
+            "unit": unit}
 
 
 @dataclass

@@ -17,8 +17,10 @@ other error propagates.  Times are marginal and interleaved
 (:func:`qnx_torch.bench.microbench.time_fns_marginal_interleaved`); each row
 gives ms, TMAC/s, and its share of the bounds of the units it runs on
 (:data:`qnx_torch.bench.roofline.H100_PEAKS`): F3 the MACs at the int8
-tensor-core rate and the popc ceiling, the library the int8 rate, B, F1, F2
-and F4 the measured single-bit rate; a share that does not apply is None.
+tensor-core rate and its unit bound (the integer, POPC and shared-memory
+issue of its carry-save tree, :func:`qnx_torch.bench.roofline.chunk3d_unit_bound`),
+the library the int8 rate, B, F1, F2 and F4 the measured single-bit rate; a
+share that does not apply is None.
 
     python -m qnx_torch.experiments.gemm_shootout
 """
@@ -29,7 +31,7 @@ import torch
 
 from qnx_torch.bench.microbench import (device_label, l2_warm, resolve_device,
                                         time_fns_marginal_interleaved)
-from qnx_torch.bench.roofline import H100_PEAKS
+from qnx_torch.bench.roofline import H100_PEAKS, chunk3d_unit_bound
 from qnx_torch.kernels import gemm_formulations as G
 from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount
 from qnx_torch.ops.packing import WORD, packed_len, unpack_bits
@@ -122,15 +124,16 @@ def run_shape(name: str, m: int, k: int, n: int, *, iters: int, repeats: int,
     res = time_fns_marginal_interleaved(targets, iters=iters, repeats=repeats,
                                         device=device, graph=graph)
     int8_s = macs / H100_PEAKS["int8_macs"]
-    popc_s = macs / WORD / H100_PEAKS["popc_ops"]
     b1_s = macs / H100_PEAKS["b1_macs"]
     for cname, r in res.items():
         b1 = cname == BASELINE or cname.startswith(B1_PREFIXES)
-        cuda_cores = not b1 and cname != LIBRARY
+        unit = (chunk3d_unit_bound(m, k, n, *(int(v) for v in cname[8:].split("x")))
+                if cname.startswith("chunk3d-") else None)
         rows.append({"shape": name, "candidate": cname, "fits": True,
                      "equal": True, "ms": r["t"] * 1e3, "tmacs": macs / r["t"] / 1e12,
                      "int8_share": None if b1 else int8_s / r["t"],
-                     "popc_share": popc_s / r["t"] if cuda_cores else None,
+                     "unit_share": None if unit is None else unit["bound_s"] / r["t"],
+                     "unit": None if unit is None else unit["unit"],
                      "b1_share": b1_s / r["t"] if b1 else None,
                      "spread": r["spread"], "unreliable": r["unreliable"],
                      "l2_warm": warm, "graph": graph})
@@ -143,8 +146,9 @@ def format_row(row: dict) -> str:
     share = lambda v, digits: "-" if v is None else f"{v:.{digits}f}"
     return (f"{row['shape']:12s} {row['candidate']:44s}: {row['ms']:9.4f} ms "
             f"{row['tmacs']:7.2f} TMAC/s  int8-bound share "
-            f"{share(row['int8_share'], 4)}  popc-ceiling share "
-            f"{share(row['popc_share'], 3)}  b1-bound share "
+            f"{share(row['int8_share'], 4)}  unit-bound share "
+            f"{share(row['unit_share'], 3)}"
+            f"{'' if row['unit'] is None else ' (' + row['unit'] + ')'}  b1-bound share "
             f"{share(row['b1_share'], 4)}  spread {row['spread']:.3f}"
             f"{'  UNRELIABLE' if row['unreliable'] else ''}"
             f"{'  L2-warm' if row['l2_warm'] else ''}"

@@ -19,10 +19,12 @@
 //                          at K steps of BK = 16 or 8 words, 64- or 32-byte
 //                          tile rows in the swizzle of that width, through a
 //                          ring of S stages, BN columns a block.
-//   chunk3d<BM, BN, KC>    v_chunk3d (F3): K in slabs of 32 words in shared
-//                          memory; per step a thread takes KC consecutive
-//                          words of each of its rows and columns as uint4
-//                          loads and adds the chunk's popcount sum.
+//   chunk3d<BM, BN, KC>    v_chunk3d (F3), on the CUDA cores: K in slabs of
+//                          32 words through a cp.async ring in shared
+//                          memory; per KC-word chunk a thread XORs its rows'
+//                          and columns' words and reduces each output's KC
+//                          words by a carry-save tree of full adders (LOP3)
+//                          to 3, 4 or 5 counter words, one POPC each.
 //   lanered<BN, STAGES>    v_lanered (F4): the dot form, x (M, Kw) against
 //                          wt (N, Kw), both K-major, on the single-bit tensor
 //                          cores: B's mainloop with both tiles filled by TMA
@@ -34,15 +36,18 @@
 //                          i % NACC, NACC independent wgmma groups in flight;
 //                          NACC = 1 is B's schedule.
 //
-// F3 stays on the CUDA cores, bound by popc issue, one popc per 32 MACs, at
-// 16 popc per clock per SM (compute capability 9.0); xor and add issue
-// beside it; what it varies is what feeds the popc unit (2 uint4 shared
-// loads per 16 KC popc) and the occupancy its shared memory and registers
-// leave.  Pad bits are 0 in both operands, so they XOR to 0; words past Kw,
-// rows past M and columns past N stage as 0 and are never stored.  F1, F2,
-// F4 and G run the AND-popcount wgmma at B's rate (s = k - 2 (rx + cw) +
-// 4 P, popcount_gemm.cuh); their least time is B's, bound by the int32
-// output's bytes (0.0058 ms at 1024 x 4096 x 4096).  F1 measures what B's
+// F3 stays on the CUDA cores, the measurement path's one witness of them.
+// POPC issues at 16 a clock an SM against 64 for LOP3 and IADD3 (compute
+// capability 9.0), so a chunk's popcount sum is mostly LOP3: KC XORs and two
+// LOP3 a full adder, then L + 1 POPC for KC words (L = floor(log2 KC))
+// where a POPC a word would take KC; its least time is the larger of its
+// integer issue, its POPC issue and its shared-memory bytes
+// (roofline.chunk3d_unit_bound): POPC at KC = 4, integer issue at 8 and 16.
+// Pad bits are 0 in both operands, so they XOR to 0; words past Kw, rows
+// past M and columns past N stage as 0 and are never stored.  F1, F2, F4 and
+// G run the AND-popcount wgmma at B's rate (s = k - 2 (rx + cw) + 4 P,
+// popcount_gemm.cuh); their least time is B's, bound by the int32 output's
+// bytes (0.0058 ms at 1024 x 4096 x 4096).  F1 measures what B's
 // per-step barriers and refills cost, F2 what narrower K steps cost, F4
 // what B's transposing weight copies cost against TMA boxes, G whether
 // independent wgmma groups shorten B's step chain.
@@ -54,8 +59,6 @@ namespace {
 
 constexpr int kSide = 16;              // threads along each side of a block tile
 constexpr int kThreads = kSide * kSide;
-constexpr int kSlab = 32;              // chunk3d: words of K per shared-memory slab
-constexpr int kSlabStride = kSlab + 4; // keeps rows 16-byte aligned, spreads banks
 constexpr int kMaxGridY = 65535;
 
 // The row blocks of a tiled kernel go in grid.y, which holds at most 65535.
@@ -248,65 +251,176 @@ namespace {
 
 // -------------------------------------------------------------- F3 chunk3d
 
-__device__ __forceinline__ int popc_xor4(uint4 a, uint4 b) {
-  return __popc(a.x ^ b.x) + __popc(a.y ^ b.y) + __popc(a.z ^ b.z) +
-         __popc(a.w ^ b.w);
+using qnx::cp_async;
+using qnx::cp_async_commit;
+using qnx::cp_async_wait;
+
+constexpr int kSlab = 32;               // words of K a slab
+constexpr int kSlabStride = kSlab + 4;  // 16-byte aligned rows; 8 rows' uint4 span 32 banks
+constexpr int kRing = 3;                // slabs in the cp.async ring
+
+// An F3 block's dynamic shared memory: kRing stages, each a slab of x
+// [BM][kSlabStride] and of w transposed [BN][kSlabStride]
+// (gemm_formulations.chunk3d_smem_bytes).
+constexpr size_t chunk3d_smem_bytes(int bm, int bn) {
+  return sizeof(unsigned) * kRing * (bm + bn) * kSlabStride;
 }
 
-// grid (ceil(n / BN), ceil(m / BM)), kThreads threads; a thread owns
-// TM = BM / 16 rows (ty + 16 i) and TN = BN / 16 columns (tx + 16 j).  The
-// slab holds x as [BM][kSlabStride] and w transposed, [BN][kSlabStride], so
-// a thread's KC words of a row or a column are contiguous.
+// One full adder a bit lane, a + b + c = sum + 2 carry: one LOP3 each, the
+// sum a ^ b ^ c (truth table 0x96) and the carry maj(a, b, c) (0xe8).  As
+// C expressions ptxas issued 19 LOP3 for kc = 8's four adders and eight
+// XORs, not 16.
+__device__ __forceinline__ void full_add(unsigned a, unsigned b, unsigned c,
+                                         unsigned& sum, unsigned& carry) {
+  asm("lop3.b32 %0, %1, %2, %3, 0x96;" : "=r"(sum) : "r"(a), "r"(b), "r"(c));
+  asm("lop3.b32 %0, %1, %2, %3, 0xe8;" : "=r"(carry) : "r"(a), "r"(b), "r"(c));
+}
+
+// sum_c popc(z[c]) of a KC-word chunk through a carry-save tree of full
+// adders (gemm_formulations.chunk3d_tree, the same adders in the same
+// order): each weight's words are added three at a time, oldest first, the
+// sum kept at that weight and the carry sent up one, until fewer than three
+// are left; the counter words left take one POPC each, weighted by a shift,
+// which ptxas folds into the accumulator as one IMAD a counter (the FMA
+// pipe, beside the LOP3 pipe).  A half adder would leave as many words, so
+// as many POPC, and is not used.  KC = 4: 1 full adder, 3 POPC; 8: 4, 4;
+// 16: 11, 5.
+template <int KC>
+__device__ __forceinline__ int chunk_popc(const unsigned (&z)[KC]) {
+  if constexpr (KC == 4) {
+    unsigned s, c;
+    full_add(z[0], z[1], z[2], s, c);
+    return __popc(z[3]) + __popc(s) + (__popc(c) << 1);
+  } else if constexpr (KC == 8) {
+    unsigned s0, c0, s1, c1, s2, c2, s3, c3;
+    full_add(z[0], z[1], z[2], s0, c0);
+    full_add(z[3], z[4], z[5], s1, c1);
+    full_add(z[6], z[7], s0, s2, c2);
+    full_add(c0, c1, c2, s3, c3);
+    return __popc(s1) + __popc(s2) + (__popc(s3) << 1) + (__popc(c3) << 2);
+  } else {
+    static_assert(KC == 16, "KC: 4, 8 or 16");
+    unsigned a[7], b[7], d[3], e[3], f, g;
+    full_add(z[0], z[1], z[2], a[0], b[0]);  // weight 1: 16 words -> 2
+    full_add(z[3], z[4], z[5], a[1], b[1]);
+    full_add(z[6], z[7], z[8], a[2], b[2]);
+    full_add(z[9], z[10], z[11], a[3], b[3]);
+    full_add(z[12], z[13], z[14], a[4], b[4]);
+    full_add(z[15], a[0], a[1], a[5], b[5]);
+    full_add(a[2], a[3], a[4], a[6], b[6]);
+    full_add(b[0], b[1], b[2], d[0], e[0]);  // weight 2: 7 words -> 1
+    full_add(b[3], b[4], b[5], d[1], e[1]);
+    full_add(b[6], d[0], d[1], d[2], e[2]);
+    full_add(e[0], e[1], e[2], f, g);        // weight 4: 3 words -> 1
+    return __popc(a[5]) + __popc(a[6]) + (__popc(d[2]) << 1) + (__popc(f) << 2) +
+           (__popc(g) << 3);
+  }
+}
+
+// grid (ceil(n / BN), ceil(m / BM)), kThreads threads, dynamic shared memory
+// chunk3d_smem_bytes(BM, BN); x's rows hold Kw rounded up to 4 words (zeros
+// past Kw) at a 16-byte aligned address.  A thread owns TM = BM / 16 rows
+// (ty + 16 i) and TN = BN / 16 columns (tx + 16 j).  K goes in slabs of 32
+// words through a ring of kRing stages filled by cp.async, one barrier a
+// slab: the barrier that makes slab t visible also retires slab t - 1's
+// stage, which the copies of slab t + kRing - 1 then refill while slab t is
+// reduced.  x's slab rows copy as 16-byte units, a warp's loads 4 rows of
+// 128 bytes; w's slab is stored transposed, [BN][kSlabStride], by 4-byte
+// copies, 4 lanes on 4 words of a column and 8 columns a warp (32-byte
+// sectors, the 32 lanes on 32 banks), so a thread's KC words of a row or a
+// column are contiguous.  Words past Kw, rows past M and columns past N stage
+// as 0.  Each KC-word chunk: a thread holds its TM rows' words, and for each
+// of its TN columns XORs them into KC words per output and reduces them by
+// chunk_popc into the output's one int32 accumulator.
 template <int BM, int BN, int KC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 chunk3d_kernel(const unsigned* __restrict__ xp, const unsigned* __restrict__ wp,
                int* __restrict__ out, int m, int kw, int n, int k) {
-  static_assert(KC % 4 == 0 && kSlab % KC == 0, "KC: 4, 8, 16 or 32");
+  static_assert(BM % kSide == 0 && BN % kSide == 0 && kSlab % KC == 0, "tiling");
   constexpr int TM = BM / kSide, TN = BN / kSide;
-  __shared__ __align__(16) unsigned xs[BM * kSlabStride];
-  __shared__ __align__(16) unsigned ws[BN * kSlabStride];
+  constexpr int kUnits = kSlab / 4;                       // 16-byte units of an x row
+  constexpr int kXCopies = BM * kUnits / kThreads;        // a thread's, a slab
+  constexpr int kWCopies = BN * kSlab / kThreads;
+  static_assert(BM * kUnits % kThreads == 0 && BN * kSlab % kThreads == 0, "copies");
+  extern __shared__ __align__(16) unsigned smem[];
+  unsigned* xs = smem;                                 // [kRing][BM][kSlabStride]
+  unsigned* ws = smem + kRing * BM * kSlabStride;      // [kRing][BN][kSlabStride]
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tid = threadIdx.x, tx = tid % kSide, ty = tid / kSide;
+  const int kw4 = (kw + 3) & ~3;  // x's row length
+  const int slabs = (kw + kSlab - 1) / kSlab;
+
+  auto fill = [&](int slab) {
+    const int kw0 = slab * kSlab;
+    unsigned* sx = xs + (slab % kRing) * BM * kSlabStride;
+    unsigned* sw = ws + (slab % kRing) * BN * kSlabStride;
+#pragma unroll
+    for (int j = 0; j < kXCopies; ++j) {
+      const int u = tid + j * kThreads;
+      const int r = u / kUnits, c = 4 * (u % kUnits);
+      const bool valid = m0 + r < m && kw0 + c < kw4;
+      cp_async<16>(sx + r * kSlabStride + c,
+                   valid ? xp + static_cast<size_t>(m0 + r) * kw4 + kw0 + c : xp, valid);
+    }
+#pragma unroll
+    for (int j = 0; j < kWCopies; ++j) {
+      const int u = tid + j * kThreads;
+      const int c = u % 4 + 4 * (u / (4 * BN)), col = (u / 4) % BN;
+      const bool valid = kw0 + c < kw && n0 + col < n;
+      cp_async<4>(sw + col * kSlabStride + c,
+                  valid ? wp + static_cast<size_t>(kw0 + c) * n + n0 + col : wp, valid);
+    }
+  };
 
   int acc[TM][TN] = {};
-  for (int kw0 = 0; kw0 < kw; kw0 += kSlab) {
-    for (int i = tid; i < BM * kSlab; i += kThreads) {
-      const int r = i / kSlab, c = i % kSlab;
-      xs[r * kSlabStride + c] = m0 + r < m && kw0 + c < kw
-          ? __ldg(xp + static_cast<size_t>(m0 + r) * kw + kw0 + c) : 0u;
-    }
-    for (int i = tid; i < kSlab * BN; i += kThreads) {
-      const int c = i / BN, col = i % BN;
-      ws[col * kSlabStride + c] = kw0 + c < kw && n0 + col < n
-          ? __ldg(wp + static_cast<size_t>(kw0 + c) * n + n0 + col) : 0u;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int c0 = 0; c0 < kSlab; c0 += KC) {
-      uint4 a[TM][KC / 4];
+  for (int s = 0; s < kRing - 1; ++s) {  // the ring's first kRing - 1 slabs
+    if (s < slabs) fill(s);
+    cp_async_commit();
+  }
+  for (int slab = 0; slab < slabs; ++slab) {
+    cp_async_wait<kRing - 2>();  // this thread's copies of the slab have landed
+    __syncthreads();             // ... every thread's; slab - 1's stage is free
+    if (slab + kRing - 1 < slabs) fill(slab + kRing - 1);
+    cp_async_commit();           // one group a slab, empty or not
+    const unsigned* sx = xs + (slab % kRing) * BM * kSlabStride + ty * kSlabStride;
+    const unsigned* sw = ws + (slab % kRing) * BN * kSlabStride + tx * kSlabStride;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kSlab; c0 += KC) {  // the chunk loop
+      unsigned a[TM][KC];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < TM; ++i) {
 #pragma unroll
-        for (int q = 0; q < KC / 4; ++q)
-          a[i][q] = *reinterpret_cast<const uint4*>(
-              &xs[(ty + i * kSide) * kSlabStride + c0 + 4 * q]);
+        for (int q = 0; q < KC / 4; ++q) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              sx + i * kSide * kSlabStride + c0 + 4 * q);
+          a[i][4 * q] = v.x;
+          a[i][4 * q + 1] = v.y;
+          a[i][4 * q + 2] = v.z;
+          a[i][4 * q + 3] = v.w;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        uint4 b[KC / 4];
+        unsigned b[KC];
 #pragma unroll
-        for (int q = 0; q < KC / 4; ++q)
-          b[q] = *reinterpret_cast<const uint4*>(
-              &ws[(tx + j * kSide) * kSlabStride + c0 + 4 * q]);
+        for (int q = 0; q < KC / 4; ++q) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              sw + j * kSide * kSlabStride + c0 + 4 * q);
+          b[4 * q] = v.x;
+          b[4 * q + 1] = v.y;
+          b[4 * q + 2] = v.z;
+          b[4 * q + 3] = v.w;
+        }
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
-          int chunk = 0;
+          unsigned z[KC];
 #pragma unroll
-          for (int q = 0; q < KC / 4; ++q) chunk += popc_xor4(a[i][q], b[q]);
-          acc[i][j] += chunk;
+          for (int c = 0; c < KC; ++c) z[c] = a[i][c] ^ b[c];
+          acc[i][j] += chunk_popc<KC>(z);
         }
       }
     }
-    __syncthreads();  // the next slab overwrites this one
   }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -323,9 +437,24 @@ chunk3d_kernel(const unsigned* __restrict__ xp, const unsigned* __restrict__ wp,
 template <int BM, int BN, int KC>
 cudaError_t launch_chunk3d(const unsigned* xp, const unsigned* wp, int* out,
                            int m, int kw, int n, int k, cudaStream_t stream) {
-  if (!rows_fit(m, BM)) return cudaErrorInvalidValue;
+  if (!rows_fit(m, BM) || reinterpret_cast<uintptr_t>(xp) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  static const cudaError_t configured = [] {
+    cudaError_t e = cudaFuncSetAttribute(chunk3d_kernel<BM, BN, KC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(chunk3d_smem_bytes(BM, BN)));
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(chunk3d_kernel<BM, BN, KC>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    }
+    return e;
+  }();
+  if (configured != cudaSuccess) return configured;
   chunk3d_kernel<BM, BN, KC><<<dim3((n + BN - 1) / BN, (m + BM - 1) / BM), kThreads,
-                               0, stream>>>(xp, wp, out, m, kw, n, k);
+                               chunk3d_smem_bytes(BM, BN), stream>>>(xp, wp, out, m, kw,
+                                                                     n, k);
   return cudaGetLastError();
 }
 
@@ -370,13 +499,15 @@ int qnx_gemm_outer_acc(const void* xp, const void* wp, void* out, int m, int kw,
   return cudaErrorInvalidValue;
 }
 
+// F3: xp's rows hold Kw rounded up to 4 words (zeros past Kw) at a 16-byte
+// aligned address, as F1's; wp is (Kw, N).
 int qnx_gemm_chunk3d(const void* xp, const void* wp, void* out, int m, int kw,
                      int n, int k, int bm, int bn, int kc, void* stream) {
   if (bm == 64 && bn == 64 && kc == 4) return launch_chunk3d<64, 64, 4>(QNX_ARGS);
   if (bm == 64 && bn == 64 && kc == 8) return launch_chunk3d<64, 64, 8>(QNX_ARGS);
-  if (bm == 64 && bn == 64 && kc == 16) return launch_chunk3d<64, 64, 16>(QNX_ARGS);
-  if (bm == 128 && bn == 128 && kc == 4) return launch_chunk3d<128, 128, 4>(QNX_ARGS);
-  if (bm == 128 && bn == 128 && kc == 8) return launch_chunk3d<128, 128, 8>(QNX_ARGS);
+  if (bm == 32 && bn == 64 && kc == 16) return launch_chunk3d<32, 64, 16>(QNX_ARGS);
+  if (bm == 64 && bn == 128 && kc == 4) return launch_chunk3d<64, 128, 4>(QNX_ARGS);
+  if (bm == 64 && bn == 128 && kc == 8) return launch_chunk3d<64, 128, 8>(QNX_ARGS);
   return cudaErrorInvalidValue;
 }
 

@@ -15,10 +15,14 @@
 // reads a new x, and the REPS steps are unrolled in full, so the SASS of a
 // build has REPS of the step's instructions per element (count them with
 // `cuobjdump -sass`, as qnx_torch.experiments.vpu_probe does).  Timing REPS
-// = 96 against REPS = 32 and differencing strips the launch and the loads.
-// A probe, not a fast kernel: bound by the issue rate of the step's
-// instructions (popc 16 per clock per SM at compute capability 9.0; xor,
-// add, IMAD more), the loads and store are 12 bytes per element.
+// = 96 against REPS = 32 (the JAX file's) and 384 against 128, and
+// differencing, strips the launch and the loads.  A probe, not a fast
+// kernel: bound by the larger of its bytes (12 an element) and the issue of
+// its steps' instructions (popc 16 per clock per SM at compute capability
+// 9.0, LOP3 and IADD3 64).  At 32 steps the cheapest mode, xor (one LOP3
+// and one IADD3 a step), issues for less time than its bytes take, so its
+// 96 - 32 difference measures memory; at 128 steps and more its issue takes
+// about four times its bytes' time, which the 384 - 128 difference reads.
 #include <cuda_runtime.h>
 
 namespace {
@@ -80,7 +84,7 @@ extern "C" {
 
 // Plain C entry point, bound with ctypes by qnx_torch/kernels/_build.py.
 // mode indexes MODES of qnx_torch/kernels/int_probe.py; reps is one of the
-// compiled chain lengths (1, 32, 96).  Launches on the given stream, does not
+// compiled chain lengths (1, 32, 96, 128, 384).  Launches on the given stream, does not
 // synchronise, returns cudaGetLastError() (cudaErrorInvalidValue for a mode
 // or length that is not compiled in).
 int qnx_int_chain(const void* x, const void* y, void* out, int count, int mode,
@@ -92,6 +96,8 @@ int qnx_int_chain(const void* x, const void* y, void* out, int count, int mode,
   if (reps == 1) return launch_chain<1>(mode, xu, yu, ou, count, s);
   if (reps == 32) return launch_chain<32>(mode, xu, yu, ou, count, s);
   if (reps == 96) return launch_chain<96>(mode, xu, yu, ou, count, s);
+  if (reps == 128) return launch_chain<128>(mode, xu, yu, ou, count, s);
+  if (reps == 384) return launch_chain<384>(mode, xu, yu, ou, count, s);
   return cudaErrorInvalidValue;
 }
 

@@ -18,8 +18,10 @@ and G on the single-bit tensor cores, with kernel B's tiles, algebra and
 * :func:`gemm_outer_acc` (F2, ``v_outer_acc``): B's mainloop at K steps of
   ``bk`` = 16 or 8 words (64- or 32-byte swizzled tile rows) through a ring
   of ``stages``, ``bn`` columns a block;
-* :func:`gemm_chunk3d` (F3, ``v_chunk3d``): ``kc`` words per step as vector
-  loads, the chunk's popcounts summed;
+* :func:`gemm_chunk3d` (F3, ``v_chunk3d``) on the CUDA cores: K in slabs of
+  32 words through a ``cp.async`` ring, each ``kc``-word chunk of an output
+  reduced by a carry-save tree of full adders (:func:`chunk3d_tree`, LOP3)
+  to a few counter words, one POPC each (:func:`chunk3d_issue`);
 * :func:`gemm_lanered` (F4, ``v_lanered``): the dot form against the
   transposed weights ``wpt`` (N, Kw): both operands K-major, so both tiles
   arrive by TMA boxes (no word transpose), ``bn`` columns a block, a ring of
@@ -55,9 +57,12 @@ OUTER_GEOMETRIES = ((128, 128), (256, 128), (256, 256), (512, 256), (1024, 128),
 #: words of tiles, (128, 16, 6) and (64, 16, 9) as deep as two blocks a SM
 #: allow
 OUTER_ACC_GEOMETRIES = ((128, 16, 6), (128, 8, 12), (128, 16, 3), (64, 16, 9))
-#: (bm, bn, kc) of :func:`gemm_chunk3d`
-CHUNK3D_GEOMETRIES = ((64, 64, 4), (64, 64, 8), (64, 64, 16), (128, 128, 4),
-                      (128, 128, 8))
+#: (bm, bn, kc) of :func:`gemm_chunk3d`: a thread owns (bm / 16) x (bn /
+#: 16) outputs and holds its rows' kc words of a chunk; each geometry at two
+#: blocks a SM (128 registers, :func:`chunk3d_smem_bytes`) with no spill:
+#: kc = 16 holds two rows a thread, 64x64x16 and 32x128x16 spilled
+CHUNK3D_GEOMETRIES = ((64, 128, 8), (64, 64, 8), (64, 64, 4), (64, 128, 4),
+                      (32, 64, 16))
 #: (bn, stages) of :func:`gemm_lanered`: columns a block (the wgmma's N)
 #: and tiles in its TMA ring; (128, 3) is kernel B's tiling
 LANERED_GEOMETRIES = ((128, 3), (128, 4), (64, 4))
@@ -113,11 +118,15 @@ def _check(name: str, xp: torch.Tensor, w: torch.Tensor, w_kw_axis: int,
 
 
 def _launch(fn_name: str, wrapper, xp: torch.Tensor, w: torch.Tensor, n: int,
-            k: int, *geometry: int) -> torch.Tensor:
+            k: int, *geometry: int, pad_rows: bool = False) -> torch.Tensor:
+    """Launch ``fn_name`` on (M, Kw) x against ``w`` into a new (M, n) int32
+    output and count it on ``wrapper``; ``pad_rows``: the kernel reads x
+    through :func:`tma_rows` (Kw passed as it is)."""
     m, kw = xp.shape
     out = torch.empty((m, n), dtype=torch.int32, device=xp.device)
     if out.numel():
-        _build.launch(fn_name, xp.device, xp, w, out, m, kw, n, k, *geometry)
+        _build.launch(fn_name, xp.device, tma_rows(xp) if pad_rows else xp, w, out,
+                      m, kw, n, k, *geometry)
         wrapper.launches += 1
     return out
 
@@ -134,13 +143,8 @@ def gemm_outer(xp: torch.Tensor, wp: torch.Tensor, k: int, bm: int = 128,
     check_and_products("gemm_outer", xp.shape[1])
     if not launch:
         return xnor_gemm_popcount_ref(xp, wp, k)
-    m, kw = xp.shape
-    out = torch.empty((m, wp.shape[1]), dtype=torch.int32, device=xp.device)
-    if out.numel():
-        _build.launch("qnx_gemm_outer", xp.device, tma_rows(xp), wp, out, m, kw,
-                      wp.shape[1], k, bm, bn)
-        gemm_outer.launches += 1
-    return out
+    return _launch("qnx_gemm_outer", gemm_outer, xp, wp, wp.shape[1], k, bm, bn,
+                   pad_rows=True)
 
 
 def outer_acc_name(bn: int, bk: int, stages: int) -> str:
@@ -161,14 +165,72 @@ def gemm_outer_acc(xp: torch.Tensor, wp: torch.Tensor, k: int, bn: int = 128,
                    bn, bk, stages)
 
 
+#: words of K a slab of :func:`gemm_chunk3d`, and the slabs in its ring
+CHUNK3D_SLAB = 32
+CHUNK3D_RING = 3
+
+
+def chunk3d_smem_bytes(bm: int, bn: int) -> int:
+    """Dynamic shared memory of one :func:`gemm_chunk3d` block: the ring's
+    stages, each a slab of x (bm rows) and of w transposed (bn rows), rows of
+    32 words and 4 of padding (16-byte aligned, a quarter warp's 16-byte
+    reads of 8 rows on all 32 banks)."""
+    return 4 * CHUNK3D_RING * (bm + bn) * (CHUNK3D_SLAB + 4)
+
+
+def chunk3d_tree(kc: int) -> tuple[list, list]:
+    """The carry-save tree that reduces one ``kc``-word chunk of an output
+    in ``csrc/gemm_formulations.cu`` (``chunk_popc``): words 0 .. kc - 1
+    are the chunk's XOR words, of weight 2^0.  Lowest weight first, a
+    weight's words go through full adders three at a time, oldest first; a
+    full adder's sum (a new word) joins its weight's words and its carry the
+    next weight's, until fewer than three are left.  Returns ``(adders,
+    counters)``: each adder ``(weight, a, b, c, sum, carry)`` over word ids,
+    in order, and the counter words left, ``(weight, id)``, each of which
+    takes one POPC, shifted left by its weight.  Then
+    ``sum_c popc(z_c) == sum 2^weight popc(counter)`` for any words."""
+    if kc not in (4, 8, 16):
+        raise ValueError(f"chunk3d_tree: kc={kc}; one of 4, 8, 16")
+    columns, adders, next_id = {0: list(range(kc))}, [], kc
+    weight = 0
+    while weight in columns:
+        words = columns[weight]
+        while len(words) >= 3:
+            a, b, c = words[:3]
+            del words[:3]
+            adders.append((weight, a, b, c, next_id, next_id + 1))
+            words.append(next_id)
+            columns.setdefault(weight + 1, []).append(next_id + 1)
+            next_id += 2
+        weight += 1
+    counters = [(w, i) for w in sorted(columns) for i in columns[w]]
+    return adders, counters
+
+
+def chunk3d_issue(kc: int) -> dict:
+    """The SASS instructions one ``kc``-word chunk of one output issues in
+    :func:`gemm_chunk3d`'s tree (:func:`chunk3d_tree`): LOP3 the kc XOR
+    words and two a full adder (its sum a ^ b ^ c and its carry maj(a, b,
+    c)); POPC one a counter word; IMAD the shift-and-add that folds each
+    counter's popcount into the int32 accumulator.  kc = 4: 6, 3, 3; 8: 16,
+    4, 4; 16: 38, 5, 5 (the chunk loop's SASS on the card, PERF.md §6)."""
+    adders, counters = chunk3d_tree(kc)
+    return {"LOP3": kc + 2 * len(adders), "IMAD": len(counters),
+            "POPC": len(counters)}
+
+
 def gemm_chunk3d(xp: torch.Tensor, wp: torch.Tensor, k: int, bm: int = 64,
-                 bn: int = 64, kc: int = 4) -> torch.Tensor:
-    """F3: ``kc`` words of a row and a column per step, the chunk's
-    popcounts summed."""
+                 bn: int = 128, kc: int = 8) -> torch.Tensor:
+    """F3 on the CUDA cores: K in slabs of 32 words through a ``cp.async``
+    ring; each ``kc``-word chunk of an output reduced by a carry-save tree
+    to :func:`chunk3d_issue`'s counter words, one POPC each, ``(bm / 16) x
+    (bn / 16)`` outputs a thread.  x's slab rows copy as 16-byte units, so
+    where Kw % 4 != 0 (or x is not 16-byte aligned) the kernel reads a copy
+    of x with zero words appended (:func:`tma_rows`)."""
     if not _check("gemm_chunk3d", xp, wp, 0, (bm, bn, kc), CHUNK3D_GEOMETRIES):
         return xnor_gemm_popcount_ref(xp, wp, k)
-    return _launch("qnx_gemm_chunk3d", gemm_chunk3d, xp, wp, wp.shape[1], k,
-                   bm, bn, kc)
+    return _launch("qnx_gemm_chunk3d", gemm_chunk3d, xp, wp, wp.shape[1], k, bm, bn,
+                   kc, pad_rows=True)
 
 
 def lanered_name(bn: int, stages: int) -> str:
@@ -178,8 +240,9 @@ def lanered_name(bn: int, stages: int) -> str:
 
 
 def tma_rows(t: torch.Tensor) -> torch.Tensor:
-    """A K-major word matrix as TMA boxes take it: rows of Kw rounded up to
-    4 words (16-byte row strides) at a 16-byte aligned address.  One that
+    """A K-major word matrix as TMA boxes and 16-byte copies take it: rows
+    of Kw rounded up to 4 words (16-byte row strides) at a 16-byte aligned
+    address.  One that
     already is comes back as it is; another is copied with zero words
     appended, which AND to 0 and leave every sum unchanged."""
     kw = t.shape[1]

@@ -21,9 +21,10 @@ from . import _build
 
 #: the steps, in the order of the CUDA source's ``enum Mode``
 MODES = ("xor", "add", "mul", "pc", "pconly", "csa")
-#: chain lengths compiled into the CUDA source: vpu_probe's SHORT and LONG,
-#: and one step
-REPS = (1, 32, 96)
+#: chain lengths compiled into the CUDA source: one step, the JAX probe's
+#: SHORT and LONG (32, 96), and 128 and 384, long enough that every mode's
+#: issue outlasts its bytes
+REPS = (1, 32, 96, 128, 384)
 
 _MASK = 0xFFFFFFFF
 

@@ -180,10 +180,10 @@ def test_shootout_on_the_cpu_route():
     assert not by_name["outer-256x256"]["fits"]
     assert by_name["outer-128x128"]["fits"] and by_name["outer-128x128"]["equal"]
     assert all(np.isfinite(r["ms"]) for r in rows if r["fits"])
-    assert by_name[gemm_shootout.LIBRARY]["popc_share"] is None
+    assert by_name[gemm_shootout.LIBRARY]["unit_share"] is None
     # B runs on the single-bit tensor cores: held to their measured rate only
     base = by_name[gemm_shootout.BASELINE]
-    assert base["popc_share"] is None and base["int8_share"] is None
+    assert base["unit_share"] is None and base["int8_share"] is None
     assert base["b1_share"] > 0 and by_name["chunk3d-64x64x4"]["b1_share"] is None
     # F1, F2 and F4 too, F2's and F4's geometries named by their columns,
     # K step and stages
@@ -193,9 +193,13 @@ def test_shootout_on_the_cpu_route():
     for name in b1_rows:
         row = by_name[name]
         assert row["fits"] and row["b1_share"] > 0
-        assert row["popc_share"] is None and row["int8_share"] is None
-    # F3 alone stays on the CUDA cores' popc unit
-    assert by_name["chunk3d-64x64x4"]["popc_share"] > 0
+        assert row["unit_share"] is None and row["int8_share"] is None
+    # F3 alone stays on the CUDA cores, held to its unit bound (its tree's
+    # LOP3, IMAD and POPC on their pipes, its shared-memory bytes), which
+    # POPC sets at kc = 4 and 8 and the LOP3 pipe at kc = 16
+    for bm, bn, kc in G.CHUNK3D_GEOMETRIES:
+        row = by_name[f"chunk3d-{bm}x{bn}x{kc}"]
+        assert row["unit_share"] > 0 and row["unit"] == ("int" if kc == 16 else "popc")
 
 
 def test_experiments_raise_without_a_card():

@@ -45,7 +45,7 @@ def _jax_chain(x, y, mode, reps):
     return out
 
 
-@pytest.mark.parametrize("reps", [1, 2, 5, 32])
+@pytest.mark.parametrize("reps", [1, 2, 5, 32, 128, 384])
 @pytest.mark.parametrize("mode", MODES)
 def test_plain_chain_matches_jax_body(mode, reps):
     x, y = _inputs(reps * 10 + MODES.index(mode))
@@ -86,11 +86,38 @@ def test_probe_on_the_cpu_route():
     assert [r["mode"] for r in rows] == list(MODES)
     for r in rows:
         assert r["steps_per_clock_per_sm"] is None and r["sm_clock_mhz"] is None
+        # both differences: 384 - 128 steps, and the JAX file's 96 - 32
+        assert r["jax_steps_per_clock_per_sm"] is None
+        assert set(r["us"]) == {384, 128, 96, 32}
+        assert r["bytes_ms"] == pytest.approx(12 * 8 * 64 / 3.35e12 * 1e3)
+        assert "sass_per_step" not in r  # no SASS read on the CPU
+
+
+def test_issue_bound_takes_the_slowest_pipe():
+    """Each opcode on its pipe, all through the issue slots: pc's one POPC
+    a step outweighs its LOP3, VIADD and half IADD3; xor's LOP3 and VIADD
+    issue on two pipes and fill both, and the issue slots; csa's two LOP3
+    and one IADD3 share the integer pipe."""
+    from qnx_torch.bench.roofline import H100_PEAKS
+
+    n = 4096 * 1024
+    pc = vpu_probe.issue_ms({"POPC": 1, "LOP3": 1, "VIADD": 1, "IADD3": 0.5}, 96, n)
+    assert pc == pytest.approx(96 * n / H100_PEAKS["popc_ops"] * 1e3)
+    xor = vpu_probe.issue_ms({"LOP3": 1, "VIADD": 1}, 128, n)
+    assert xor == pytest.approx(128 * n / H100_PEAKS["imad_ops"] * 1e3)
+    # its LOP3 pipe and the issue slots measured within 0.2% of that
+    for pipe, per_step in (("int_ops", 1), ("issue_ops", 2)):
+        assert xor == pytest.approx(128 * n * per_step / H100_PEAKS[pipe] * 1e3, rel=2e-3)
+    csa = vpu_probe.issue_ms({"LOP3": 2, "IADD3": 1, "VIADD": 1}, 128, n)
+    assert csa == pytest.approx(128 * n * 3 / H100_PEAKS["int_ops"] * 1e3)
+    # at 128 steps xor's issue takes about twice its 12 bytes' time
+    assert 1.5 < xor / (12 * n / H100_PEAKS["hbm_bytes"] * 1e3) < 2.5
 
 
 def test_sass_counts_parse_the_chain_kernels(tmp_path, monkeypatch):
     """The SASS reader keys each int_chain_kernel instance by (mode, reps)
-    and counts its opcodes, predicated or not."""
+    and counts its opcodes, predicated or not; the issue pair's 128- and
+    384-step builds difference to the instructions a step."""
     sass = """
         Function : _ZN12_GLOBAL__N_116int_chain_kernelILi3ELi32EEEvPKjS2_Pji
         .headerflags    @"EF_CUDA_SM90"
@@ -103,9 +130,19 @@ def test_sass_counts_parse_the_chain_kernels(tmp_path, monkeypatch):
         Function : _ZN12_GLOBAL__N_114outer_kernelILi128ELi128EEEvPKjS2_Piiiii
         /*0000*/                   POPC R5, R4 ;
     """
+    step = "        /*0000*/                   POPC R5, R4 ;\n" \
+           "        /*0010*/                   LOP3.LUT R4, R2, R3, RZ, 0x3c, !PT ;\n" \
+           "        /*0020*/               @!P1 VIADD R2, R2, 0x1 ;\n"
+    for reps, unrolled in ((128, 128), (384, 384)):
+        sass += ("        Function : _ZN12_GLOBAL__N_116int_chain_kernelILi3ELi"
+                 f"{reps}EEEvPKjS2_Pji\n" + step * unrolled
+                 + "        /*0fff*/                   EXIT ;\n")
     monkeypatch.setattr(vpu_probe, "_cuobjdump", lambda: "cuobjdump")
     monkeypatch.setattr(vpu_probe.subprocess, "run",
                         lambda *a, **k: type("P", (), {"stdout": sass})())
     counts = vpu_probe.sass_counts(tmp_path / "lib.so")
-    assert set(counts) == {("pc", 32)}
+    assert set(counts) == {("pc", 32), ("pc", 128), ("pc", 384)}
     assert counts[("pc", 32)] == {"LDC": 1, "POPC": 2, "LOP3": 1, "EXIT": 1}
+    assert counts[("pc", 384)] == {"POPC": 384, "LOP3": 384, "VIADD": 384, "EXIT": 1}
+    per_step = vpu_probe.sass_per_step(counts, "pc", *vpu_probe.PAIRS[0])
+    assert per_step == {"POPC": 1, "LOP3": 1, "VIADD": 1}
