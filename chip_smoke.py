@@ -186,7 +186,22 @@ Phases:
 11. suite: ``python3 -m qnx_torch bench suite`` (every row, with its
     spread) and ``bench scaling`` (the modeled rows; ``measure_mesh`` on
     1, 2 and 4 ranks, logits equal to one rank's), each must exit 0 with
-    every row.
+    every row;
+12. headline: ``python3 -m qnx_torch bench`` (the headline bench, the port
+    of ``bench.py``: the full-width int8 ``cifar10-bnn`` against the
+    strict-f32 float twin at batch 1024 in one interleaved group) and
+    ``bench headline --full`` (the TF32 twin and the packed engine in the
+    same group), each in a process of its own: the first stdout line one
+    JSON record with exactly ``bench.py``'s keys (``unreliable`` only where
+    set), its metric naming this card, the int8 engine faster than the
+    strict twin;
+13. parity: ``python3 -m qnx_torch.experiments.parity_fullwidth`` for
+    ``full-bnn`` and ``full-tnn`` at width 128, dense 1024, batch 256, the
+    two at once: eight training steps, then the packed (kernel A) or
+    bit-plane (kernel D) engine and the int8 engine (kernel E) from the
+    trained variables, each with every argmax equal to the fake-quant
+    model's, and, where h5py is installed, again after the legacy HDF5
+    round trip (else a line says it was not run).
 
 Any failure raises (non-zero exit).  The last lines are a JSON summary of
 the kernels, the card's ``name, power.limit``, and the result object.
@@ -279,6 +294,7 @@ PROBE_SHAPE = (4096, 1024)  # vpu_probe's BLOCK (256, 1024) x GRID 16
 MEASURE_REPEATS = dict(iters=8, repeats=3)
 # the int8 VGG against its f32 twin at these batches; 1024 is bench.py's
 TWIN_BATCHES = (256, 1024)
+HEADLINE_BATCH = 1024  # python -m qnx_torch bench's (bench.py's) batch
 # E's encodings: (JAX act, thresholds): pm1, levels with 1, 3 and 20
 # (more than the kernel's 15 in shared memory), zo, and tanh with 2, 6 and
 # 254 thresholds (nb 2, 3 and 8: signed codes down to -127)
@@ -1351,6 +1367,11 @@ def phase_kernels(torch, err: dict) -> None:
     cases += i8_activation_cases()
     cases += (ternary_vgg_cases() + plane_cases() + dense_cases() + head_cases()
               + popcount_cases() + measured_cases())
+    # the headline's layers at its batch (its M and grid): E in the pm1
+    # encoding (int8) and A's convs and dense layers (--full's packed engine)
+    cases += [(kind, HEADLINE_BATCH, s) for kind in ("i8conv-pm1", "conv")
+              for s in CONV_SHAPES]
+    cases += [("dense", HEADLINE_BATCH, s) for s in DENSE_SHAPES]
     splits_seen = set()
     shared = (None, None)  # (plain_key, plain output) of the last shared shape
     for kind, b, shape in cases:
@@ -2055,11 +2076,12 @@ TRAIN_STEP_BATCH = 100
 TRAIN_STEP_TIMING = dict(steps=20, repeats=3)
 
 
-def cli_all(args: dict) -> dict:
-    """``python3 -m qnx_torch ARGS`` for each key's arguments, each in a
+def cli_all(args: dict, module: str = "qnx_torch") -> dict:
+    """``python3 -m MODULE ARGS`` for each key's arguments, each in a
     process of its own, all started at once (they share the card); each
-    key's ``(seconds, stdout)``.  Any failure kills the others and raises."""
-    procs = {key: (subprocess.Popen([sys.executable, "-m", "qnx_torch", *a],
+    key's ``(seconds, stdout, stderr)``.  Any failure kills the others and
+    raises."""
+    procs = {key: (subprocess.Popen([sys.executable, "-m", module, *a],
                                     cwd=ROOT, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True),
                    time.perf_counter()) for key, a in args.items()}
@@ -2067,10 +2089,11 @@ def cli_all(args: dict) -> dict:
     try:
         for key, (proc, t0) in procs.items():
             out, err = proc.communicate(timeout=600)
-            done[key] = (time.perf_counter() - t0, out)
+            done[key] = (time.perf_counter() - t0, out, err)
             if proc.returncode != 0:
-                raise AssertionError(f"python3 -m qnx_torch {' '.join(args[key])}"
-                                     f" exited {proc.returncode}:\n{err[-4000:]}")
+                raise AssertionError(f"python3 -m {module} {' '.join(args[key])}"
+                                     f" exited {proc.returncode}:\n{out[-2000:]}\n"
+                                     f"{err[-4000:]}")
     finally:
         for proc, _ in procs.values():
             if proc.poll() is None:
@@ -2284,7 +2307,7 @@ def phase_train(torch, card: str, device: str = "cuda") -> dict:
                                "--engine", key[1], "--batch-size",
                                str(TRAIN_EVAL_BATCH), "--device", device]
                          for key in accuracy})
-        for (preset, engine), (wall, out) in evals.items():
+        for (preset, engine), (wall, out, _) in evals.items():
             m = re.search(r"test accuracy \[(\w+)\]: [0-9.]+ \((\d+)/(\d+)\)", out)
             n = test_size[preset]
             got = None if m is None else (m[1], int(m[2]), int(m[3]))
@@ -3101,18 +3124,18 @@ SUITE_CONFIGS = {"cifar10-bnn int8", "cifar10-bnn popcount", "cifar10-tnn int8",
                  "mnist-tnn int8", "mnist-tnn popcount"}
 
 
-def bench_cli(which: str) -> str:
-    """``python3 -m qnx_torch bench WHICH`` in a process of its own; its
-    stdout, or a raise with its stderr."""
+def bench_cli(args: list[str], phase: str) -> subprocess.CompletedProcess:
+    """``python3 -m qnx_torch bench ARGS`` in a process of its own; the
+    finished process, or a raise with its stderr."""
+    cmd = " ".join(["python3 -m qnx_torch bench", *args])
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "qnx_torch", "bench", which],
+    proc = subprocess.run([sys.executable, "-m", "qnx_torch", "bench", *args],
                           cwd=ROOT, capture_output=True, text=True, timeout=900)
     if proc.returncode:
-        raise AssertionError(f"bench {which} exited {proc.returncode}:\n"
+        raise AssertionError(f"{cmd} exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
-    log("suite", f"python3 -m qnx_torch bench {which}: exit 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return proc.stdout
+    log(phase, f"{cmd}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return proc
 
 
 def phase_suite(card: str) -> None:
@@ -3120,7 +3143,7 @@ def phase_suite(card: str) -> None:
     interleaved group, with spread; the serving row) and the scaling
     report (the modeled rows and ``measure_mesh`` on this card), each from
     its CLI; every row must be there."""
-    rows = [json.loads(l) for l in bench_cli("suite").splitlines()
+    rows = [json.loads(l) for l in bench_cli(["suite"], "suite").stdout.splitlines()
             if l.startswith("{")]
     got = {r["config"] for r in rows}
     serving = [r for r in rows if "serve" in r["config"]]
@@ -3141,7 +3164,7 @@ def phase_suite(card: str) -> None:
                 f"spread {r['spread']:.3f}{', unreliable' if r.get('unreliable') else ''}) "
                 f"= {r['images_per_s']:.1f} img/s; {r['vs_f32_strict']:.3f}x "
                 f"the strict-f32 twin, {r['vs_tf32']:.3f}x the TF32 twin")
-    report = json.loads(bench_cli("scaling").strip().splitlines()[-1])
+    report = json.loads(bench_cli(["scaling"], "suite").stdout.strip().splitlines()[-1])
     mesh = report["mesh"]
     if (len(report["dp_model"]) != 4 or len(report["tp_model"]) != 5
             or [r["ranks"] for r in mesh] != [1, 2, 4]
@@ -3154,6 +3177,139 @@ def phase_suite(card: str) -> None:
             f"{r['mesh']}, {r['backend']} ({r['transport']}), devices "
             f"{r['devices']}: logits equal to one rank's; {r['device_ms']:.4f} ms "
             f"a forward (CUDA events, rank 0), {r['host_ms']:.4f} ms host clock")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: headline (python -m qnx_torch bench [headline --full])
+# ---------------------------------------------------------------------------
+
+# the headline's engines in this process, with the launches each makes
+HEADLINE_ENGINES = {"int8": (plain_i8_forward, {"i8_conv3x3_fused": 5}),
+                    "popcount": (plain_vgg_forward, {"xnor_conv3x3_fused": 5,
+                                                     "xnor_dense_fused": 2})}
+
+
+def headline_engines(torch, card: str, err: dict) -> dict:
+    """The headline's ``int8`` and ``popcount`` targets on its own inputs
+    (``headline.inputs()`` at the CLI's batch and width), in this process:
+    each run once with every launch count set to 0 just before and read
+    just after, then its plain path on the same images, every layer's codes
+    or words equal to the plain version's, the logits within the logit
+    gate and the argmax identical.  Returns the launch counts."""
+    from qnx_torch.bench import headline
+    from qnx_torch.kernels import launch_counters
+
+    cf, variables, images = headline.inputs()
+    if images.shape[0] != HEADLINE_BATCH:
+        raise AssertionError(f"the headline's batch is {images.shape[0]}")
+    targets = headline.headline_targets(variables, cf, images, full=True)
+    counted = launch_counters()
+    launches = dict.fromkeys(KERNELS, 0)
+    for name, (plain_forward, per_run) in HEADLINE_ENGINES.items():
+        fn, (x, model) = targets[name]
+        for w in counted.values():
+            w.launches = 0
+        with torch.inference_mode():
+            got = fn(x, model)
+        torch.cuda.synchronize()
+        ran = {k: w.launches for k, w in counted.items() if w.launches}
+        if ran != per_run:
+            raise AssertionError(f"headline {name}: launches {ran} != {per_run}")
+        for k, v in ran.items():
+            launches[k] += v
+        with torch.inference_mode():
+            plain = plain_forward(torch, model, x, err).cpu().numpy()
+        got = got.cpu().numpy()
+        if got.shape != (HEADLINE_BATCH, cf.classes) or not np.isfinite(got).all():
+            raise AssertionError(f"headline {name}: bad logits, shape {got.shape}")
+        np.testing.assert_allclose(got, plain, rtol=LOGIT_RTOL,
+                                   atol=LOGIT_ATOL_REL * float(np.abs(plain).max()))
+        if not (got.argmax(-1) == plain.argmax(-1)).all():
+            raise AssertionError(f"headline {name}: argmax differs from the plain path")
+        log("headline", f"{card} | {name} at batch {HEADLINE_BATCH}, width "
+            f"{cf.width}: launches {ran}; every layer equal to its plain "
+            f"version; logits max |engine - plain| "
+            f"{float(np.abs(got - plain).max()):.3g} (max |logit| "
+            f"{float(np.abs(plain).max()):.3g}; rtol {LOGIT_RTOL:g}, atol "
+            f"{LOGIT_ATOL_REL:g} x max |logit|); argmax identical")
+    del targets, model, x
+    torch.cuda.empty_cache()  # the plain paths' buffers, before the CLI runs
+    return launches
+
+
+def phase_headline(torch, card: str, err: dict) -> dict:
+    """The headline's engines checked in this process
+    (:func:`headline_engines`), then the headline bench by default and with
+    ``--full``, each from its CLI: its first stdout line the record with
+    exactly ``bench.py``'s keys, its metric naming this card, int8 faster
+    than the strict-f32 twin; with ``--full`` the TF32 twin's and the packed
+    engine's detail too.  Returns the in-process launch counts."""
+    from qnx_torch.bench.headline import RECORD_KEYS
+
+    launches = headline_engines(torch, card, err)
+    for args in ([], ["headline", "--full"]):
+        label = " ".join(["bench", *args])
+        proc = bench_cli(args, "headline")
+        rec = json.loads(proc.stdout.splitlines()[0])
+        keys = set(rec) - ({"unreliable"} if rec.get("unreliable") is True else set())
+        if (keys != set(RECORD_KEYS) or rec["unit"] != "images/s"
+                or card not in rec["metric"]):
+            raise AssertionError(f"{label}: record {rec}")
+        if not rec["vs_baseline"] > 1:
+            raise AssertionError(f"{label}: int8 not faster than the strict-f32 "
+                                 f"twin: {rec}")
+        log("headline", f"{card} | {label}: {rec['value']} img/s, "
+            f"{rec['ms_per_batch']} ms a batch (median {rec['ms_median']}, spread "
+            f"{rec['spread']}{', unreliable' if rec.get('unreliable') else ''}), "
+            f"{rec['vs_baseline']}x the strict-f32 twin ({rec['baseline_f32_ips']} "
+            f"img/s, spread {rec['baseline_spread']}); metric {rec['metric']!r}")
+        if args:
+            detail = [l for l in proc.stderr.splitlines() if l.startswith("# ")]
+            if not all(any(f"[detail] {name}:" in l for l in detail)
+                       for name in ("tf32", "popcount")):
+                raise AssertionError(f"bench headline --full: detail {detail}")
+            for line in detail:
+                log("headline", f"{card} | {line}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: parity (python -m qnx_torch.experiments.parity_fullwidth)
+# ---------------------------------------------------------------------------
+
+PARITY_ARGS = ["--width", "128", "--dense-units", "1024", "--batch", "256"]
+PARITY_ENGINES = {"full-bnn": "popcount(pack_vgg)",
+                  "full-tnn": "bitplane(pack_vgg_bitplane)"}
+
+
+def phase_parity(card: str) -> None:
+    """The full-width parity run of each network type of
+    :data:`PARITY_ENGINES`, the two processes at once: each exits 0, every
+    line's argmax match is 1.0, each engine on the native weights and,
+    where h5py imports, on the legacy-h5 round trip's (else its stderr
+    says the round trip was not run)."""
+    import importlib.util
+
+    sources = ["native"] + (["legacy-h5"] if importlib.util.find_spec("h5py") else [])
+    module = "qnx_torch.experiments.parity_fullwidth"
+    runs = cli_all({t: ["--network-type", t, *PARITY_ARGS] for t in PARITY_ENGINES},
+                   module)
+    for t, (wall, out, err) in runs.items():
+        lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+        got = [(r["engine"], r["weights_source"]) for r in lines]
+        want = [(e, s) for e in (PARITY_ENGINES[t], "int8(pack_int8)") for s in sources]
+        if got != want or any(r["argmax_match_vs_fakequant"] != 1.0 for r in lines):
+            raise AssertionError(f"parity_fullwidth {t}: {lines}")
+        if "legacy-h5" not in sources and "h5py is not installed" not in err:
+            raise AssertionError(f"parity_fullwidth {t}: no line says the legacy-h5 "
+                                 f"round trip was not run:\n{err}")
+        log("parity", f"python3 -m {module} --network-type {t} "
+            f"{' '.join(PARITY_ARGS)}: exit 0 in {wall:.1f} s (the two run at once)")
+        for r in lines:
+            log("parity", json.dumps(r))
+        for line in err.splitlines():
+            if line.startswith("# "):
+                log("parity", line)
 
 
 def ab_shapes(kind: str) -> list:
@@ -3344,6 +3500,11 @@ def main(argv: list[str]) -> int:
     lap("parallel")
     phase_suite(card)
     lap("suite")
+    for k, v in phase_headline(torch, card, err).items():
+        launches[k] += v
+    lap("headline")
+    phase_parity(card)
+    lap("parity")
     log("phases", ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
                             in zip(laps, laps[1:]))
         + f"; in all {laps[-1][1] - laps[0][1]:.1f} s")

@@ -9,6 +9,8 @@
         --engine int8|packed --out model.pt [--device cuda|cpu]
     python -m qnx_torch serve   --model model.pt [--batch-size 256] \\
         [--requests 2048] [--input-shape 32,32,3] [--device cuda|cpu]
+    python -m qnx_torch bench [headline] [--full] [--batch N] [--width W] \\
+        [--iters N] [--repeats N] [--device cuda|cpu]
     python -m qnx_torch bench roofline [--device cuda|cpu]
     python -m qnx_torch bench suite    [--device cuda|cpu]
     python -m qnx_torch bench scaling  [--device cuda|cpu] [--backend gloo|nccl]
@@ -18,8 +20,11 @@ raises when the card is asked for and missing.  ``train`` is
 ``python -m qnx_torch.train`` (fake-quant training; the checkpoint
 ``OUT/ckpt`` is what ``eval`` and ``convert --ckpt`` read).  ``bench
 scaling`` starts its worlds of ranks as processes of their own
-(:mod:`qnx_torch.parallel.launch`).  The headline bench waits for
-ROADMAP.md §1 item 6.
+(:mod:`qnx_torch.parallel.launch`).  ``bench`` with no subcommand, with
+``headline`` or with flags alone is the headline bench
+(:mod:`qnx_torch.bench.headline`, the port of ``bench.py``): one JSON
+record on its first stdout line, the int8 engine against the strict-f32
+float twin.
 """
 from __future__ import annotations
 
@@ -231,9 +236,10 @@ def _cmd_serve(argv):
 def _cmd_bench(argv):
     which = argv[0] if argv else "headline"
     if which not in ("roofline", "suite", "scaling"):
-        raise SystemExit(
-            f"bench {which}: not ported yet (the headline bench is ROADMAP.md "
-            f"§1 item 6); bench roofline, suite and scaling are")
+        from qnx_torch.bench.headline import parse_and_run
+
+        parse_and_run(argv[1:] if which == "headline" else argv)
+        return 0
     p = argparse.ArgumentParser(prog=f"qnx_torch bench {which}")
     p.add_argument("--device", choices=_DEVICES, default="cuda")
     if which == "scaling":

@@ -52,15 +52,17 @@ def _images(shape, device) -> torch.Tensor:
     return (torch.rand(shape, generator=g) * 2 - 1).to(device)
 
 
-def _float_targets(cf, images):
-    """The two float twins as interleavable targets, the precision set
-    inside each call."""
+def float_twins(cf, images, vars_f=None):
+    """The two float twins of ``cf``'s architecture as interleavable
+    targets, the precision set inside each call; ``vars_f`` are the float
+    variables, by default ``init_variables(cf_float, 0)``."""
     from qnx_torch.bench.float_baseline import (float_forward, float_variables,
                                                 strict_f32)
     from qnx_torch.models.factory import init_variables
 
     cf_f = cf.replace(network_type="float")
-    v = float_variables(init_variables(cf_f, 0), images.device)
+    v = float_variables(init_variables(cf_f, 0) if vars_f is None else vars_f,
+                        images.device)
 
     def f32_strict(x, v):
         with strict_f32():
@@ -71,6 +73,27 @@ def _float_targets(cf, images):
             return float_forward(v, cf_f, x)
 
     return {"f32-strict": (f32_strict, (images, v)), "tf32": (tf32, (images, v))}
+
+
+def targets(variables: dict, cf, images, names, vars_f=None) -> dict:
+    """``{name: (fn, args)}`` on ``images``'s device, in the order of
+    ``names``: the float twins ``f32-strict`` and ``tf32``
+    (:func:`float_twins`) and the engines ``int8`` (``pack_int8``),
+    ``popcount`` (``pack_vgg``, or ``pack_mlp`` for an MLP) and
+    ``bitplane`` (``pack_vgg_bitplane``), each called as a module;
+    ``fn(*args)`` returns the logits."""
+    from qnx_torch.convert.pack_model import (pack_int8, pack_mlp, pack_vgg,
+                                              pack_vgg_bitplane)
+
+    packers = {"int8": pack_int8,
+               "popcount": pack_mlp if cf.architecture == "mlp" else pack_vgg,
+               "bitplane": pack_vgg_bitplane}
+    twins = (float_twins(cf, images, vars_f)
+             if {"f32-strict", "tf32"} & set(names) else {})
+    return {name: twins[name] if name in twins else
+            (lambda x, m: m(x),
+             (images, packers[name](variables, cf, device=images.device)))
+            for name in names}
 
 
 def _rows(res, name, batch, engines, card: str):
@@ -103,39 +126,26 @@ def _timed(targets, iters, repeats, device):
 
 
 def bench_mlp(cf, name, batch=4096, iters=32, repeats=5, device="cuda"):
-    from qnx_torch.convert.pack_model import pack_int8, pack_mlp
-    from qnx_torch.models.factory import init_variables
-
-    device = resolve_device(device)
-    variables = init_variables(cf, 0)
-    images = _images((batch, *cf.input_shape), device)
-    i8 = pack_int8(variables, cf, device=device)
-    packed = pack_mlp(variables, cf, device=device)
-    targets = _float_targets(cf, images)
-    targets["int8"] = (lambda x, m: m(x), (images, i8))
-    targets["popcount"] = (lambda x, m: m(x), (images, packed))
-    res = _timed(targets, iters, repeats, device)
-    return _rows(res, name, batch, ("int8", "popcount"), device_label(device))
+    return bench(cf, name, ("int8", "popcount"), batch, iters, repeats, device)
 
 
 def bench_vgg(cf, name, batch=1024, bitplane=False, iters=32, repeats=5,
               device="cuda"):
-    from qnx_torch.convert.pack_model import (pack_int8, pack_vgg,
-                                              pack_vgg_bitplane)
+    engines = ("int8", "bitplane" if bitplane else "popcount")
+    return bench(cf, name, engines, batch, iters, repeats, device)
+
+
+def bench(cf, name, engines, batch, iters, repeats, device):
+    """``engines`` and ``cf``'s two float twins in one interleaved group at
+    ``batch``: a row an engine."""
     from qnx_torch.models.factory import init_variables
 
     device = resolve_device(device)
-    variables = init_variables(cf, 0)
     images = _images((batch, *cf.input_shape), device)
-    i8 = pack_int8(variables, cf, device=device)
-    targets = _float_targets(cf, images)
-    targets["int8"] = (lambda x, m: m(x), (images, i8))
-    other = "bitplane" if bitplane else "popcount"
-    packed = (pack_vgg_bitplane if bitplane else pack_vgg)(variables, cf,
-                                                           device=device)
-    targets[other] = (lambda x, m: m(x), (images, packed))
-    res = _timed(targets, iters, repeats, device)
-    return _rows(res, name, batch, ("int8", other), device_label(device))
+    res = _timed(targets(init_variables(cf, 0), cf, images,
+                         ("f32-strict", "tf32", *engines)),
+                 iters, repeats, device)
+    return _rows(res, name, batch, engines, device_label(device))
 
 
 def h2d_mbps(blob: np.ndarray, device, repeats: int = 5) -> dict:

@@ -87,5 +87,5 @@ def test_cli_bench_suite_dispatches(monkeypatch):
     monkeypatch.setattr(suite, "main", lambda argv=None, device="cuda": calls.append(device))
     assert main(["bench", "suite", "--device", "cpu"]) == 0
     assert calls == ["cpu"]
-    with pytest.raises(SystemExit, match="item 6"):
+    with pytest.raises(RuntimeError, match="CUDA"):  # the headline wants the card
         main(["bench", "headline"])

@@ -224,20 +224,18 @@ def test_engine_forward_rejects_unknown_models():
     (["bench"], "item 6"),
 ])
 def test_unported_commands_name_their_roadmap_item(argv, item, capsys, tmp_path):
-    """The headline bench, still to port, exits naming its ROADMAP item;
-    train, eval and convert --ckpt (item 12) and bench suite and scaling
-    (item 15) are ported and no longer do: here they stop at the missing
-    card or the missing checkpoint (train's output directory under
-    ``tmp_path``, never the checkout)."""
-    if item in ("item 12", "item 15"):
-        if argv[0] == "train":
-            argv = [*argv, "--out", str(tmp_path / "run")]
-        with pytest.raises((RuntimeError, FileNotFoundError)) as err:
-            cli.main(argv)
-        assert item not in str(err.value)
-        return
-    with pytest.raises(SystemExit, match=item):
+    """Every command once refused naming its ROADMAP item is ported and no
+    longer names it: train, eval and convert --ckpt (item 12), bench suite
+    and scaling (item 15) and bench, the headline (item 6), stop here at
+    the missing card or the missing checkpoint (train's output directory
+    under ``tmp_path``, never the checkout)."""
+    if argv[0] == "train":
+        argv = [*argv, "--out", str(tmp_path / "run")]
+    with pytest.raises((RuntimeError, FileNotFoundError)) as err:
         cli.main(argv)
+    assert item not in str(err.value)
+    if argv == ["bench"]:  # it reached the headline, which wants the card
+        assert "CUDA" in str(err.value)
 
 
 def test_unknown_command_exits():

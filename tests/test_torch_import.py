@@ -35,7 +35,8 @@ EXPECTED = {
     "qnx_torch.parallel.tp_forward", "qnx_torch.parallel.bringup",
     "qnx_torch.parallel.launch", "qnx_torch.experiments.multiproc_worker",
     "qnx_torch.utils.profiling", "qnx_torch.bench.suite",
-    "qnx_torch.bench.scaling",
+    "qnx_torch.bench.scaling", "qnx_torch.bench.headline",
+    "qnx_torch.experiments.parity_fullwidth",
 }
 
 _PROBE = """
