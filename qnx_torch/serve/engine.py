@@ -23,13 +23,42 @@ TP path (:func:`qnx_torch.parallel.tp_forward.make_tp_forward`) where the
 model takes it, else the data-parallel replicated path; the stats name it
 (``forward_path``: ``single``, ``ring`` or ``replicated``) with the
 backend and the transport.
+
+The engine times its own host work, always: the dispatcher's cycle is
+four stages whose nanoseconds ``ServeStats`` sums (``drain_ns``: from the
+last batch's answers to the next host batch, queue waits, linger,
+concatenation and padding; ``enqueue_ns``: the copy to the device, the
+normalisation and the forward's launches; ``wait_ns``: the logits' copy to
+the host, which waits for the device; ``resolve_ns``: setting the futures),
+so a batch's stages add up to its cycle; ``counters()`` returns these flat,
+the running stage counted up to the call, so that between two calls the
+stages add up to the time between them, and ``stats()`` as ms a batch.  A
+``gc.callbacks`` entry, in place from ``start()`` to ``stop()``, sums the
+collector's pauses on any thread (``gc_ns``, ``gc_collections_0/1/2``);
+they overlap the stages.  While a torch profiler records, the two stages
+that launch no device work are host ranges, ``qnx.serve.drain`` and
+``qnx.serve.resolve``, with the batch's id and request ids as arguments,
+and each collection is ``qnx.gc.gen<g>``
+(:func:`qnx_torch.utils.profiling.span`).  A request's id is its place in
+the queue's order, counted as the dispatcher takes it; a chunk split over
+two batches keeps its id.
+
+Each engine also keeps a timeline of its last :data:`TIMELINE` stages and
+pauses with their clocks, so that ``between(since, until)`` gives the ns
+of each that fell between two ``time.perf_counter()`` readings taken
+without a call to the engine; :func:`last_started` hands the engine a
+process started last to code that holds no reference to it (a
+benchmark's readers).
 """
 from __future__ import annotations
 
+import gc
 import queue
 import random
 import threading
 import time
+import weakref
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 
@@ -37,6 +66,7 @@ import numpy as np
 import torch
 
 from qnx_torch.native import u8_to_f32
+from qnx_torch.utils import profiling
 
 #: the follower protocol's header: stop flag, dtype code, ndim, the dims
 _HEADER = 8
@@ -46,7 +76,21 @@ _DTYPES = (torch.uint8, torch.float32)
 #: use reservoir sampling instead of an unbounded list.
 LATENCY_RESERVOIR = 8192
 
+#: Cap on the stages and collector pauses an engine's timeline keeps: at
+#: four stages and about ten collections a batch, a few thousand batches.
+TIMELINE = 1 << 16
+
 _INV_127_5 = np.float32(1.0 / 127.5)
+
+_STAGES = ("drain", "enqueue", "wait", "resolve")
+_GC_RANGES = tuple(f"qnx.gc.gen{g}" for g in range(3))
+
+_last_started = None  # a weak reference to the engine started last
+
+
+def last_started() -> "ServeEngine | None":
+    """The engine this process started last, while it lives."""
+    return _last_started() if _last_started is not None else None
 
 
 def normalize_u8(x: torch.Tensor) -> torch.Tensor:
@@ -65,34 +109,81 @@ class ServeStats:
     batches: int = 0
     images: int = 0
     padded: int = 0
-    total_batch_ms: float = 0.0
+    total_batch_ms: float = 0.0  # from dispatch to the logits on the host
+    requests: int = 0  # answered in full
+    # the dispatcher's cycle, in ns (module docstring)
+    drain_ns: int = 0
+    enqueue_ns: int = 0
+    wait_ns: int = 0
+    resolve_ns: int = 0
+    # the collector's pauses on any thread while the engine runs
+    gc_ns: int = 0
+    gc_collections_0: int = 0
+    gc_collections_1: int = 0
+    gc_collections_2: int = 0
     first_dispatch: float | None = None  # perf_counter of the first batch
     last_answer: float = 0.0  # perf_counter after the last batch's futures
     latencies_ms: list = field(default_factory=list)
-    _lat_seen: int = 0
+    # (counter, start ns, end ns) of the last stages and collector pauses
+    timeline: deque = field(default_factory=lambda: deque(maxlen=TIMELINE))
     _rng: random.Random = field(default_factory=lambda: random.Random(0))
+    _gc_start: int | None = None
+    _gc_range: object = None
 
-    def record_latency(self, lat_ms: float, count: int = 1) -> None:
-        """Reservoir-sample latencies so memory stays O(LATENCY_RESERVOIR)
-        over an unbounded serving lifetime; percentiles remain unbiased."""
-        for _ in range(count):
-            self._lat_seen += 1
-            if len(self.latencies_ms) < LATENCY_RESERVOIR:
-                self.latencies_ms.append(lat_ms)
-            else:
-                j = self._rng.randrange(self._lat_seen)
-                if j < LATENCY_RESERVOIR:
-                    self.latencies_ms[j] = lat_ms
+    COUNTERS = ("batches", "images", "padded", "total_batch_ms", "requests",
+                *(f"{s}_ns" for s in _STAGES), "gc_ns",
+                *(f"gc_collections_{g}" for g in range(3)))
+
+    def record_latency(self, lat_ms: float) -> None:
+        """Count an answered request and reservoir-sample its latency, so
+        memory stays O(LATENCY_RESERVOIR) over an unbounded serving
+        lifetime; percentiles remain unbiased."""
+        self.requests += 1
+        if len(self.latencies_ms) < LATENCY_RESERVOIR:
+            self.latencies_ms.append(lat_ms)
+        else:
+            j = self._rng.randrange(self.requests)
+            if j < LATENCY_RESERVOIR:
+                self.latencies_ms[j] = lat_ms
+
+    def on_gc(self, phase: str, info: dict) -> None:
+        """A ``gc.callbacks`` entry: time each collection, and while a
+        profiler records, open ``qnx.gc.gen<g>`` over it on the thread
+        that runs it."""
+        if phase == "start":
+            self._gc_start = time.perf_counter_ns()
+            if profiling.recording():
+                self._gc_range = profiling.span(_GC_RANGES[info["generation"]])
+                self._gc_range.__enter__()
+            return
+        if self._gc_range is not None:
+            self._gc_range.__exit__(None, None, None)
+            self._gc_range = None
+        if self._gc_start is not None:
+            end = time.perf_counter_ns()
+            self.gc_ns += end - self._gc_start
+            self.timeline.append(("gc_ns", self._gc_start, end))
+            self._gc_start = None
+            name = f"gc_collections_{info['generation']}"
+            setattr(self, name, getattr(self, name) + 1)
+
+    def counters(self) -> dict:
+        return {k: getattr(self, k) for k in self.COUNTERS}
 
     def summary(self) -> dict:
         """``throughput_ips`` is images over the summed busy time of the
         batches (the JAX engine's figure); ``wall_throughput_ips`` is images
         over the host clock from the first batch's dispatch to the last
-        batch's answers, so it also counts the dispatcher's gaps."""
+        batch's answers, so it also counts the dispatcher's gaps.  Latency
+        is a request's, from ``submit_many`` to its last image's logits on
+        the host.  ``stage_ms``: host ms a batch of each stage of the
+        dispatcher's cycle; ``gc``: the collector's collections by
+        generation and its pauses in ms, while the engine ran."""
         lat = np.asarray(self.latencies_ms) if self.latencies_ms else np.zeros(1)
         busy_s = self.total_batch_ms / 1e3
         wall_s = (self.last_answer - self.first_dispatch
                   if self.first_dispatch is not None else 0.0)
+        per_batch = 1e6 * max(self.batches, 1)
         return {
             "batches": self.batches,
             "images": self.images,
@@ -101,7 +192,11 @@ class ServeStats:
             "wall_throughput_ips": self.images / wall_s if wall_s > 0 else 0.0,
             "latency_ms_p50": float(np.percentile(lat, 50)),
             "latency_ms_p99": float(np.percentile(lat, 99)),
-            "latency_samples": self._lat_seen,
+            "latency_samples": self.requests,
+            "stage_ms": {s: getattr(self, f"{s}_ns") / per_batch for s in _STAGES},
+            "gc": {"collections": [self.gc_collections_0, self.gc_collections_1,
+                                   self.gc_collections_2],
+                   "pause_ms": self.gc_ns / 1e6},
         }
 
 
@@ -146,6 +241,11 @@ class ServeEngine:
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue or 0)
         self._carry = None   # split-chunk remainder (dispatcher-only)
         self._total = 0
+        self._next_request = 0  # the id of the next request taken
+        self._next_batch = 0    # and of the next batch formed
+        # the dispatcher's running stage's counter and start (ns), or None
+        self._running: tuple | None = None
+        self._running_lock = threading.Lock()
         self._stats = ServeStats()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -195,6 +295,10 @@ class ServeEngine:
         if not self.leader:
             return self  # a follower has served and stopped already
         self._stop.clear()
+        if self._stats.on_gc not in gc.callbacks:
+            gc.callbacks.append(self._stats.on_gc)
+        global _last_started
+        _last_started = weakref.ref(self)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
         return self
@@ -207,6 +311,8 @@ class ServeEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self._stats.on_gc in gc.callbacks:
+            gc.callbacks.remove(self._stats.on_gc)
         if self.mesh is not None and self.leader and not self._released:
             self._released = True
             self._broadcast_header(None)  # the followers' stop flag
@@ -219,7 +325,7 @@ class ServeEngine:
                 pending.append(self._queue.get_nowait())
             except queue.Empty:
                 break
-        for _, futs, _ in pending:
+        for _, futs, *_ in pending:
             for fut in futs:
                 fut.cancel()
 
@@ -241,7 +347,7 @@ class ServeEngine:
         if images.dtype != np.uint8:
             images = np.asarray(images, np.float32)
         futs = [Future() for _ in range(len(images))]
-        self._queue.put((images, futs, time.perf_counter()), timeout=timeout)
+        self._queue.put((images, futs, time.perf_counter_ns()), timeout=timeout)
         return futs
 
     def predict(self, images: np.ndarray) -> np.ndarray:
@@ -249,9 +355,43 @@ class ServeEngine:
         futs = self.submit_many(images)
         return np.stack([f.result(timeout=300) for f in futs])
 
+    def counters(self) -> dict:
+        """The engine's cumulative counters, flat: ``batches``, ``images``,
+        ``padded``, ``total_batch_ms``, ``requests``, the four stages'
+        ``*_ns``, ``gc_ns`` and ``gc_collections_0/1/2`` (module
+        docstring).  The running stage counts up to this call, so that
+        between two calls the stages add up to the time between them."""
+        with self._running_lock:
+            out = self._stats.counters()
+            if self._running is not None:
+                stage, start = self._running
+                out[stage] += time.perf_counter_ns() - start
+        return out
+
+    def between(self, since: float, until: float) -> dict | None:
+        """The ns of each stage (``drain_ns``, ``enqueue_ns``, ``wait_ns``,
+        ``resolve_ns``) and of the collector's pauses (``gc_ns``) that fell
+        between two ``time.perf_counter()`` readings, from the timeline,
+        the running stage counted up to this call; None where the timeline
+        no longer reaches back to ``since``."""
+        lo, hi = round(since * 1e9), round(until * 1e9)
+        with self._running_lock:
+            records = list(self._stats.timeline)
+            full = len(records) == TIMELINE
+            if self._running is not None:
+                records.append((*self._running, time.perf_counter_ns()))
+        if full and records[0][1] > lo:
+            return None
+        out = dict.fromkeys((*(f"{s}_ns" for s in _STAGES), "gc_ns"), 0)
+        for key, start, end in records:
+            if start < hi and end > lo:
+                out[key] += min(end, hi) - max(start, lo)
+        return out
+
     def stats(self) -> dict:
-        """The batches' figures (``ServeStats.summary``), the path the
-        forward took, and under a mesh the backend, transport and world."""
+        """The batches' figures (``ServeStats.summary``: throughput,
+        request latency, ``stage_ms`` and ``gc``), the path the forward
+        took, and under a mesh the backend, transport and world."""
         out = self._stats.summary()
         out["forward_path"] = self.forward_path
         if self.mesh is not None:
@@ -272,25 +412,32 @@ class ServeEngine:
     def _drain(self):
         """Collect request CHUNKS totaling up to batch_size images,
         lingering max_wait_ms. A chunk larger than the remaining room is
-        split; the remainder carries over to the next batch."""
+        split; the remainder carries over to the next batch.  A chunk is
+        ``(images, futures, submitted_ns, request_id, last)``, ``last``
+        when it ends its request."""
         chunks: list = []
         self._total = 0
 
-        def take(item):
-            imgs, futs, t = item
+        def take(imgs, futs, t, rid):
             room = self.batch_size - self._total
-            if len(imgs) > room:
-                self._carry = (imgs[room:], futs[room:], t)
+            last = len(imgs) <= room
+            if not last:
+                self._carry = (imgs[room:], futs[room:], t, rid)
                 imgs, futs = imgs[:room], futs[:room]
-            chunks.append((imgs, futs, t))
+            chunks.append((imgs, futs, t, rid, last))
             self._total += len(imgs)
+
+        def take_queued(timeout):
+            item = self._queue.get(timeout=timeout)
+            self._next_request += 1
+            take(*item, self._next_request - 1)
 
         if self._carry is not None:
             item, self._carry = self._carry, None
-            take(item)
+            take(*item)
         if not chunks:
             try:
-                take(self._queue.get(timeout=0.1))
+                take_queued(0.1)
             except queue.Empty:
                 return chunks
         deadline = time.perf_counter() + self.max_wait_ms / 1e3
@@ -299,58 +446,87 @@ class ServeEngine:
             if remaining <= 0:
                 break
             try:
-                take(self._queue.get(timeout=remaining))
+                take_queued(remaining)
             except queue.Empty:
                 break
         return chunks
 
+    def _lap(self, then: str | None) -> int:
+        """End the running stage, adding its ns to its counter, and start
+        ``then`` (None: no stage runs); returns the clock (ns)."""
+        now = time.perf_counter_ns()
+        with self._running_lock:
+            if self._running is not None:
+                stage, start = self._running
+                setattr(self._stats, stage, getattr(self._stats, stage) + now - start)
+                self._stats.timeline.append((stage, start, now))
+            self._running = (then, now) if then else None
+        return now
+
     def _loop(self):
+        self._lap("drain_ns")
         while not self._stop.is_set():
-            chunks = self._drain()
-            if not chunks:
-                continue
+            chunks = []
             try:
-                self._run_batch(chunks)
+                first = (self._carry[3] if self._carry is not None
+                         else self._next_request)
+                with profiling.span("qnx.serve.drain", batch=self._next_batch,
+                                    first_request=first):
+                    chunks = self._drain()
+                    if not chunks:
+                        continue
+                    images, pad = self._host_batch(chunks)
+                self._run_batch(chunks, images, pad)
             except Exception as e:  # resolve, never leak, this batch's futures
-                for _, futs, _ in chunks:
+                for _, futs, *_ in chunks:
                     for fut in futs:
                         if not fut.done():
                             fut.set_exception(e)
+                self._lap("drain_ns")
+        self._lap(None)
 
-    def _run_batch(self, chunks):
-        n = self._total
-        arrs = [imgs for imgs, _, _ in chunks]
+    def _host_batch(self, chunks):
+        """The chunks as one static host batch: (images, padding)."""
+        self._next_batch += 1
+        arrs = [imgs for imgs, *_ in chunks]
         if not (self.device_normalize
                 and all(a.dtype == np.uint8 for a in arrs)):
             # normalise the uint8 chunks on the host (native runtime)
             arrs = [u8_to_f32(a) if a.dtype == np.uint8 else a for a in arrs]
         images = arrs[0] if len(arrs) == 1 else np.concatenate(arrs)
-        pad = self.batch_size - n
+        pad = self.batch_size - self._total
         if pad:
             images = np.concatenate(
                 [images, np.zeros((pad, *images.shape[1:]), images.dtype)])
-        t0 = time.perf_counter()
-        if self._stats.first_dispatch is None:
-            self._stats.first_dispatch = t0
+        return images, pad
+
+    def _run_batch(self, chunks, images, pad):
+        st = self._stats
+        t0 = self._lap("enqueue_ns")
+        if st.first_dispatch is None:
+            st.first_dispatch = t0 / 1e9
         x = torch.from_numpy(images)
         if self.mesh is not None:
             x = self._broadcast_batch(x)
-        # the copy to the host waits for the device
-        logits = self._compute(x).cpu().numpy()
-        dt_ms = (time.perf_counter() - t0) * 1e3
-        done = time.perf_counter()
-        self._stats.batches += 1
-        self._stats.images += n
-        self._stats.padded += pad
-        self._stats.total_batch_ms += dt_ms
-        off = 0
-        for _, futs, t_in in chunks:
-            lat = (done - t_in) * 1e3
-            self._stats.record_latency(lat, count=len(futs))
-            for fut in futs:
-                fut.set_result(logits[off])
-                off += 1
-        self._stats.last_answer = time.perf_counter()
+        logits = self._compute(x)
+        self._lap("wait_ns")
+        logits = logits.cpu().numpy()  # the copy to the host waits for the device
+        done = self._lap("resolve_ns")
+        st.batches += 1
+        st.images += self._total
+        st.padded += pad
+        st.total_batch_ms += (done - t0) / 1e6
+        with profiling.span("qnx.serve.resolve", batch=self._next_batch - 1,
+                            first_request=chunks[0][3],
+                            last_request=chunks[-1][3]):
+            off = 0
+            for _, futs, t_in, _, last in chunks:
+                if last:
+                    st.record_latency((done - t_in) / 1e6)
+                for fut in futs:
+                    fut.set_result(logits[off])
+                    off += 1
+        st.last_answer = self._lap("drain_ns") / 1e9
 
     # ---------------- the ranks of a mesh ----------------
 

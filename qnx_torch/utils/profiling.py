@@ -1,32 +1,30 @@
-"""Tracing and step timing (torch port of :mod:`qnx.utils.profiling`).
+"""Tracing (torch port of :mod:`qnx.utils.profiling`).
 
 * :func:`trace`: ``torch.profiler.profile`` over the CPU and, with a card,
   CUDA activities, exported as a Chrome trace (``trace.json``, open it in
   Perfetto or ``chrome://tracing``) into ``log_dir``; spans from
-  :func:`annotate` show up by name.
+  :func:`annotate` and :func:`span` show up by name.
 * :func:`annotate`: a named span, ``torch.profiler.record_function`` plus
   an NVTX range on the card.
-* :class:`StepTimer`: wall-clock step timing with JSONL output through
-  :class:`qnx_torch.utils.metrics.MetricsLogger`; ``stop(sync=...)``
-  waits for the device through the value it is given, so a step covers
-  the device's work and not only its launch.
+* :func:`recording` and :func:`span`: a host range with arguments that
+  exists only while a profiler records, for code that runs on every
+  request (``qnx_torch.serve.engine``): with no profiler, one flag read.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
-
-from qnx_torch.utils.metrics import MetricsLogger
 
 TRACE_FILE = "trace.json"
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Capture a host (+ device) profile into ``log_dir/trace.json``.
+    """Capture a host (+ device) profile of every thread of the process (a
+    serving engine's dispatcher as well as the caller) into
+    ``log_dir/trace.json``.
 
     Example::
 
@@ -38,7 +36,9 @@ def trace(log_dir: str):
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=acts,
+                                experimental_config=every_thread) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
@@ -54,64 +54,18 @@ def annotate(name: str):
         yield
 
 
-def _sync(value) -> None:
-    """Wait until ``value`` (a tensor or a nest of them) is computed: a
-    CUDA value synchronizes its device; a CPU value is ready."""
-    if isinstance(value, torch.Tensor):
-        if value.is_cuda:
-            torch.cuda.synchronize(value.device)
-    elif isinstance(value, dict):
-        for v in value.values():
-            _sync(v)
-    elif isinstance(value, (list, tuple)):
-        for v in value:
-            _sync(v)
+def recording() -> bool:
+    """Whether a torch profiler records anywhere in this process."""
+    return torch.autograd.profiler._is_profiler_enabled
 
 
-class StepTimer:
-    """Per-step timing -> JSONL metrics.
-
-    ``sync`` makes the step interval cover the device's work, not just its
-    dispatch."""
-
-    def __init__(self, logger: MetricsLogger | None = None,
-                 name: str = "step"):
-        self.logger = logger or MetricsLogger(None)
-        self.name = name
-        self._t = None
-        self.history: list[float] = []
-
-    def start(self):
-        self._t = time.perf_counter()
-        return self
-
-    def stop(self, sync=None, **fields) -> float:
-        if sync is not None:
-            _sync(sync)
-        dt = time.perf_counter() - self._t
-        self.history.append(dt)
-        self.logger.log(event=self.name, seconds=round(dt, 6), **fields)
-        return dt
-
-    @contextlib.contextmanager
-    def step(self, **fields):
-        """``with timer.step(batch=i): ...``; the caller synchronizes the
-        body's output (or passes it to :meth:`stop`)."""
-        self.start()
-        try:
-            yield self
-        finally:
-            self.stop(**fields)
-
-    def summary(self) -> dict:
-        import numpy as np
-
-        if not self.history:
-            return {"steps": 0}
-        h = np.asarray(self.history)
-        return {
-            "steps": int(h.size),
-            "mean_s": float(h.mean()),
-            "p50_s": float(np.percentile(h, 50)),
-            "p99_s": float(np.percentile(h, 99)),
-        }
+def span(name: str, **args: int):
+    """A host range ``name`` on the profiler's clock while a profiler
+    records, else a no-op context.  ``args`` (integers) show as the
+    range's arguments where the profiler records shapes
+    (``record_shapes=True``) on the range's own thread.  Meant for host
+    work between launches: the serving engine puts none around a stage
+    that launches device work, so no device event bears its names."""
+    if not recording():
+        return contextlib.nullcontext()
+    return torch._C._profiler._RecordFunctionFast(name, (), args)
