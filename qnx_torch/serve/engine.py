@@ -49,6 +49,24 @@ of each that fell between two ``time.perf_counter()`` readings taken
 without a call to the engine; :func:`last_started` hands the engine a
 process started last to code that holds no reference to it (a
 benchmark's readers).
+
+While engines serve, what outlived their set-up sits in the collector's
+permanent generation (``gc.freeze()``), so that a full collection walks
+only what serving makes (the futures in flight, the chunks) and not every
+object the imports of torch and numpy left.  The first leader started in
+the process runs one full collection, so that no garbage is frozen, and
+freezes; each engine collects and freezes once more when its first
+batch's logits are on the host, before its futures are set, since the
+first forward loads modules lazily.  The last one stopped undoes it
+(``gc.unfreeze()``, which also thaws the tuples CPython 3.12 freezes at
+start-up).  Where something else had frozen objects before the first
+engine started (more than were frozen when this module was imported),
+the engines neither freeze nor unfreeze.  None of the engine's
+per-request objects forms a cycle, so a frozen future is still freed when
+its last reference goes.  ``gc_frozen`` counts the objects an engine's
+freezes moved out of the collector's walk (less any frozen object another
+thread frees while the engine reads the count around its freeze).  The
+dispatcher's first drain starts at ``start()`` and holds the collection.
 """
 from __future__ import annotations
 
@@ -87,6 +105,14 @@ _GC_RANGES = tuple(f"qnx.gc.gen{g}" for g in range(3))
 
 _last_started = None  # a weak reference to the engine started last
 
+# the collector's freeze is the process's, so the engines share its owner;
+# CPython 3.12 keeps a few hundred tuples of its static types frozen from
+# start-up, which count as nothing frozen
+_FROZEN_AT_IMPORT = gc.get_freeze_count()
+_freeze_lock = threading.Lock()
+_serving = 0       # leaders started and not stopped
+_freezing = False  # they froze (nothing else had): the last one unfreezes
+
 
 def last_started() -> "ServeEngine | None":
     """The engine this process started last, while it lives."""
@@ -121,6 +147,7 @@ class ServeStats:
     gc_collections_0: int = 0
     gc_collections_1: int = 0
     gc_collections_2: int = 0
+    gc_frozen: int = 0  # objects this engine's freezes moved (docstring)
     first_dispatch: float | None = None  # perf_counter of the first batch
     last_answer: float = 0.0  # perf_counter after the last batch's futures
     latencies_ms: list = field(default_factory=list)
@@ -132,7 +159,7 @@ class ServeStats:
 
     COUNTERS = ("batches", "images", "padded", "total_batch_ms", "requests",
                 *(f"{s}_ns" for s in _STAGES), "gc_ns",
-                *(f"gc_collections_{g}" for g in range(3)))
+                *(f"gc_collections_{g}" for g in range(3)), "gc_frozen")
 
     def record_latency(self, lat_ms: float) -> None:
         """Count an answered request and reservoir-sample its latency, so
@@ -178,7 +205,8 @@ class ServeStats:
         is a request's, from ``submit_many`` to its last image's logits on
         the host.  ``stage_ms``: host ms a batch of each stage of the
         dispatcher's cycle; ``gc``: the collector's collections by
-        generation and its pauses in ms, while the engine ran."""
+        generation and its pauses in ms, while the engine ran, and the
+        objects the engine froze."""
         lat = np.asarray(self.latencies_ms) if self.latencies_ms else np.zeros(1)
         busy_s = self.total_batch_ms / 1e3
         wall_s = (self.last_answer - self.first_dispatch
@@ -196,7 +224,7 @@ class ServeStats:
             "stage_ms": {s: getattr(self, f"{s}_ns") / per_batch for s in _STAGES},
             "gc": {"collections": [self.gc_collections_0, self.gc_collections_1,
                                    self.gc_collections_2],
-                   "pause_ms": self.gc_ns / 1e6},
+                   "pause_ms": self.gc_ns / 1e6, "frozen": self.gc_frozen},
         }
 
 
@@ -250,6 +278,7 @@ class ServeEngine:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._released = False  # the followers got the stop flag
+        self._serving = False   # counted in the module's ``_serving``
         if not self.leader:
             self._follow()
 
@@ -297,7 +326,16 @@ class ServeEngine:
         self._stop.clear()
         if self._stats.on_gc not in gc.callbacks:
             gc.callbacks.append(self._stats.on_gc)
-        global _last_started
+        self._lap("drain_ns")
+        global _last_started, _serving, _freezing
+        with _freeze_lock:
+            if not self._serving:
+                if _serving == 0:
+                    _freezing = gc.get_freeze_count() <= _FROZEN_AT_IMPORT
+                    if _freezing:
+                        self._freeze()
+                _serving += 1
+                self._serving = True
         _last_started = weakref.ref(self)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -311,6 +349,14 @@ class ServeEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        global _serving, _freezing
+        with _freeze_lock:
+            if self._serving:
+                self._serving = False
+                _serving -= 1
+                if _serving == 0 and _freezing:
+                    _freezing = False
+                    gc.unfreeze()
         if self._stats.on_gc in gc.callbacks:
             gc.callbacks.remove(self._stats.on_gc)
         if self.mesh is not None and self.leader and not self._released:
@@ -358,9 +404,9 @@ class ServeEngine:
     def counters(self) -> dict:
         """The engine's cumulative counters, flat: ``batches``, ``images``,
         ``padded``, ``total_batch_ms``, ``requests``, the four stages'
-        ``*_ns``, ``gc_ns`` and ``gc_collections_0/1/2`` (module
-        docstring).  The running stage counts up to this call, so that
-        between two calls the stages add up to the time between them."""
+        ``*_ns``, ``gc_ns``, ``gc_collections_0/1/2`` and ``gc_frozen``
+        (module docstring).  The running stage counts up to this call, so
+        that between two calls the stages add up to the time between them."""
         with self._running_lock:
             out = self._stats.counters()
             if self._running is not None:
@@ -463,8 +509,16 @@ class ServeEngine:
             self._running = (then, now) if then else None
         return now
 
+    def _freeze(self):
+        """Collect, so that no garbage is frozen, then move every object
+        left into the collector's permanent generation (the caller holds
+        ``_freeze_lock``)."""
+        gc.collect()
+        before = gc.get_freeze_count()
+        gc.freeze()
+        self._stats.gc_frozen += gc.get_freeze_count() - before
+
     def _loop(self):
-        self._lap("drain_ns")
         while not self._stop.is_set():
             chunks = []
             try:
@@ -516,6 +570,10 @@ class ServeEngine:
         st.images += self._total
         st.padded += pad
         st.total_batch_ms += (done - t0) / 1e6
+        if st.batches == 1:  # what the first forward loaded outlives serving
+            with _freeze_lock:
+                if self._serving and _freezing:
+                    self._freeze()
         with profiling.span("qnx.serve.resolve", batch=self._next_batch - 1,
                             first_request=chunks[0][3],
                             last_request=chunks[-1][3]):

@@ -99,7 +99,7 @@ def test_counters_keep_the_stats_fields():
     engine = ServeEngine(Toy(), batch_size=4, max_wait_ms=1.0)
     _serve(engine, [_u8(3, 0), _u8(6, 1)])
     c, s = engine.counters(), engine._stats
-    for key in ("batches", "images", "padded", "total_batch_ms"):
+    for key in ("batches", "images", "padded", "total_batch_ms", "gc_frozen"):
         assert c[key] == getattr(s, key)
     assert (c["batches"], c["images"], c["padded"]) == (3, 9, 3)
     assert set(c) == set(s.COUNTERS)
@@ -258,7 +258,7 @@ def test_stats_keep_their_keys():
     stats = engine.stats()
     assert STATS_KEYS <= set(stats)
     assert set(stats["stage_ms"]) == {"drain", "enqueue", "wait", "resolve"}
-    assert set(stats["gc"]) == {"collections", "pause_ms"}
+    assert set(stats["gc"]) == {"collections", "pause_ms", "frozen"}
     json.dumps(stats)  # the serve command prints them
 
 
