@@ -195,7 +195,21 @@ Phases:
     JSON record with exactly ``bench.py``'s keys (``unreliable`` only where
     set), its metric naming this card, the int8 engine faster than the
     strict twin;
-13. parity: ``python3 -m qnx_torch.experiments.parity_fullwidth`` for
+13. bireal: Bi-Real Net-18 (``imagenet-bireal18``, 224x224, widths 64 to
+    512, 1000 classes) through kernel A's residual epilogue
+    (``xnor_conv_residual``): the kernel against its plain version at each
+    of its 16 conv shapes at batch 256 (stream and bits equal, max abs error
+    0) and on ragged shapes (batch 3, odd and small spatial sizes, stride 1
+    and 2, C = 32 and 96, N = 32 and 96), each of the 16 timed against its
+    plain version and its bound (the larger of the float32 stream's bytes
+    at 3.35 TB/s and its MACs at the single-bit rate); then ``pack_bireal``
+    of the benchmark's seeded variables served through the engine (600
+    requests at batch 256): every request answered, 16 launches a batch,
+    each conv's stream and bits on one batch equal to the plain version's,
+    the logits against the plain reference
+    (``qbench/models/bireal_resnet.py``) within the benchmark's gate;
+    ``python3 chip_smoke.py --bireal`` runs phases 1, 2 and this one alone;
+14. parity: ``python3 -m qnx_torch.experiments.parity_fullwidth`` for
     ``full-bnn`` and ``full-tnn`` at width 128, dense 1024, batch 256, the
     two at once: eight training steps, then the packed (kernel A) or
     bit-plane (kernel D) engine and the int8 engine (kernel E) from the
@@ -345,6 +359,9 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                       "experiments/xnor_sol_variants.py:52"),
     "int_chain": ("qnx_torch/kernels/csrc/int_probe.cu",
                   "experiments/vpu_probe.py:50"),
+    # Bi-Real Net's residual binary conv: no TPU kernel, the JAX package has
+    # no residual model
+    "xnor_conv3x3_residual": ("qnx_torch/kernels/csrc/expand_mma_conv.cu", "none"),
 }
 # the kernels that the measurement path (phase 6) runs (B and C at wide N);
 # the others run on the slices (phase 4) and the CLI (phase 5)
@@ -1310,7 +1327,9 @@ def mma_sass(functions: dict) -> dict:
             ops = ("D P=" + str(first[0] or "any")
                    + (" corr" if "Lb1E" in name else "")  # kBorderTerm
                    if "PlaneOperands" in name
-                   else "A'" if "TernaryOperands" in name else "A")
+                   else "A'" if "TernaryOperands" in name
+                   else f"A residual S={first[0]}" if "BinaryResidualOperands" in name
+                   else "A")
             layer = "dense" if "expand_mma_dense_kernel" in name else "conv"
             label, k32 = f"{ops} {layer} KW={last}", last
         per_step = 16 * k32 if loop["IMMA"] else k32
@@ -3453,6 +3472,182 @@ def ab(kinds: str, roots: list[str]) -> int:
     return 1 if failed else 0
 
 
+def bireal_shapes(batch: int = TIME_BATCH) -> list:
+    """(batch, H, W, C, N, stride) of Bi-Real Net-18's 16 binary convs at
+    224x224 (the inputs of each conv)."""
+    from qnx_torch.convert.pack_model import bireal_layers
+    from qnx_torch.utils.config import IMAGENET_BIREAL18
+
+    out, h = [], 56
+    for _, c, n, stride in bireal_layers(IMAGENET_BIREAL18):
+        out.append((batch, h, h, c, n, stride))
+        h = -(-h // stride)
+    return out
+
+
+# ragged shapes of the residual conv: batch, odd and small spatial sizes,
+# both strides, C of one and three words (KW = 1), N of one and three words
+BIREAL_RAGGED = [(3, 7, 7, 512, 512, 1), (3, 7, 7, 64, 96, 2), (2, 5, 9, 32, 32, 2),
+                 (3, 9, 5, 96, 64, 1), (1, 1, 1, 128, 256, 2), (3, 2, 3, 256, 32, 1)]
+
+
+def resconv_operands(torch, rng, b, h, w, c, n, stride) -> list:
+    """Seeded operands of ``xnor_conv_residual`` on the card: bits, sign
+    words, k, corr at the stride's output grid, a scale of both signs, a
+    shift, and a residual of a stream's spread."""
+    from qnx_torch.kernels.xnor_conv import pack_conv_weights_np, padding_correction
+    from qnx_torch.ops.packing import pack_bits_np
+
+    ho, wo = -(-h // stride), -(-w // stride)
+    pattern = pm1(rng, (3, 3, c, n))
+    wp, k = pack_conv_weights_np(pattern)
+    scale = (rng.uniform(0.01, 0.1, n) * pm1(rng, n)).astype(np.float32)
+    res = rng.standard_normal((b, ho, wo, n), dtype=np.float32) * np.float32(2.0)
+    return [cuda(torch, pack_bits_np(pm1(rng, (b, h, w, c)), axis=-1)), cuda(torch, wp),
+            k, cuda(torch, padding_correction(pattern, h, w, stride)), cuda(torch, scale),
+            cuda(torch, rng.normal(0, 1, n).astype(np.float32)), cuda(torch, res), stride]
+
+
+def check_resconv(torch, err: dict, what: str, got, want) -> None:
+    """The residual conv's stream and bits against the plain version's:
+    equal, and the stream's max abs error into ``err``."""
+    e = float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+    err["xnor_conv3x3_residual"] = max(err["xnor_conv3x3_residual"], e)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"xnor_conv3x3_residual {what}: differs from the "
+                             f"plain version (stream max abs err {e}, bits "
+                             f"equal {torch.equal(got[1], want[1])})")
+
+
+def phase_bireal(torch, card: str, err: dict) -> tuple[dict, int]:
+    """Phase 13: the residual conv at Bi-Real Net-18's shapes and ragged
+    ones, timed at the 16; the served model.  Returns the summed times of
+    the 16 shapes (one forward at batch 256) and the launches."""
+    from qbench import checks, registry
+    from qnx_torch.bench.roofline import H100_PEAKS
+    from qnx_torch.convert.pack_model import pack_bireal
+    from qnx_torch.kernels import launch_counters
+    from qnx_torch.kernels.xnor_conv_fused import (xnor_conv_residual,
+                                                   xnor_conv_residual_ref)
+    from qnx_torch.serve.engine import ServeEngine, normalize_u8
+    from qnx_torch.utils.config import IMAGENET_BIREAL18 as cf
+
+    rng = np.random.default_rng(13)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+                 ops_bound_ms=0.0, bytes_bound_ms=0.0)
+    for b, h, w, c, n, stride in bireal_shapes() + BIREAL_RAGGED:
+        args = resconv_operands(torch, rng, b, h, w, c, n, stride)
+        got = xnor_conv_residual(*args)
+        want = xnor_conv_residual_ref(*args)
+        torch.cuda.synchronize()
+        what = f"batch {b} {(h, w, c, n)} stride {stride}"
+        check_resconv(torch, err, what, got, want)
+        if b != TIME_BATCH:
+            log("bireal", f"xnor_conv3x3_residual {what}: equal")
+            continue
+        kern = lambda: xnor_conv_residual(*args)  # noqa: E731
+        plain = lambda: xnor_conv_residual_ref(*args)  # noqa: E731
+        p1, k1 = time_ms(torch, plain, 3, 3), time_ms(torch, kern, 20, 4)
+        k2, p2 = time_ms(torch, kern, 20, 4), time_ms(torch, plain, 3, 3)
+        kt, pt = k1 + k2, p1 + p2
+        tensors = [a for a in args if isinstance(a, torch.Tensor)] + list(got)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        macs = b * got[0].shape[1] * got[0].shape[2] * 9 * c * n
+        ops_ms = macs / H100_PEAKS["b1_macs"] * 1e3
+        bytes_ms = nbytes / H100_PEAKS["hbm_bytes"] * 1e3
+        bound = max(ops_ms, bytes_ms)
+        total["ms"] += statistics.median(kt)
+        total["plain_ms"] += statistics.median(pt)
+        total["bound_ms"] += bound
+        total["ops_bound_ms" if ops_ms >= bytes_ms else "bytes_bound_ms"] += bound
+        log("bireal", f"{card} | xnor_conv3x3_residual {what}: equal, max_abs_err "
+            f"0; kernel {fmt(kt)}; plain {fmt(pt)}; bound {bound:.4f} ms (bytes "
+            f"{bytes_ms:.4f}, single-bit MACs {ops_ms:.4f}, at the int8 rate the "
+            f"kernel runs its MMA at {macs / H100_PEAKS['int8_macs'] * 1e3:.4f}); "
+            f"{nbytes / 1e9 / statistics.median(kt):.2f} TB/s at the median")
+    log("bireal", f"{card} | the 16 convs at batch {TIME_BATCH}: kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms, {100 * total['bound_ms'] / total['ms']:.1f}% "
+        f"of it")
+
+    # the served model at its published widths
+    arch = registry.architecture("bireal_resnet")
+    spec = {**registry._json(registry.HERE / "configs" / "imagenet-bireal18.json")}
+    variables = arch.make_variables(spec, 7, "cuda")
+    model = pack_bireal(variables, cf)  # on the card by default
+    if not all(t.is_cuda for t in model.buffers()):
+        raise AssertionError("pack_bireal's default is not the card")
+    images = np.random.default_rng(2).integers(0, 256, (sum(CHUNKS), *cf.input_shape),
+                                               dtype=np.uint8)
+    engine = ServeEngine(model, batch_size=SERVE_BATCH, max_wait_ms=50.0)
+    futs, off = [], 0
+    for size in CHUNKS:
+        futs += engine.submit_many(images[off:off + size])
+        off += size
+    counted = launch_counters()
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    engine.start()
+    try:
+        logits = np.stack([f.result(timeout=600) for f in futs])
+    finally:
+        engine.stop()
+    launches = {name: wrapper.launches for name, wrapper in counted.items()}
+    batches = engine.stats()["batches"]
+    want = {name: 16 * batches if name == "xnor_conv3x3_residual" else 0
+            for name in launches}
+    if launches != want or logits.shape != (len(images), cf.classes):
+        raise AssertionError(f"bireal: launches {launches} (want {want}), logits "
+                             f"{logits.shape}")
+    with torch.inference_mode():
+        x = normalize_u8(cuda(torch, images[:SERVE_BATCH]))
+        stream, bits = model.first(x)
+        for conv in model.convs:  # each conv's kernel on the served stream
+            r = stream if conv.shortcut is None else conv.shortcut(stream)
+            args = (bits, conv.wp, conv.k, conv.corr, conv.scale, conv.shift, r,
+                    conv.stride)
+            got = xnor_conv_residual(*args)
+            check_resconv(torch, err, f"served conv {conv.index}", got,
+                          xnor_conv_residual_ref(*args))
+            signs = float((got[0] >= 0).float().mean())
+            if not 0.0 < signs < 1.0:
+                raise AssertionError(f"bireal: conv {conv.index}'s stream has one sign")
+            stream, bits = got
+        ref = np.concatenate([
+            arch.reference_logits(spec, variables,
+                                  cuda(torch, images[i:i + 300])).cpu().numpy()
+            for i in range(0, len(images), 300)])
+    bad = checks.mismatched(logits, ref)
+    limit = spec["limits"]["logit_mismatch_share"]
+    log("bireal", f"{card} | served {len(logits)} requests in {batches} batches of "
+        f"{SERVE_BATCH}; launches {launches['xnor_conv3x3_residual']} = 16 x "
+        f"{batches}; each conv's stream and bits on the first batch equal to the "
+        f"plain version's; logits against the plain reference: mismatch share "
+        f"{bad.mean():.4f} (limit {limit}), max |diff| "
+        f"{float(np.abs(logits - ref).max()):.3g} of max |logit| "
+        f"{float(np.abs(ref).max()):.3g}, argmax equal on "
+        f"{float((logits.argmax(1) == ref.argmax(1)).mean()):.4f}; "
+        f"{cf.dataset} {cf.input_shape}")
+    if bad.mean() > limit:
+        raise AssertionError(f"bireal: mismatch share {bad.mean()} above {limit}")
+    return total, launches["xnor_conv3x3_residual"]
+
+
+def kernels_line(names, launches: dict, err: dict, total: dict) -> str:
+    """The JSON summary of the kernels ``names``."""
+    def bound_by(t: dict) -> str:
+        return ("operations" if t["ops_bound_ms"] >= t["bytes_bound_ms"]
+                else "bytes")
+
+    return json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": launches[name],
+         "max_abs_err": err[name], "ms": total[name]["ms"],
+         "plain_ms": total[name]["plain_ms"], "bound_ms": total[name]["bound_ms"],
+         "bound_by": bound_by(total[name]), "library_ms": total[name]["library_ms"]}
+        for name in names]})
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -3463,9 +3658,20 @@ def main(argv: list[str]) -> int:
         return ab(argv[1], argv[2:])
     if argv[:1] == ["--ab-child"] and len(argv) == 3:
         return ab_child(argv[1], argv[2])
+    if argv == ["--bireal"]:
+        card = phase_device(torch)
+        phase_build()
+        err = dict.fromkeys(KERNELS, 0.0)
+        res, n = phase_bireal(torch, card, err)
+        if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "qnx") for m in sys.modules):
+            raise AssertionError("the port imported jax or the JAX package")
+        name = "xnor_conv3x3_residual"
+        print(kernels_line([name], {name: n}, err, {name: res}), flush=True)
+        print(card, flush=True)
+        return 0
     if argv:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--ab KINDS DIR ...]; "
-                         f"got {argv}")
+        raise SystemExit(f"usage: python3 chip_smoke.py [--bireal | --ab KINDS DIR "
+                         f"...]; got {argv}")
     laps = [("", time.perf_counter())]
 
     def lap(phase: str) -> None:
@@ -3503,6 +3709,9 @@ def main(argv: list[str]) -> int:
     for k, v in phase_headline(torch, card, err).items():
         launches[k] += v
     lap("headline")
+    total["xnor_conv3x3_residual"], launches["xnor_conv3x3_residual"] = (
+        phase_bireal(torch, card, err))
+    lap("bireal")
     phase_parity(card)
     lap("parity")
     log("phases", ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
@@ -3511,17 +3720,7 @@ def main(argv: list[str]) -> int:
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "qnx") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
-    def bound_by(t: dict) -> str:
-        return ("operations" if t["ops_bound_ms"] >= t["bytes_bound_ms"]
-                else "bytes")
-
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": err[name],
-         "ms": total[name]["ms"], "plain_ms": total[name]["plain_ms"],
-         "bound_ms": total[name]["bound_ms"], "bound_by": bound_by(total[name]),
-         "library_ms": total[name]["library_ms"]}
-        for name, (source, replaces) in KERNELS.items()]}), flush=True)
+    print(kernels_line(KERNELS, launches, err, total), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

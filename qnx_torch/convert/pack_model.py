@@ -3,7 +3,9 @@ int8 models (torch port of :func:`qnx.convert.pack_model.pack_mlp` and
 :func:`qnx.convert.pack_model.pack_vgg`, binary and ternary, of
 :func:`qnx.convert.pack_model.pack_vgg_bitplane` in its relu and tanh
 modes, and of :func:`qnx.convert.pack_model.pack_int8` for every quantized
-network type and its four encodings).
+network type and its four encodings), and :func:`pack_bireal`, the port's
+own, for Bi-Real Net-18, whose variables are a state dict of the published
+PyTorch module.
 
 Input is the JAX package's variables as numpy arrays — the
 ``{"params", "quant", "batch_stats"}`` dict of ``jax.device_get(init_model(
@@ -21,6 +23,7 @@ import torch
 from qnx_torch.kernels.xnor_conv import (pack_conv_ternary_np,
                                          pack_conv_weights_np,
                                          padding_correction)
+from qnx_torch.nn import bireal as R
 from qnx_torch.nn import inference as I
 from qnx_torch.nn import int8_engine as E
 from qnx_torch.ops.packing import pack_bits_np, pack_ternary_np
@@ -557,6 +560,79 @@ def pack_mlp(variables: dict, cf: Config, device="cuda") -> I.PackedMLP:
         head = I.PackedDenseLogits(wp=_t(pack_bits_np(pattern, axis=0)),
                                    a=_t(aff.a), c=_t(aff.c0), k=latent.shape[0])
     return I.PackedMLP(first=first, hidden=hidden, head=head).to(device)
+
+
+def bireal_fold(variables: dict, name: str, eps: float, alpha=None):
+    """The BatchNorm ``name`` (``<name>.weight``, ``.bias``,
+    ``.running_mean``, ``.running_var``) after a layer whose output is
+    ``alpha * y`` (alpha per channel, or none), as ``y * scale + shift`` in
+    float32: scale = alpha * weight / sqrt(var + eps) and shift = bias -
+    mean * weight / sqrt(var + eps), computed in float64 and rounded once."""
+    gamma, beta, mean, var = (np.asarray(variables[f"{name}.{k}"], np.float64)
+                              for k in ("weight", "bias", "running_mean",
+                                        "running_var"))
+    inv = gamma / np.sqrt(var + eps)
+    scale = inv if alpha is None else alpha * inv
+    return scale.astype(np.float32), (beta - mean * inv).astype(np.float32)
+
+
+def bireal_layers(cf: Config) -> list[tuple[str, int, int, int]]:
+    """(name prefix, C in, N out, stride) of each binary conv of Bi-Real
+    Net-18: four stages of four at widths ``cf.width`` x (1, 2, 4, 8), the
+    first of stages 2-4 at stride 2."""
+    rows, c = [], cf.width
+    for stage in range(4):
+        n = cf.width << stage
+        for i in range(4):
+            rows.append((f"layer{stage + 1}.{i}", c, n, 2 if stage and not i else 1))
+            c = n
+    return rows
+
+
+def pack_bireal(variables: dict, cf: Config, device="cuda") -> R.BiRealResNet:
+    """Lower Bi-Real Net-18's variables into a
+    :class:`qnx_torch.nn.bireal.BiRealResNet` on ``device``.
+
+    ``variables`` maps the published module's state-dict names
+    (``conv1.weight``, ``bn1.*``, ``layer<s>.<i>.binary_conv.weights``,
+    ``layer<s>.<i>.bn1.*``, ``layer<s>.0.downsample.1.weight`` and
+    ``.downsample.2.*``, ``fc.weight``, ``fc.bias``) to float32 arrays, OIHW
+    kernels; a binary conv's latent ``weights`` may also be the published
+    (N*C*9, 1) column.  Each binary conv packs sign(W) (+1 where W >= 0) into
+    the (9*Cw, N) words kernel A takes, folds alpha = mean|W| over (in, kh,
+    kw) into its BatchNorm (:func:`bireal_fold`), and gets ``corr`` at its
+    stride's output grid."""
+    device = _check_device(device)
+    if cf.architecture != "bireal18":
+        raise ValueError("pack_bireal expects a bireal18 config")
+    if (cf.network_type, cf.wbits, cf.abits) != ("full-bnn", 1, 1):
+        raise ValueError("Bi-Real Net's convs are binary: network_type full-bnn, "
+                         f"wbits 1, abits 1; got {cf.network_type}, {cf.wbits}, "
+                         f"{cf.abits}")
+    eps = cf.batch_norm_epsilon
+    get = lambda name: np.asarray(variables[name], np.float32)  # noqa: E731
+    first = R.BiRealStem(_t(get("conv1.weight")), *map(_t, bireal_fold(
+        variables, "bn1", eps)))
+    h, w, _ = cf.input_shape
+    h, w = -(-h // 4), -(-w // 4)  # the stem's conv and pool, each at stride 2
+    convs = []
+    for index, (name, c, n, stride) in enumerate(bireal_layers(cf)):
+        latent = get(f"{name}.binary_conv.weights").reshape(n, c, 3, 3)
+        alpha = np.mean(np.abs(latent.astype(np.float64)), axis=(1, 2, 3))
+        pattern = np.where(latent >= 0, 1.0, -1.0).transpose(2, 3, 1, 0)  # HWIO
+        wp, k = pack_conv_weights_np(pattern)
+        shortcut = None
+        if stride == 2:
+            shortcut = R.DownsampleShortcut(
+                _t(get(f"{name}.downsample.1.weight")),
+                *map(_t, bireal_fold(variables, f"{name}.downsample.2", eps)))
+        convs.append(R.ResidualBinaryConv(
+            _t(wp), _t(padding_correction(pattern, h, w, stride)),
+            *map(_t, bireal_fold(variables, f"{name}.bn1", eps, alpha)), k=k,
+            stride=stride, shortcut=shortcut, index=index))
+        h, w = -(-h // stride), -(-w // stride)
+    head = R.FloatLinearHead(_t(get("fc.weight")), _t(get("fc.bias")))
+    return R.BiRealResNet(first, convs, R.GlobalAvgPool(), head).to(device)
 
 
 def pack_int8(variables: dict, cf: Config,

@@ -14,6 +14,7 @@ def launch_counters() -> dict:
     from qnx_torch.kernels.xnor_gemm import xnor_gemm_popcount, xnor_head
 
     return {"xnor_conv3x3_fused": F.xnor_conv_fused,
+            "xnor_conv3x3_residual": F.xnor_conv_residual,
             "xnor_dense_fused": F.xnor_gemm_fused,
             "ternary_dense_fused": F.ternary_gemm_fused,
             "xnor_gemm_popcount": xnor_gemm_popcount,

@@ -32,6 +32,7 @@ _SIGNATURES = {
     "qnx_xnor_dense_fused": [_P] * 5 + [_I] * 5 + [_P],
     "qnx_ternary_dense_fused": [_P] * 7 + [_I] * 4 + [_P],
     "qnx_xnor_conv3x3_fused": [_P] * 6 + [_I] * 7 + [_P],
+    "qnx_xnor_conv3x3_residual": [_P] * 8 + [_I] * 7 + [_P],
     "qnx_xnor_gemm_popcount": [_P] * 3 + [_I] * 4 + [_P],
     "qnx_ternary_gemm": [_P] * 5 + [_I] * 3 + [_P],
     "qnx_i8_conv3x3_fused": [_P] * 5 + [_I] * 9 + [_P],

@@ -34,6 +34,13 @@
 //                (= nnz - 2 popc(mask & (x ^ sign)) + corr, for any nnz)
 //   A, A': s     = max of s over the 2x2 window               (pool)
 //       bit      = sgn * s >= tau
+//   A residual (Bi-Real Net's binary conv, BinaryResidualOperands<S>):
+//       s        = A's s at stride S (1 or 2: output pixel (y, x) reads
+//                  input (S y - 1 + dy, S x - 1 + dx)), corr at the
+//                  output grid; no pool
+//       x_new    = (float(s) * scale[n] + shift[n]) + r[y,x,n]   (float32,
+//                  each product and sum rounded once, no contraction)
+//       out      = x_new (float32 NHWC) and bit = x_new >= 0
 //
 // The accumulator is int32 and exact: |s| <= 9 C 255 * 2.  The compares
 // are int32 and tau is never negated (it may be INT32_MIN).
@@ -78,6 +85,18 @@
 // each warp expanding its own rows straight into its fragments (that puts
 // the expansion between the barrier and the wgmma, and spills at KW = 4).
 //
+// The residual conv (Bi-Real Net's binary conv; no TPU kernel, the JAX
+// package has no residual model) is A's mainloop with two options of its
+// Operands class, BinaryResidualOperands<S>: the stride S, which moves each
+// row's taps to (S y - 1 + dy, S x - 1 + dx) and sets the output grid
+// (ceil(H / S) x ceil(W / S), the quads and corr at that grid), and the
+// epilogue, which stages scale and shift in place of sgn and nnz, reads
+// the float32 residual two channels a float2 and writes x_new and its
+// bits.  Its single-bit MACs are far under its bytes (the float32 stream
+// read and written, 8 B an output channel against 9 C / 8 B of products),
+// so it is bound by HBM; Stage 1's N = 64 runs half of the 128-channel
+// tile (PERF.md §6).
+//
 // The mainloop takes its operands from an Operands class (the expanders
 // and what the epilogue adds); kernel E, whose int8 codes need no
 // expansion, has a mainloop of its own on the same helpers
@@ -99,13 +118,41 @@ struct ConvArgs {
   const uint32_t* w0;  // (9 Cw, N) mask (D, A') or sign (A)
   const uint32_t* w1;  // (9 Cw, N) msign (D) or sign (A'); A: unused
   const int* nnz;      // (N,)      A' only
-  const int* corr;     // (H, W, N) A and A', D's tanh mode
+  const int* corr;     // (H', W', N) at the output grid: A, A', D's tanh mode
   const int* sgn;      // (N,)
   const int* tau;      // (n_thresh, N)
   uint32_t* out;       // (P, B, H', W', Nw)
   int p, b, h, w, cw, n, n_thresh, pool;
   int k;               // A: the true reduction length 9 C
 };
+
+// The residual conv's arguments: ConvArgs (sgn, tau, nnz and w1 unused) and
+// its float32 operands.  Only its instances take them, so ConvArgs, and
+// with it the code of every other instance, stays as it was: fields
+// appended to ConvArgs changed the SASS of them all (PERF.md §6).
+struct ResidualArgs : ConvArgs {
+  const float* scale;  // (N,)
+  const float* shift;  // (N,)
+  const float* res;    // (B, H', W', N) the residual r
+  float* out_f;        // (B, H', W', N) x_new
+};
+
+// The arguments the instances of an Operands class take.
+template <class Ops>
+struct ArgsOf {
+  using type = ConvArgs;
+};
+template <int S>
+struct ArgsOf<BinaryResidualOperands<S>> {
+  using type = ResidualArgs;
+};
+template <class Ops>
+using ArgsFor = typename ArgsOf<Ops>::type;
+
+// The output grid's extent of a 3x3 conv with pad 1 at stride s.
+__host__ __device__ __forceinline__ int conv_out(int extent, int s) {
+  return (extent + s - 1) / s;
+}
 
 // tiles (double-buffered), ring, column constants
 template <int KW, int WP>
@@ -119,7 +166,7 @@ size_t smem_bytes(int p) {
 // shared memory smem_bytes<KW, Ops::kWPlanes>(p).
 template <class Ops, int KW>
 __global__ void __launch_bounds__(kThreads, 2)
-expand_mma_conv3x3_kernel(const ConvArgs a) {
+expand_mma_conv3x3_kernel(const ArgsFor<Ops> a) {
   constexpr int kWP = Ops::kWPlanes;
   constexpr int kKB = 32 * KW;            // k bytes of a step
   constexpr uint32_t kSbo = 2 * KW * 128;  // bytes between 8-row groups
@@ -148,24 +195,28 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
   // this thread's accumulator rows: wrow and wrow + 8
   const int wrow = wg * 64 + (warp & 3) * 16 + g;
   const int p = a.p;
-  const int qh = windows(a.h, a.pool);
-  const int qw = windows(a.w, a.pool);
+  constexpr int kS = Ops::kStride;
+  const int ho_s = conv_out(a.h, kS);  // the conv's output grid, before the pool
+  const int wo_s = conv_out(a.w, kS);
+  const int qh = windows(ho_s, a.pool);
+  const int qw = windows(wo_s, a.pool);
   const int rows = 4 * a.b * qh * qw;
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const size_t plane_words = static_cast<size_t>(a.b) * a.h * a.w * a.cw;
 
   // this thread's activation row for the copies (a row outside the image
-  // or past the rows reads zeros), and its first word in plane 0
+  // or past the rows reads zeros): the input pixel at the centre of its
+  // taps, and its first word in plane 0
   const int cr = tid & (kBM - 1);
   int cy = -4, cx = -4;
   const uint32_t* xrow = a.x;
   if (m0 + cr < rows) {
     const Pixel px = pixel_of(m0 + cr, qh, qw);
-    if (px.y < a.h && px.x < a.w) {
-      cy = px.y;
-      cx = px.x;
-      xrow += (static_cast<size_t>(px.bi * a.h + px.y) * a.w + px.x) * a.cw;
+    if (px.y < ho_s && px.x < wo_s) {
+      cy = kS * px.y;
+      cx = kS * px.x;
+      xrow += (static_cast<size_t>(px.bi * a.h + cy) * a.w + cx) * a.cw;
     }
   }
 
@@ -242,7 +293,9 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
     const int what = i / kBN;  // sgn, nnz, then the thresholds
     int v = 0;
     if (col < a.n) {
-      if (what == 0) {
+      if constexpr (Ops::kResidual) {  // scale, then shift, as their bits
+        v = __float_as_int(__ldg((what ? a.shift : a.scale) + col));
+      } else if (what == 0) {
         v = __ldg(a.sgn + col);
       } else if (what >= 2) {
         v = __ldg(a.tau + static_cast<size_t>(what - 2) * a.n + col);
@@ -284,8 +337,8 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
   // whatever they hold) + corr
   const int binary_const = a.k - 288 * a.cw;
   const int nw = (a.n + 31) / 32;
-  const int ho = a.pool ? qh : a.h;
-  const int wo = a.pool ? qw : a.w;
+  const int ho = a.pool ? qh : ho_s;
+  const int wo = a.pool ? qw : wo_s;
   const size_t out_plane = static_cast<size_t>(a.b) * ho * wo * nw;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -293,18 +346,18 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
     const bool in_rows = m < rows;
     Pixel px{};
     if (in_rows) px = pixel_of(m, qh, qw);
-    const bool in_img = in_rows && px.y < a.h && px.x < a.w;
+    const bool in_img = in_rows && px.y < ho_s && px.x < wo_s;
     const bool out = a.pool ? in_rows && (g & 3) == 0 : in_img;
     size_t pos = 0;
     if (out) {
       pos = a.pool ? (static_cast<size_t>(px.bi) * qh + px.qy) * qw + px.qx
-                   : (static_cast<size_t>(px.bi) * a.h + px.y) * a.w + px.x;
+                   : (static_cast<size_t>(px.bi) * ho_s + px.y) * wo_s + px.x;
     }
     // the border term: the row's corr over the block's channels, all loads
     // in flight
     int corr[4][4][2] = {};
     if constexpr (Ops::kBorder) {
-      const int* row_corr = a.corr + (static_cast<size_t>(px.y) * a.w + px.x) * a.n;
+      const int* row_corr = a.corr + (static_cast<size_t>(px.y) * wo_s + px.x) * a.n;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
@@ -324,8 +377,19 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
       const int col0 = n0 + 32 * q;
       if (col0 >= a.n) break;  // uniform: no channel of this word is real
       // s[ni][j]: channel col0 + 8 ni + 2t + j; u = sgn * s; code: the level
-      // (D) or bit (A, A') of each of this thread's 8 channels
+      // (D) or bit (A, A') of each of this thread's 8 channels.  The
+      // residual conv (every channel real: N % 32 == 0): r and x_new of
+      // those channels, two a float2
       int u[4][2], code[4][2];
+      float2 res[4], val[4];
+      const size_t at_f = pos * a.n + col0 + 2 * t;
+      if constexpr (Ops::kResidual) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          res[ni] = out ? __ldg(reinterpret_cast<const float2*>(a.res + at_f + ni * 8))
+                        : make_float2(0.f, 0.f);
+        }
+      }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
@@ -343,11 +407,27 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
             s = max(s, __shfl_xor_sync(kFull, s, 4));
             s = max(s, __shfl_xor_sync(kFull, s, 8));
           }
-          u[ni][j] = col_sgn[c] * s;
-          code[ni][j] = 0;
+          if constexpr (Ops::kResidual) {
+            const float* fold = reinterpret_cast<const float*>(cols);
+            const float v = __fadd_rn(
+                __fadd_rn(__fmul_rn(static_cast<float>(s), fold[c]), fold[kBN + c]),
+                j ? res[ni].y : res[ni].x);
+            (j ? val[ni].y : val[ni].x) = v;
+            code[ni][j] = v >= 0.f;
+          } else {
+            u[ni][j] = col_sgn[c] * s;
+            code[ni][j] = 0;
+          }
         }
       }
-      if (out) {
+      if constexpr (Ops::kResidual) {
+        if (out) {
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            *reinterpret_cast<float2*>(a.out_f + at_f + ni * 8) = val[ni];
+          }
+        }
+      } else if (out) {
         for (int v = 0; v < a.n_thresh; ++v) {  // 8 loads in flight a level
           const int* tau_v = tau + static_cast<size_t>(v) * tau_stride - tau_col0;
 #pragma unroll
@@ -382,8 +462,9 @@ expand_mma_conv3x3_kernel(const ConvArgs a) {
 }
 
 template <class Ops, int KW>
-int launch(const ConvArgs& a, cudaStream_t stream) {
-  const long long rows = 4LL * a.b * windows(a.h, a.pool) * windows(a.w, a.pool);
+int launch(const ArgsFor<Ops>& a, cudaStream_t stream) {
+  const long long rows = 4LL * a.b * windows(conv_out(a.h, Ops::kStride), a.pool) *
+                         windows(conv_out(a.w, Ops::kStride), a.pool);
   if (rows >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = expand_mma_conv3x3_kernel<Ops, KW>;
   // once per instance: room for the most planes, and the SM's shared memory
@@ -407,7 +488,7 @@ int launch(const ConvArgs& a, cudaStream_t stream) {
 
 // KW = 4 words a step where the 16-byte activation copies are aligned
 template <class Ops>
-int dispatch(const ConvArgs& a, void* stream) {
+int dispatch(const ArgsFor<Ops>& a, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (a.cw % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0) {
     return launch<Ops, 4>(a, s);
@@ -471,6 +552,28 @@ int qnx_xnor_conv3x3_fused(const void* xp, const void* wp, const void* corr,
                    static_cast<const int*>(sgn), static_cast<const int*>(tau),
                    static_cast<uint32_t*>(out), 1, b, h, w, cw, n, 1, pool, k};
   return dispatch<BinaryOperands>(a, stream);
+}
+
+// Kernel A's residual binary conv (Bi-Real Net): bits (B, H, W, Cw), sign
+// words (9 Cw, N), corr (H', W', N), scale and shift (N,) float32, the
+// residual r (B, H', W', N) float32, k = 9 C, stride 1 or 2 (H' = ceil(H /
+// stride)), N % 32 == 0 -> the stream (B, H', W', N) float32 into out_f and
+// its sign bits (B, H', W', N / 32) into out.
+int qnx_xnor_conv3x3_residual(const void* xp, const void* wp, const void* corr,
+                              const void* scale, const void* shift, const void* res,
+                              void* out_f, void* out, int b, int h, int w, int cw,
+                              int n, int k, int stride, void* stream) {
+  const ResidualArgs a{
+      {static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(wp), nullptr,
+       nullptr, static_cast<const int*>(corr), nullptr, nullptr,
+       static_cast<uint32_t*>(out), 1, b, h, w, cw, n, 0, 0, k},
+      static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<const float*>(res), static_cast<float*>(out_f)};
+  if (n % 32 != 0 || (stride != 1 && stride != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return stride == 2 ? dispatch<BinaryResidualOperands<2>>(a, stream)
+                     : dispatch<BinaryResidualOperands<1>>(a, stream);
 }
 
 }  // extern "C"

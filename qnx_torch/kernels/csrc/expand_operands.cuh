@@ -42,7 +42,11 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int s) {
 // (conv: k - 288 Cw, dense: k - 32 Kw); kBorder, whether the conv's
 // epilogue adds the border term corr[y, x, n] to each pixel's s before the
 // pool (A and A' always; D where its planes hold quantized_tanh's
-// unsigned indices, whose zero pads are not the zero activation).
+// unsigned indices, whose zero pads are not the zero activation).  The
+// conv's mainloop also reads kStride, its stride (1 or 2), and kResidual,
+// whether its epilogue writes the float stream of a residual binary conv
+// (BinaryResidualOperands) rather than thresholded codes; the dense
+// kernel reads neither.
 
 // Kernel D, with kP planes (0: as many as the argument says), and with
 // the border term where kBorderTerm.  A: u8 levels sum_j 2^j bit_j.  B: s8
@@ -51,6 +55,8 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int s) {
 template <int kP, bool kBorderTerm = false>
 struct PlaneOperands {
   static constexpr bool kU8 = true;
+  static constexpr int kStride = 1;
+  static constexpr bool kResidual = false;
   static constexpr int kWPlanes = 2;
   static constexpr bool kCorr = false;
   static constexpr bool kCount = false;
@@ -101,6 +107,8 @@ __device__ __forceinline__ uint4 expand_pm1(uint32_t word, int h) {
 // Kernel A (binary).  A and B: s8 +-1 (expand_pm1), one weight plane.
 struct BinaryOperands {
   static constexpr bool kU8 = false;
+  static constexpr int kStride = 1;
+  static constexpr bool kResidual = false;
   static constexpr int kWPlanes = 1;
   static constexpr bool kCorr = true;
   static constexpr bool kCount = false;
@@ -115,10 +123,22 @@ struct BinaryOperands {
   }
 };
 
+// Kernel A's residual binary conv (Bi-Real Net): A's operands and s, at
+// stride kS (1 or 2); the epilogue writes x_new = (float(s) scale + shift)
+// + r, float32, and its sign bits (x_new >= 0) in place of the threshold.
+template <int kS>
+struct BinaryResidualOperands : BinaryOperands {
+  static_assert(kS == 1 || kS == 2, "stride 1 or 2");
+  static constexpr int kStride = kS;
+  static constexpr bool kResidual = true;
+};
+
 // Kernel A' (ternary weights).  A: s8 +-1 (expand_pm1).  B: s8 mask ?
 // (sign ? +1 : -1) : 0.
 struct TernaryOperands {
   static constexpr bool kU8 = false;
+  static constexpr int kStride = 1;
+  static constexpr bool kResidual = false;
   static constexpr int kWPlanes = 2;
   static constexpr bool kCorr = true;
   static constexpr bool kCount = true;

@@ -63,19 +63,24 @@ def pack_conv_ternary_np(pattern: np.ndarray):
     return np.concatenate(masks, 0), np.concatenate(signs, 0), nnz
 
 
-def padding_correction(pattern: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Host-side: corr[h, w, n] = sum over taps falling outside the image of
-    sum_c pattern[dy, dx, c, n] (a ±1 or {-1, 0, +1} pattern).  Adding ``corr`` to the packed conv output
-    yields the exact zero-padding conv result."""
+def padding_correction(pattern: np.ndarray, h: int, w: int,
+                       stride: int = 1) -> np.ndarray:
+    """Host-side: corr[y, x, n] = sum over taps falling outside the image of
+    sum_c pattern[dy, dx, c, n] (a ±1 or {-1, 0, +1} pattern), at the
+    output grid of an (h, w) input: (h, w) at stride 1, (ceil(h/s),
+    ceil(w/s)) at stride s, whose output (y, x) reads input (s*y + dy - ph,
+    s*x + dx - pw).  Adding ``corr`` to the packed conv output yields the
+    exact zero-padding conv result."""
     kh, kw, _, n = pattern.shape
     ph, pw = kh // 2, kw // 2
+    ho, wo = -(-h // stride), -(-w // stride)
     wsum = pattern.sum(axis=2, dtype=np.int64)  # (kh, kw, n)
-    corr = np.zeros((h, w, n), np.int64)
+    corr = np.zeros((ho, wo, n), np.int64)
     for dy in range(kh):
         for dx in range(kw):
-            # tap (dy,dx) at output (y,x) reads input (y+dy-ph, x+dx-pw)
-            ys = np.arange(h)[:, None] + dy - ph
-            xs = np.arange(w)[None, :] + dx - pw
+            # tap (dy,dx) at output (y,x) reads input (s*y+dy-ph, s*x+dx-pw)
+            ys = stride * np.arange(ho)[:, None] + dy - ph
+            xs = stride * np.arange(wo)[None, :] + dx - pw
             outside = (ys < 0) | (ys >= h) | (xs < 0) | (xs >= w)
             corr += outside[:, :, None] * wsum[dy, dx][None, None, :]
     return corr.astype(np.int32)

@@ -1,6 +1,8 @@
 """Fused packed binary and ternary dense and 3x3 conv with the integer threshold
 epilogue (torch port of :mod:`qnx.kernels.xnor_conv_fused`: the binary and
-the ternary branch, dense and conv).
+the ternary branch, dense and conv), and the binary conv with a residual
+epilogue (:func:`xnor_conv_residual`, Bi-Real Net's block; the JAX package
+has none).
 
     s    = K - 2 * sum_kw popcount(x ^ w)       (±1 dot product)
     s    = nnz - 2 * sum_kw popcount(mask & (x ^ sign))   (ternary weights)
@@ -27,8 +29,9 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
-from qnx_torch.ops.packing import pack_bits, packed_len
+from qnx_torch.ops.packing import pack_bits, packed_len, unpack_bits
 from . import _build
 from .ternary_gemm import check_planes, ternary_gemm_ref
 from .xnor_conv import extract_packed_patches
@@ -285,3 +288,100 @@ def ternary_conv_fused(xp: torch.Tensor, mask: torch.Tensor, sign: torch.Tensor,
 
 
 ternary_conv_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# residual conv: (B, H, W, Cw) x (9*Cw, N) + r -> the float32 stream
+# (B, H', W', N) and its sign bits (B, H', W', N/32), H' = ceil(H / stride)
+# ---------------------------------------------------------------------------
+
+def xnor_conv_residual_ref(xp: torch.Tensor, wp: torch.Tensor, k: int,
+                           corr: torch.Tensor, scale: torch.Tensor,
+                           shift: torch.Tensor, residual: torch.Tensor,
+                           stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`xnor_conv_residual`: unpack the C = k / 9
+    channels to ±1, pad with -1 (the zero word a pad tap reads), a float32
+    conv at the stride (exact: integer sums below 2^24, rounded back in
+    case the convolution's algorithm is not a direct sum), + corr, then the
+    float32 epilogue in the kernel's order, each step its own op."""
+    b, h, w, cw = xp.shape
+    n = wp.shape[1]
+    c = k // 9
+    x = unpack_bits(xp, c, dtype=torch.float32).permute(0, 3, 1, 2)
+    x = F.pad(x, (1, 1, 1, 1), value=-1.0)
+    wt = unpack_bits(wp.reshape(9, cw, n), c, axis=1, dtype=torch.float32)
+    wt = wt.reshape(3, 3, c, n).permute(3, 2, 0, 1)  # OIHW
+    s = torch.round(F.conv2d(x, wt, stride=stride)).to(torch.int32)
+    s = s.permute(0, 2, 3, 1) + corr
+    v = s.to(torch.float32) * scale
+    v = v + shift
+    v = (v + residual).contiguous()
+    return v, pack_bits(v >= 0)
+
+
+def xnor_conv_residual(xp: torch.Tensor, wp: torch.Tensor, k: int,
+                       corr: torch.Tensor, scale: torch.Tensor,
+                       shift: torch.Tensor, residual: torch.Tensor,
+                       stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed binary 3x3 conv, pad 1, at stride 1 or 2, with a residual
+    epilogue (Bi-Real Net's block, ``csrc/expand_mma_conv.cu``
+    ``expand_mma_conv3x3_kernel<BinaryResidualOperands<stride>, KW>``).
+
+    Output pixel (y, x) reads input pixels (stride*y - 1 + dy, stride*x -
+    1 + dx), dy, dx in 0..2; a pad tap adds nothing once ``corr`` is added.
+    Per output element, in float32 with round-to-nearest at each step and
+    no fused multiply-add:
+
+        s     = sum over taps and channels of x w + corr[y, x, n]   (int32, exact)
+        t     = float(s) * scale[n]          (float(s) exact: |s| < 2^24)
+        u     = t + shift[n]
+        x_new = u + residual[b, y, x, n]
+        bit   = x_new >= 0                   (-0.0 packs as +1)
+
+    Args:
+      xp:       (B, H, W, Cw) int32 channel-packed sign bits of the stream.
+      wp:       (9*Cw, N) int32 packed sign(W), tap-major (pack_conv_weights_np).
+      k:        true reduction length (9 * C_in).
+      corr:     (H', W', N) int32 zero-pad correction at the output grid
+                (padding_correction at the stride).
+      scale, shift: (N,) float32 fold of alpha and BatchNorm.
+      residual: (B, H', W', N) float32, NHWC.
+      stride:   1 or 2.
+
+    Returns:
+      (x_new (B, H', W', N) float32, bits (B, H', W', ceil(N/32)) int32 with
+      the pad bits of the last word 0).  The CUDA kernel takes N % 32 == 0.
+    """
+    b, h, w, cw = xp.shape
+    n = wp.shape[1]
+    if stride not in (1, 2):
+        raise ValueError(f"xnor_conv_residual: stride must be 1 or 2, got {stride}")
+    ho, wo = -(-h // stride), -(-w // stride)
+    if wp.shape[0] != 9 * cw or corr.shape != (ho, wo, n):
+        raise ValueError(f"xnor_conv_residual: weights {tuple(wp.shape)} and corr "
+                         f"{tuple(corr.shape)} must be {(9 * cw, n)} and "
+                         f"{(ho, wo, n)} for xp {tuple(xp.shape)} at stride {stride}")
+    if (scale.shape != (n,) or shift.shape != (n,)
+            or residual.shape != (b, ho, wo, n)):
+        raise ValueError(f"xnor_conv_residual: scale {tuple(scale.shape)}, shift "
+                         f"{tuple(shift.shape)} and residual {tuple(residual.shape)} "
+                         f"must be ({n},), ({n},) and {(b, ho, wo, n)}")
+    f32 = torch.float32
+    if not _build.check_operands("xnor_conv_residual", xp,
+                                 {"scale": f32, "shift": f32, "residual": f32},
+                                 wp=wp, corr=corr, scale=scale, shift=shift,
+                                 residual=residual):
+        return xnor_conv_residual_ref(xp, wp, k, corr, scale, shift, residual,
+                                      stride)
+    if n % 32:
+        raise ValueError(f"xnor_conv_residual: the kernel takes N % 32 == 0, got {n}")
+    out_f = torch.empty((b, ho, wo, n), dtype=f32, device=xp.device)
+    out = torch.empty((b, ho, wo, n // 32), dtype=torch.int32, device=xp.device)
+    if out.numel():
+        _build.launch("qnx_xnor_conv3x3_residual", xp.device, xp, wp, corr, scale,
+                      shift, residual, out_f, out, b, h, w, cw, n, k, stride)
+        xnor_conv_residual.launches += 1
+    return out_f, out
+
+
+xnor_conv_residual.launches = 0

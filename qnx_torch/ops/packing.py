@@ -11,8 +11,8 @@ Layout contract, identical to the JAX package:
   K — no correction term needed;
 * packed words are stored as int32.
 
-torch has no unsigned 32-bit arithmetic, so words are assembled and
-popcounted in int64 and mapped back to int32 by their two's-complement value.
+torch has no unsigned 32-bit arithmetic, so words are assembled a byte at
+a time in uint8 and read as int32, and popcounted in int64.
 """
 from __future__ import annotations
 
@@ -29,27 +29,24 @@ def packed_len(k: int) -> int:
     return (k + WORD - 1) // WORD
 
 
-def _to_int32(words64: torch.Tensor) -> torch.Tensor:
-    """Unsigned 32-bit patterns held in int64 -> the int32 with the same bits
-    (values >= 2^31 become negative), without relying on cast wrapping."""
-    return torch.where(words64 >= 2**31, words64 - 2**32, words64).to(torch.int32)
-
-
 def pack_bits(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Pack the sign bits of ``x`` along ``axis`` into int32 words.
 
     An element packs to bit 1 iff ``x > 0`` (exact zeros and -0.0 pack as
-    -1), like :func:`qnx.ops.packing.pack_bits`."""
+    -1), like :func:`qnx.ops.packing.pack_bits`.  Each byte of a word is
+    summed in uint8 from its 8 bits and the four bytes are read as one int32
+    (little-endian, as the CPU and the card are): no int64 and no table
+    copied from the host."""
     x = torch.movedim(x, axis, -1)
     k = x.shape[-1]
     kw = packed_len(k)
-    bits = (x > 0).to(torch.int64)
+    bits = (x > 0).to(torch.uint8)
     if kw * WORD != k:
-        bits = torch.cat(
-            [bits, bits.new_zeros(*bits.shape[:-1], kw * WORD - k)], dim=-1)
-    bits = bits.reshape(*bits.shape[:-1], kw, WORD)
-    words = torch.sum(bits << _SHIFTS.to(bits.device), dim=-1)
-    return torch.movedim(_to_int32(words), -1, axis)
+        bits = torch.cat([bits, bits.new_zeros(*bits.shape[:-1], kw * WORD - k)], -1)
+    bits = bits.reshape(*bits.shape[:-1], kw, 4, 8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    words = (bits << shifts).sum(-1, dtype=torch.uint8).view(torch.int32).squeeze(-1)
+    return torch.movedim(words, -1, axis)
 
 
 def unpack_bits(words: torch.Tensor, k: int, axis: int = -1,

@@ -269,6 +269,7 @@ class ServeEngine:
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue or 0)
         self._carry = None   # split-chunk remainder (dispatcher-only)
         self._total = 0
+        self._host_buf = None  # the batch's host buffer (dispatcher-only)
         self._next_request = 0  # the id of the next request taken
         self._next_batch = 0    # and of the next batch formed
         # the dispatcher's running stage's counter and start (ns), or None
@@ -540,19 +541,37 @@ class ServeEngine:
         self._lap(None)
 
     def _host_batch(self, chunks):
-        """The chunks as one static host batch: (images, padding)."""
+        """The chunks as one static host batch: (images, padding).  Where the
+        batch goes to a card, several chunks (or a padded one) are copied
+        into a host buffer the engine keeps from batch to batch, so that its
+        pages are touched once and not once a batch (a fresh 154 MB array a
+        batch spent most of the host's time on page faults at 224x224); the
+        copy to the card has consumed the buffer before the next batch
+        forms.  On the CPU the model may keep views of its input, so each
+        batch gets an array of its own."""
         self._next_batch += 1
         arrs = [imgs for imgs, *_ in chunks]
         if not (self.device_normalize
                 and all(a.dtype == np.uint8 for a in arrs)):
             # normalise the uint8 chunks on the host (native runtime)
             arrs = [u8_to_f32(a) if a.dtype == np.uint8 else a for a in arrs]
-        images = arrs[0] if len(arrs) == 1 else np.concatenate(arrs)
         pad = self.batch_size - self._total
-        if pad:
-            images = np.concatenate(
-                [images, np.zeros((pad, *images.shape[1:]), images.dtype)])
-        return images, pad
+        if len(arrs) == 1 and not pad:
+            return arrs[0], pad
+        if self.device.type != "cuda":
+            images = arrs[0] if len(arrs) == 1 else np.concatenate(arrs)
+            if pad:
+                images = np.concatenate(
+                    [images, np.zeros((pad, *images.shape[1:]), images.dtype)])
+            return images, pad
+        dtype = np.result_type(*arrs)
+        shape = (self.batch_size, *arrs[0].shape[1:])
+        buf = self._host_buf
+        if buf is None or buf.shape != shape or buf.dtype != dtype:
+            buf = self._host_buf = np.empty(shape, dtype)
+        np.concatenate(arrs, out=buf[:self._total])
+        buf[self._total:] = 0
+        return buf, pad
 
     def _run_batch(self, chunks, images, pad):
         st = self._stats

@@ -77,6 +77,7 @@ class Config:
             "SVHN": (32, 32, 3),
             "synthetic-mnist": (28, 28, 1),
             "synthetic-cifar": (32, 32, 3),
+            "ImageNet": (224, 224, 3),
         }[self.dataset]
 
     def weight_quantizer_name(self) -> str:
@@ -131,6 +132,17 @@ CIFAR10_BNN_SERVE = CIFAR10_BNN
 # trains it with fewer epochs since SVHN has ~600k train images)
 SVHN_BNN = CIFAR10_BNN.replace(dataset="SVHN", epochs=20)
 
+# Bi-Real Net-18 (Liu et al., ECCV 2018, arXiv:1808.00278) on ImageNet, a
+# preset of the port only (the JAX package has no residual model): a float
+# 7x7 stem, 16 binary 3x3 convs in four stages of base width ``width`` x
+# (1, 2, 4, 8), each with a float shortcut around it, and a float head;
+# BatchNorm's epsilon is PyTorch's, which the published code uses
+IMAGENET_BIREAL18 = Config(
+    dataset="ImageNet", architecture="bireal18", network_type="full-bnn",
+    wbits=1, abits=1, width=64, classes=1000, first_layer_float=True,
+    last_layer_float=True, batch_norm_epsilon=1e-5,
+)
+
 CONFIGS = {
     "mnist-bnn": MNIST_BNN,
     "mnist-tnn": MNIST_TNN,
@@ -138,4 +150,5 @@ CONFIGS = {
     "cifar10-tnn": CIFAR10_TNN,
     "cifar10-bnn-serve": CIFAR10_BNN_SERVE,
     "svhn-bnn": SVHN_BNN,
+    "imagenet-bireal18": IMAGENET_BIREAL18,
 }

@@ -200,6 +200,7 @@ def test_new_per_layer_entry_has_its_reader(name):
                      "source": "program_span",
                      "layer": "serving process" if name == "gc_pause_ms"
                      else "serving engine",
-                     "moves": "serve_ips", "workloads": [CELL]}
+                     "moves": "serve_ips",
+                     "workloads": [CELL, "imagenet-bireal18.backlog"]}
     assert callable(registry.reader(name).read)
     assert name in {m["name"] for m in registry.cell(CELL)["per_layer"]}

@@ -171,3 +171,32 @@ def test_mesh_is_still_refused(model):
     joined world: without one the engine refuses it."""
     with pytest.raises(RuntimeError, match="initialize_distributed"):
         ServeEngine(model, mesh=object())
+
+
+def test_a_card_engine_reuses_its_host_batch_buffer(model):
+    """An engine whose model is on a card concatenates several chunks, or
+    pads one, into one host buffer it keeps; each batch reads as the
+    chunks and zero padding; another shape or dtype gets a new buffer.  On
+    the CPU each batch is an array of its own."""
+    engine = ServeEngine(model, batch_size=8)
+    cpu = [engine._host_batch([(_u8(3, 1), [], 0, 0, True)])[0] for _ in range(2)]
+    assert cpu[0] is not cpu[1]
+    engine.device = torch.device("cuda")  # only the buffer's choice reads it
+
+    def batch(*chunks):
+        engine._total = sum(len(c) for c in chunks)
+        return engine._host_batch([(c, [], 0, i, True) for i, c in enumerate(chunks)])
+
+    a, b, c = _u8(3, 4), _u8(4, 5), _u8(8, 6)
+    first, pad = batch(a, b)
+    np.testing.assert_array_equal(first, np.concatenate([a, b, np.zeros((1, 28, 28, 1), np.uint8)]))
+    assert pad == 1
+    second, pad = batch(b)
+    assert second is first and pad == 4
+    np.testing.assert_array_equal(second[:4], b)
+    assert not second[4:].any()
+    whole, pad = batch(c)  # one full chunk: no copy
+    assert whole is c and pad == 0
+    engine.device_normalize = False  # float32 on the host: another buffer
+    third, _ = batch(a)
+    assert third is not first and third.dtype == np.float32
