@@ -11,12 +11,33 @@ with ``device_normalize=False``, or in a batch that mixes uint8 and float32
 chunks, the native host runtime (:mod:`qnx_torch.native`) normalises the
 uint8 chunks on the host to the same bits.
 
+Two batches are in flight: each turn of the dispatcher drains and forms
+batch k, launches it, and only then waits for batch k-1's logits and
+answers its futures, so that on a card the host forms the next batch while
+the device runs the last one's forward.  No answer waits on an empty queue:
+where the queue holds nothing and no carry is left, the dispatcher answers
+the batch in flight before it blocks, and ``stop()`` answers it too; while
+the dispatcher lingers on an empty queue, a batch in flight whose logits
+are on the host already (a forward that waited for the device inside, or
+one on the CPU) is answered, so that its clients may send more, and the
+linger starts again.  On a card every batch is staged in one of two
+page-locked host buffers, used in turn and refilled only once the copy
+that last read it has ended; the copy runs on a stream the engine owns,
+the forward's stream waits for it, and the logits' copy back to the slot's
+page-locked logits is launched right after the forward, so that waiting for
+batch k-1's logits never waits for batch k's forward; each batch's answers
+are rows of an array of its own, copied out of the slot before the batch
+after next reuses it.  The answers are the serial engine's, bit for bit:
+the same forward on the same bytes.  ``overlapped`` counts the batches
+launched while another was in flight.
+
 With a ``mesh`` (:func:`qnx_torch.parallel.mesh.make_mesh`) the engine
 spans the world's ranks.  The JAX engine is one controller driving every
 device; here the ranks are processes, so each batch forms once: rank 0
 owns the queue and the dispatcher and broadcasts each static batch (uint8
 or float32, padded as on one device) over the world with a stop flag, the
-other ranks follow it, and rank 0 answers.  On a rank other than 0 the
+other ranks follow it, and rank 0 answers, one batch after another (a
+mesh keeps one batch in flight).  On a rank other than 0 the
 constructor runs the follower loop and returns when rank 0's ``stop()``
 broadcasts the flag; that engine serves nothing.  The forward is the ring
 TP path (:func:`qnx_torch.parallel.tp_forward.make_tp_forward`) where the
@@ -24,21 +45,23 @@ model takes it, else the data-parallel replicated path; the stats name it
 (``forward_path``: ``single``, ``ring`` or ``replicated``) with the
 backend and the transport.
 
-The engine times its own host work, always: the dispatcher's cycle is
-four stages whose nanoseconds ``ServeStats`` sums (``drain_ns``: from the
-last batch's answers to the next host batch, queue waits, linger,
-concatenation and padding; ``enqueue_ns``: the copy to the device, the
-normalisation and the forward's launches; ``wait_ns``: the logits' copy to
-the host, which waits for the device; ``resolve_ns``: setting the futures),
-so a batch's stages add up to its cycle; ``counters()`` returns these flat,
-the running stage counted up to the call, so that between two calls the
-stages add up to the time between them, and ``stats()`` as ms a batch.  A
-``gc.callbacks`` entry, in place from ``start()`` to ``stop()``, sums the
-collector's pauses on any thread (``gc_ns``, ``gc_collections_0/1/2``);
-they overlap the stages.  While a torch profiler records, the two stages
-that launch no device work are host ranges, ``qnx.serve.drain`` and
-``qnx.serve.resolve``, with the batch's id and request ids as arguments,
-and each collection is ``qnx.gc.gen<g>``
+The engine times its own host work, always: the dispatcher's cycle is four
+stages whose nanoseconds ``ServeStats`` sums (``drain_ns``: batch k's
+drain, queue waits, linger, concatenation and padding; ``enqueue_ns``: its
+copy to the device, the normalisation and the forward's launches (on a
+card, without waiting for them); ``wait_ns``: waiting for batch k-1's
+logits on the host, which waits for the device; ``resolve_ns``: setting
+batch k-1's futures), so the stages divide the dispatcher's time exactly; a batch's
+``total_batch_ms`` runs from its dispatch to its logits on the host, so
+the times of batches in flight together overlap; ``counters()`` returns
+these flat, the running stage counted up to the call, so that between two
+calls the stages add up to the time between them, and ``stats()`` as ms a
+batch.  A ``gc.callbacks`` entry, in place from ``start()`` to ``stop()``,
+sums the collector's pauses on any thread (``gc_ns``,
+``gc_collections_0/1/2``); they overlap the stages.  While a torch profiler
+records, the two stages that launch no device work are host ranges,
+``qnx.serve.drain`` and ``qnx.serve.resolve``, with the batch's id and
+request ids as arguments, and each collection is ``qnx.gc.gen<g>``
 (:func:`qnx_torch.utils.profiling.span`).  A request's id is its place in
 the queue's order, counted as the dispatcher takes it; a chunk split over
 two batches keeps its id.
@@ -100,6 +123,10 @@ TIMELINE = 1 << 16
 
 _INV_127_5 = np.float32(1.0 / 127.5)
 
+#: How often a dispatcher lingering on an empty queue looks whether the
+#: batch in flight has its logits on the host yet.
+_LOOK_AGAIN_S = 0.5e-3
+
 _STAGES = ("drain", "enqueue", "wait", "resolve")
 _GC_RANGES = tuple(f"qnx.gc.gen{g}" for g in range(3))
 
@@ -117,6 +144,45 @@ _freezing = False  # they froze (nothing else had): the last one unfreezes
 def last_started() -> "ServeEngine | None":
     """The engine this process started last, while it lives."""
     return _last_started() if _last_started is not None else None
+
+
+def _pinned(shape, dtype) -> np.ndarray:
+    """An empty page-locked host array: a card's copy from it runs on a
+    stream without holding the host."""
+    like = torch.from_numpy(np.empty(0, dtype)).dtype
+    return torch.empty(shape, dtype=like, pin_memory=True).numpy()
+
+
+def _fail(chunks, error: Exception) -> None:
+    """Resolve, never leak, the futures of a batch that failed."""
+    for _, futs, *_ in chunks:
+        for fut in futs:
+            if not fut.done():
+                fut.set_exception(error)
+
+
+@dataclass
+class _Slot:
+    """One of a card engine's two staging slots, used by every other batch:
+    its page-locked host batch, the event behind the copy that last read
+    it, and the page-locked logits that batch's forward was copied into."""
+    images: np.ndarray | None = None
+    copied: object = None
+    logits: torch.Tensor | None = None
+
+
+@dataclass
+class _InFlight:
+    """A batch launched and not yet answered."""
+    chunks: list
+    batch: int      # its id
+    images: int     # and its images, less the padding
+    pad: int
+    t0: int         # ns, its dispatch
+    logits: torch.Tensor  # on the host once ``ready`` has passed
+    # on a card, the CUDA event behind the logits' copy into its slot,
+    # which the batch after next reuses
+    ready: object
 
 
 def normalize_u8(x: torch.Tensor) -> torch.Tensor:
@@ -137,6 +203,7 @@ class ServeStats:
     padded: int = 0
     total_batch_ms: float = 0.0  # from dispatch to the logits on the host
     requests: int = 0  # answered in full
+    overlapped: int = 0  # batches launched while another was in flight
     # the dispatcher's cycle, in ns (module docstring)
     drain_ns: int = 0
     enqueue_ns: int = 0
@@ -158,7 +225,7 @@ class ServeStats:
     _gc_range: object = None
 
     COUNTERS = ("batches", "images", "padded", "total_batch_ms", "requests",
-                *(f"{s}_ns" for s in _STAGES), "gc_ns",
+                "overlapped", *(f"{s}_ns" for s in _STAGES), "gc_ns",
                 *(f"gc_collections_{g}" for g in range(3)), "gc_frozen")
 
     def record_latency(self, lat_ms: float) -> None:
@@ -214,6 +281,7 @@ class ServeStats:
         per_batch = 1e6 * max(self.batches, 1)
         return {
             "batches": self.batches,
+            "overlapped": self.overlapped,
             "images": self.images,
             "pad_fraction": self.padded / max(self.images + self.padded, 1),
             "throughput_ips": self.images / busy_s if busy_s > 0 else 0.0,
@@ -269,7 +337,12 @@ class ServeEngine:
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue or 0)
         self._carry = None   # split-chunk remainder (dispatcher-only)
         self._total = 0
-        self._host_buf = None  # the batch's host buffer (dispatcher-only)
+        # dispatcher-only: on a card, the two staging slots, the one filled
+        # last and the copy stream; the batch in flight
+        self._slots = (_Slot(), _Slot())
+        self._slot = 1
+        self._copy_stream = None
+        self._inflight: _InFlight | None = None
         self._next_request = 0  # the id of the next request taken
         self._next_batch = 0    # and of the next batch formed
         # the dispatcher's running stage's counter and start (ns), or None
@@ -343,9 +416,9 @@ class ServeEngine:
         return self
 
     def stop(self):
-        """Stop the dispatcher and CANCEL all still-queued requests, so every
-        future handed out by submit/submit_many is resolved one way or
-        another."""
+        """Stop the dispatcher, which first answers the batch in flight, and
+        CANCEL all still-queued requests, so every future handed out by
+        submit/submit_many is resolved one way or another."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
@@ -364,6 +437,9 @@ class ServeEngine:
             self._released = True
             self._broadcast_header(None)  # the followers' stop flag
         pending = []
+        if self._inflight is not None:  # a dispatcher that did not end
+            pending.extend(self._inflight.chunks)
+            self._inflight = None
         if self._carry is not None:
             pending.append(self._carry)
             self._carry = None
@@ -404,8 +480,9 @@ class ServeEngine:
 
     def counters(self) -> dict:
         """The engine's cumulative counters, flat: ``batches``, ``images``,
-        ``padded``, ``total_batch_ms``, ``requests``, the four stages'
-        ``*_ns``, ``gc_ns``, ``gc_collections_0/1/2`` and ``gc_frozen``
+        ``padded``, ``total_batch_ms``, ``requests``, ``overlapped``, the
+        four stages' ``*_ns``, ``gc_ns``, ``gc_collections_0/1/2`` and
+        ``gc_frozen``
         (module docstring).  The running stage counts up to this call, so
         that between two calls the stages add up to the time between them."""
         with self._running_lock:
@@ -461,7 +538,10 @@ class ServeEngine:
         lingering max_wait_ms. A chunk larger than the remaining room is
         split; the remainder carries over to the next batch.  A chunk is
         ``(images, futures, submitted_ns, request_id, last)``, ``last``
-        when it ends its request."""
+        when it ends its request.  With nothing to take but from an empty
+        queue, it answers the batch in flight before it blocks; lingering on
+        an empty queue, it answers a batch in flight whose logits are on the
+        host already, whose clients may then send more, and lingers anew."""
         chunks: list = []
         self._total = 0
 
@@ -483,20 +563,35 @@ class ServeEngine:
             item, self._carry = self._carry, None
             take(*item)
         if not chunks:
+            if self._inflight is not None and self._queue.empty():
+                self._settle()  # no answer waits on an empty queue
             try:
                 take_queued(0.1)
             except queue.Empty:
                 return chunks
         deadline = time.perf_counter() + self.max_wait_ms / 1e3
         while self._total < self.batch_size and self._carry is None:
+            if self._queue.empty() and self._answered_if_done():
+                deadline = time.perf_counter() + self.max_wait_ms / 1e3
             remaining = deadline - time.perf_counter()
             if remaining <= 0:
                 break
+            if self._inflight is not None:  # and look at it again soon
+                remaining = min(remaining, _LOOK_AGAIN_S)
             try:
                 take_queued(remaining)
             except queue.Empty:
-                break
+                pass
         return chunks
+
+    def _answered_if_done(self) -> bool:
+        """Answer the batch in flight if its logits are on the host already
+        (on a card, once its event has passed); True if it did."""
+        b = self._inflight
+        if b is None or (b.ready is not None and not b.ready.query()):
+            return False
+        self._settle()
+        return True
 
     def _lap(self, then: str | None) -> int:
         """End the running stage, adding its ns to its counter, and start
@@ -521,7 +616,7 @@ class ServeEngine:
 
     def _loop(self):
         while not self._stop.is_set():
-            chunks = []
+            chunks, launched = [], None  # nothing of a batch outlives a turn
             try:
                 first = (self._carry[3] if self._carry is not None
                          else self._next_request)
@@ -531,23 +626,35 @@ class ServeEngine:
                     if not chunks:
                         continue
                     images, pad = self._host_batch(chunks)
-                self._run_batch(chunks, images, pad)
-            except Exception as e:  # resolve, never leak, this batch's futures
-                for _, futs, *_ in chunks:
-                    for fut in futs:
-                        if not fut.done():
-                            fut.set_exception(e)
+                launched = self._launch(chunks, images, pad)
+            except Exception as e:  # this batch fails, and it alone
+                _fail(chunks, e)
+                if self._inflight is not None:  # before a batch takes its slot
+                    self._settle()
+                else:
+                    self._lap("drain_ns")
+                continue
+            if self._inflight is not None:  # batch k-1, launched last turn
+                self._stats.overlapped += 1
+                self._settle()
+            elif self.mesh is None:
                 self._lap("drain_ns")
+            self._inflight = launched
+            if self.mesh is not None:  # serial: one ordered broadcast a batch
+                self._settle()
+        if self._inflight is not None:
+            self._settle()
         self._lap(None)
 
     def _host_batch(self, chunks):
         """The chunks as one static host batch: (images, padding).  Where the
-        batch goes to a card, several chunks (or a padded one) are copied
-        into a host buffer the engine keeps from batch to batch, so that its
-        pages are touched once and not once a batch (a fresh 154 MB array a
-        batch spent most of the host's time on page faults at 224x224); the
-        copy to the card has consumed the buffer before the next batch
-        forms.  On the CPU the model may keep views of its input, so each
+        batch goes to a card, every batch, a single full chunk too, is
+        copied into the next of two page-locked buffers the engine keeps
+        (:meth:`_stage`), so that its pages are touched once and not once a
+        batch (a fresh 154 MB array a batch spent most of the host's time
+        on page faults at 224x224), its copy to the card runs without
+        holding the host, and the client's array is not read after the
+        drain.  On the CPU the model may keep views of its input, so each
         batch gets an array of its own."""
         self._next_batch += 1
         arrs = [imgs for imgs, *_ in chunks]
@@ -556,53 +663,120 @@ class ServeEngine:
             # normalise the uint8 chunks on the host (native runtime)
             arrs = [u8_to_f32(a) if a.dtype == np.uint8 else a for a in arrs]
         pad = self.batch_size - self._total
-        if len(arrs) == 1 and not pad:
-            return arrs[0], pad
         if self.device.type != "cuda":
+            if len(arrs) == 1 and not pad:
+                return arrs[0], pad
             images = arrs[0] if len(arrs) == 1 else np.concatenate(arrs)
             if pad:
                 images = np.concatenate(
                     [images, np.zeros((pad, *images.shape[1:]), images.dtype)])
             return images, pad
-        dtype = np.result_type(*arrs)
-        shape = (self.batch_size, *arrs[0].shape[1:])
-        buf = self._host_buf
-        if buf is None or buf.shape != shape or buf.dtype != dtype:
-            buf = self._host_buf = np.empty(shape, dtype)
+        buf = self._stage((self.batch_size, *arrs[0].shape[1:]),
+                          np.result_type(*arrs))
         np.concatenate(arrs, out=buf[:self._total])
         buf[self._total:] = 0
         return buf, pad
 
-    def _run_batch(self, chunks, images, pad):
+    def _stage(self, shape, dtype) -> np.ndarray:
+        """The staging buffer after the one filled last, once the copy that
+        last read it has ended; a new one (:func:`_pinned`) for another
+        shape or dtype, and the first batch makes both."""
+        self._slot ^= 1
+        slot = self._slots[self._slot]
+        if slot.copied is not None:
+            slot.copied.synchronize()
+            slot.copied = None
+        buf = slot.images
+        if buf is None or buf.shape != shape or buf.dtype != dtype:
+            slot.images = _pinned(shape, dtype)
+            other = self._slots[self._slot ^ 1]
+            if other.images is None:  # both at the first batch, a warm-up's
+                other.images = _pinned(shape, dtype)
+        return slot.images
+
+    def _launch(self, chunks, images, pad) -> _InFlight:
+        """Dispatch a static host batch (stage ``enqueue``): its copy to the
+        device, the normalisation and the forward, and on a card the
+        logits' copy back, launched and not waited for."""
         st = self._stats
         t0 = self._lap("enqueue_ns")
         if st.first_dispatch is None:
             st.first_dispatch = t0 / 1e9
         x = torch.from_numpy(images)
+        ready = None
         if self.mesh is not None:
-            x = self._broadcast_batch(x)
-        logits = self._compute(x)
-        self._lap("wait_ns")
-        logits = logits.cpu().numpy()  # the copy to the host waits for the device
-        done = self._lap("resolve_ns")
-        st.batches += 1
-        st.images += self._total
-        st.padded += pad
-        st.total_batch_ms += (done - t0) / 1e6
-        if st.batches == 1:  # what the first forward loaded outlives serving
-            with _freeze_lock:
-                if self._serving and _freezing:
-                    self._freeze()
-        with profiling.span("qnx.serve.resolve", batch=self._next_batch - 1,
-                            first_request=chunks[0][3],
-                            last_request=chunks[-1][3]):
-            off = 0
-            for _, futs, t_in, _, last in chunks:
-                if last:
-                    st.record_latency((done - t_in) / 1e6)
-                for fut in futs:
-                    fut.set_result(logits[off])
-                    off += 1
+            logits = self._compute(self._broadcast_batch(x))
+        elif self.device.type == "cuda":
+            logits, ready = self._compute_staged(x)
+        else:
+            logits = self._compute(x)
+        return _InFlight(chunks, self._next_batch - 1, self._total, pad, t0,
+                         logits, ready)
+
+    def _compute_staged(self, x: torch.Tensor):
+        """The forward of the staging slot filled last, on a card: its copy
+        on the engine's copy stream, which the current stream waits for
+        before the normalisation; the logits copied back into the slot's
+        page-locked logits right after the forward (the batch after next
+        reuses them, once this one is answered).  Returns the host logits
+        and the event behind their copy."""
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        slot = self._slots[self._slot]
+        with torch.cuda.stream(self._copy_stream):
+            xd = x.to(self.device, non_blocking=True)
+        copied = slot.copied = torch.cuda.Event()
+        copied.record(self._copy_stream)
+        compute.wait_event(copied)
+        xd.record_stream(compute)  # alive until the normalisation has read it
+        with torch.inference_mode():
+            if xd.dtype == torch.uint8:
+                xd = normalize_u8(xd)
+            logits = self._forward(self.model, xd)
+        host = slot.logits
+        if host is None or host.shape != logits.shape or host.dtype != logits.dtype:
+            host = slot.logits = torch.empty(logits.shape, dtype=logits.dtype,
+                                             pin_memory=True)
+        host.copy_(logits, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(compute)
+        return host, ready
+
+    def _settle(self):
+        """Wait for the batch in flight's logits (stage ``wait``) and answer
+        its futures (``resolve``); the dispatcher drains next."""
+        st, b, self._inflight = self._stats, self._inflight, None
+        try:
+            self._lap("wait_ns")
+            if b.ready is None:
+                logits = b.logits.cpu().numpy()  # under a mesh, waits for the device
+            else:  # the rows out of the slot the batch after next reuses
+                b.ready.synchronize()
+                logits = b.logits.numpy().copy()
+            done = self._lap("resolve_ns")
+            st.batches += 1
+            st.images += b.images
+            st.padded += b.pad
+            st.total_batch_ms += (done - b.t0) / 1e6
+            if st.batches == 1:  # what the first forward loaded outlives serving
+                with _freeze_lock:
+                    if self._serving and _freezing:
+                        self._freeze()
+            with profiling.span("qnx.serve.resolve", batch=b.batch,
+                                first_request=b.chunks[0][3],
+                                last_request=b.chunks[-1][3]):
+                off = 0
+                for _, futs, t_in, _, last in b.chunks:
+                    if last:
+                        st.record_latency((done - t_in) / 1e6)
+                    for fut in futs:
+                        fut.set_result(logits[off])
+                        off += 1
+        except Exception as e:  # this batch fails, and it alone
+            _fail(b.chunks, e)
+            self._lap("drain_ns")
+            return
         st.last_answer = self._lap("drain_ns") / 1e9
 
     # ---------------- the ranks of a mesh ----------------

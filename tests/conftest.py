@@ -21,6 +21,10 @@ if os.environ.get("QNX_TEST_TPU", "0") != "1":
     jax.config.update("jax_num_cpu_devices", 8)
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def n_devices():
     return jax.device_count()

@@ -173,14 +173,25 @@ def test_mesh_is_still_refused(model):
         ServeEngine(model, mesh=object())
 
 
-def test_a_card_engine_reuses_its_host_batch_buffer(model):
-    """An engine whose model is on a card concatenates several chunks, or
-    pads one, into one host buffer it keeps; each batch reads as the
-    chunks and zero padding; another shape or dtype gets a new buffer.  On
-    the CPU each batch is an array of its own."""
+def test_a_card_engine_reuses_its_host_batch_buffer(model, monkeypatch):
+    """An engine whose model is on a card copies every batch, several
+    chunks, a padded one or one full chunk, into the next of two host
+    buffers it keeps, used in turn; each batch reads as the chunks and zero
+    padding; another shape or dtype gets a new buffer.  On the CPU each
+    batch is an array of its own."""
+    from qnx_torch.serve import engine as serve
+
+    made = []
+
+    def pinned(shape, dtype):  # page-locked memory needs a card
+        made.append(np.empty(shape, dtype))
+        return made[-1]
+
+    monkeypatch.setattr(serve, "_pinned", pinned)
     engine = ServeEngine(model, batch_size=8)
     cpu = [engine._host_batch([(_u8(3, 1), [], 0, 0, True)])[0] for _ in range(2)]
     assert cpu[0] is not cpu[1]
+    assert not made
     engine.device = torch.device("cuda")  # only the buffer's choice reads it
 
     def batch(*chunks):
@@ -191,12 +202,20 @@ def test_a_card_engine_reuses_its_host_batch_buffer(model):
     first, pad = batch(a, b)
     np.testing.assert_array_equal(first, np.concatenate([a, b, np.zeros((1, 28, 28, 1), np.uint8)]))
     assert pad == 1
+    assert len(made) == 2  # the first batch makes both
     second, pad = batch(b)
-    assert second is first and pad == 4
+    assert second is not first and pad == 4
     np.testing.assert_array_equal(second[:4], b)
     assert not second[4:].any()
-    whole, pad = batch(c)  # one full chunk: no copy
-    assert whole is c and pad == 0
+    whole, pad = batch(c)  # one full chunk: staged too, in the first buffer
+    assert whole is first and whole is not c and pad == 0
+    np.testing.assert_array_equal(whole, c)
+    again, pad = batch(a)  # and the second, its padding zeroed again
+    assert again is second and pad == 5
+    np.testing.assert_array_equal(again[:3], a)
+    assert not again[3:].any()
+    assert len(made) == 2
     engine.device_normalize = False  # float32 on the host: another buffer
     third, _ = batch(a)
     assert third is not first and third.dtype == np.float32
+    assert len(made) == 3

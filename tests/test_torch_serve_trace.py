@@ -73,9 +73,15 @@ def test_stage_counters_add_up_to_the_dispatchers_time():
     assert all(c[s] > 0 for s in STAGES)
     assert sum(c[s] for s in STAGES) / 1e9 == pytest.approx(elapsed, rel=0.05)
     assert c["enqueue_ns"] >= 4 * 0.02e9  # the forward's sleep is enqueued
-    # total_batch_ms is dispatch to the logits on the host: enqueue and wait
-    assert c["total_batch_ms"] == pytest.approx(
-        (c["enqueue_ns"] + c["wait_ns"]) / 1e6)
+    # total_batch_ms is dispatch to the logits on the host: from the start of
+    # a batch's enqueue to the end of its wait, which with two batches in
+    # flight holds the next batch's drain and enqueue
+    spans = {s: [(a, b) for k, a, b in engine._stats.timeline if k == s]
+             for s in ("enqueue_ns", "wait_ns")}
+    assert len(spans["enqueue_ns"]) == len(spans["wait_ns"]) == 4
+    assert c["total_batch_ms"] == pytest.approx(sum(
+        w[1] - e[0] for e, w in zip(spans["enqueue_ns"], spans["wait_ns"])) / 1e6)
+    assert c["total_batch_ms"] > (c["enqueue_ns"] + c["wait_ns"]) / 1e6
     c = engine.counters()  # stopped: the last drain is closed
     stage_ms = engine.stats()["stage_ms"]
     assert stage_ms == pytest.approx({s[:-3]: c[s] / 4 / 1e6 for s in STAGES})
@@ -99,9 +105,14 @@ def test_counters_keep_the_stats_fields():
     engine = ServeEngine(Toy(), batch_size=4, max_wait_ms=1.0)
     _serve(engine, [_u8(3, 0), _u8(6, 1)])
     c, s = engine.counters(), engine._stats
-    for key in ("batches", "images", "padded", "total_batch_ms", "gc_frozen"):
+    for key in ("batches", "images", "padded", "total_batch_ms", "gc_frozen",
+                "overlapped"):
         assert c[key] == getattr(s, key)
     assert (c["batches"], c["images"], c["padded"]) == (3, 9, 3)
+    # queued before the start: the second batch launched while the first was
+    # in flight; the third, a carry lingering on the empty queue, after the
+    # second, whose logits were on the host, was answered
+    assert c["overlapped"] == 1
     assert set(c) == set(s.COUNTERS)
 
 
@@ -257,6 +268,9 @@ def test_stats_keep_their_keys():
     _serve(engine, [_u8(5, 0)])
     stats = engine.stats()
     assert STATS_KEYS <= set(stats)
+    # the carry of one image lingered on the empty queue: the first batch,
+    # its logits on the host, was answered before the second launched
+    assert stats["overlapped"] == engine.counters()["overlapped"] == 0
     assert set(stats["stage_ms"]) == {"drain", "enqueue", "wait", "resolve"}
     assert set(stats["gc"]) == {"collections", "pause_ms", "frozen"}
     json.dumps(stats)  # the serve command prints them
