@@ -135,7 +135,7 @@ def task_serve(mesh, payload, device):
         if iters:
             x = torch.from_numpy(reqs[:payload["batch_size"]])
             res["device_ms"], res["host_ms"] = _cuda_ms(
-                device, lambda: eng._compute(x), iters)
+                device, lambda: eng.route.compute(x), iters)
         out[label] = res
     return out
 

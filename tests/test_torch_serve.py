@@ -17,8 +17,9 @@ from qnx.nn.inference import mlp_forward as jax_mlp_forward
 from qnx.serve.engine import ServeEngine as JaxServeEngine
 from qnx_torch.convert.pack_model import pack_int8, pack_mlp, pack_vgg
 from qnx_torch.models.factory import init_variables
-from qnx_torch.native import hostlib
+from qnx_torch.native import hostlib, u8_to_f32
 from qnx_torch.nn.inference import mlp_forward
+from qnx_torch.serve import routes
 from qnx_torch.serve.engine import ServeEngine, normalize_u8
 
 torch.set_num_threads(2)
@@ -173,30 +174,32 @@ def test_mesh_is_still_refused(model):
         ServeEngine(model, mesh=object())
 
 
-def test_a_card_engine_reuses_its_host_batch_buffer(model, monkeypatch):
-    """An engine whose model is on a card copies every batch, several
-    chunks, a padded one or one full chunk, into the next of two host
-    buffers it keeps, used in turn; each batch reads as the chunks and zero
-    padding; another shape or dtype gets a new buffer.  On the CPU each
-    batch is an array of its own."""
-    from qnx_torch.serve import engine as serve
-
-    made = []
-
-    def pinned(shape, dtype):  # page-locked memory needs a card
+def _unpinned(made):
+    """A stand-in for ``routes._pinned``: page-locked memory needs a card."""
+    def pinned(shape, dtype):
         made.append(np.empty(shape, dtype))
         return made[-1]
+    return pinned
 
-    monkeypatch.setattr(serve, "_pinned", pinned)
+
+def test_a_card_engine_reuses_its_host_batch_buffer(model, monkeypatch):
+    """The card route copies every batch, several chunks, a padded one or
+    one full chunk, into the next of two host buffers it keeps, used in
+    turn; each batch reads as the chunks and zero padding; another shape or
+    dtype gets a new buffer.  On the CPU each batch is an array of its
+    own."""
+    made = []
+    monkeypatch.setattr(routes, "_pinned", _unpinned(made))
     engine = ServeEngine(model, batch_size=8)
-    cpu = [engine._host_batch([(_u8(3, 1), [], 0, 0, True)])[0] for _ in range(2)]
+    assert isinstance(engine.route, routes.HostRoute)
+    cpu = [engine._host_batch([(_u8(3, 1), [], 0, 0, True)], 3)[0] for _ in range(2)]
     assert cpu[0] is not cpu[1]
     assert not made
-    engine.device = torch.device("cuda")  # only the buffer's choice reads it
+    # staging touches no card: only the launch does
+    card = routes.CardRoute(model, torch.device("cuda"), 8, None)
 
     def batch(*chunks):
-        engine._total = sum(len(c) for c in chunks)
-        return engine._host_batch([(c, [], 0, i, True) for i, c in enumerate(chunks)])
+        return card.stage(list(chunks), sum(len(c) for c in chunks))
 
     a, b, c = _u8(3, 4), _u8(4, 5), _u8(8, 6)
     first, pad = batch(a, b)
@@ -215,7 +218,33 @@ def test_a_card_engine_reuses_its_host_batch_buffer(model, monkeypatch):
     np.testing.assert_array_equal(again[:3], a)
     assert not again[3:].any()
     assert len(made) == 2
-    engine.device_normalize = False  # float32 on the host: another buffer
-    third, _ = batch(a)
+    third, _ = batch(u8_to_f32(a))  # float32 from the host: another buffer
     assert third is not first and third.dtype == np.float32
     assert len(made) == 3
+
+
+@pytest.mark.parametrize("sizes", [(8,), (3,), (3, 4), (2, 2, 4), (1, 1)])
+@pytest.mark.parametrize("float32", [False, True])
+def test_host_and_card_routes_stage_and_answer_alike(model, monkeypatch, sizes,
+                                                      float32):
+    """The same chunks give the same zero-padded host batch on the host
+    route and on the card route (its buffers unpinned, on the CPU), and the
+    routes' one forward (``routes.infer``, which the card route runs after
+    its copy) gives the same logits, the model's on the chunks."""
+    monkeypatch.setattr(routes, "_pinned", _unpinned([]))
+    chunks = [_u8(n, 10 + i) for i, n in enumerate(sizes)]
+    if float32:
+        chunks = [u8_to_f32(c) for c in chunks]
+    total = sum(sizes)
+    host = routes.HostRoute(model, torch.device("cpu"), 8, None)
+    card = routes.CardRoute(model, torch.device("cuda"), 8, None)
+    (h, h_pad), (c, c_pad) = host.stage(chunks, total), card.stage(chunks, total)
+    assert h_pad == c_pad == 8 - total
+    np.testing.assert_array_equal(h, c)
+    np.testing.assert_array_equal(h[total:], 0)
+    got = [routes.infer(r.forward, model, torch.from_numpy(b)).numpy()
+           for r, b in ((host, h), (card, c))]
+    np.testing.assert_array_equal(got[0], got[1])
+    want = routes.infer(lambda m, x: m(x), model,
+                        torch.from_numpy(np.concatenate(chunks))).numpy()
+    np.testing.assert_array_equal(got[0][:total], want)

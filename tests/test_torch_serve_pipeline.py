@@ -21,7 +21,7 @@ import torch
 
 from qnx_torch.convert.pack_model import pack_vgg_bitplane
 from qnx_torch.models.factory import init_variables
-from qnx_torch.serve import engine as serve
+from qnx_torch.serve import routes
 from qnx_torch.serve.engine import ServeEngine, normalize_u8
 from qnx_torch.utils.config import Config
 
@@ -293,8 +293,8 @@ def test_staging_buffers_are_page_locked_and_two(card, monkeypatch):
         made.append(real(shape, dtype))
         return made[-1]
 
-    real = serve._pinned
-    monkeypatch.setattr(serve, "_pinned", pinned)
+    real = routes._pinned
+    monkeypatch.setattr(routes, "_pinned", pinned)
     images = _u8(37 * 20, 4, shape=(32, 32, 3))
     sizes = [37] * 20
     engine = ServeEngine(_card_toy(card), batch_size=64, max_wait_ms=50.0)
